@@ -1,0 +1,25 @@
+"""Artifact-store helpers: atomic writes for the filesystem work queue
+(counterpart of diffmining_tpu/utils/artifacts.py).
+
+Every store write goes through temp file + rename, so `exists` implies a
+complete file even if a worker is killed mid-write.
+"""
+from __future__ import annotations
+
+import os
+import tempfile
+
+import numpy as np
+
+
+def atomic_save_npy(path: str, arr: np.ndarray) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)), suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.save(f, arr)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
