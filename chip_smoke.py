@@ -17,7 +17,8 @@ back to the CPU):
      from a seed, bf16; make_submission + compute_submission over 2 labels x
      8 synthetic 512x512 images; every artifact checked; kernel launches
      counted over that run; one UNet pass in bf16 with the kernel held
-     against the same pass in float32 through the plain attention; imgs/hr.
+     against the same pass in float32 through the plain attention; imgs/hr
+     of that run and of one warm group of 8 images at N=100.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -188,7 +189,7 @@ def phase_slice(smi):
     from diffmining_tpu_torch.models.unet import SD15_UNET
     from diffmining_tpu_torch.models.vae import SD15_VAE
     from diffmining_tpu_torch.ops.flash_attention import flash_fwd_nomax
-    from diffmining_tpu_torch.typicality.compute import SD, Typicality
+    from diffmining_tpu_torch.typicality.compute import SD, D, Typicality
     from diffmining_tpu_torch.utils.images import array_from_uint8
 
     labels, per_label, px, N, batch_images, chunk = ["1920", "1960"], 8, 512, 4, 8, 1
@@ -263,8 +264,22 @@ def phase_slice(smi):
     log(f"slice: UNet pass (B={batch_images}x2, 512px) bf16+kernel vs float32+plain attention: "
         f"relative L2 error {rel:.4g} (limit {UNET_REL_L2}: bf16 rounding through the whole UNet)")
     log(f"slice: one UNet pass (batch {batch_images * 2}, dedup) {pass_ms:.2f} ms")
+
+    # the product setting, N=100, on one warm group of 8 images
+    d100 = D(sd, os.path.join(work, "n100"), "ftt", N=100, t_min=0.1, t_max=0.9,
+             batch_images=batch_images, chunk=chunk)
+    group = [(p, labels[0], arrays[p]) for p in sorted(arrays)[:batch_images]]
+    t0 = time.perf_counter()
+    d100._compute_group(group)
+    dt100 = time.perf_counter() - t0
+    for p, _, _ in group:
+        a = d100(p)
+        if a.shape != (100, 2, 4, px // 8, px // 8) or not np.isfinite(a).all():
+            raise AssertionError(f"N=100 artifact {p}: {a.shape}")
+    imgs_hr_100 = batch_images / dt100 * 3600.0
+    log(f"slice: N=100 sweep of {batch_images} images in {dt100:.2f} s = {imgs_hr_100:.1f} imgs/hr on {smi}")
     shutil.rmtree(work, ignore_errors=True)
-    return launches, imgs_hr, pass_ms
+    return launches, imgs_hr, imgs_hr_100, pass_ms
 
 
 def main() -> int:
@@ -278,7 +293,7 @@ def main() -> int:
     smi = phase_environment()
     phase_build()
     kern = phase_kernels()
-    launches, imgs_hr, pass_ms = phase_slice(smi)
+    launches, imgs_hr, imgs_hr_100, pass_ms = phase_slice(smi)
 
     main_case = kern["K1 L4096 D40"]
     entry = {
@@ -297,7 +312,7 @@ def main() -> int:
         "shapes": {name: {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
                                              "bound_ms", "bound_by", "exp2")} for name, r in kern.items()},
     }
-    print(json.dumps({"kernels": [entry], "imgs_per_hr": imgs_hr, "unet_pass_ms": pass_ms, "card": smi}))
+    print(json.dumps({"kernels": [entry], "imgs_per_hr_n4": imgs_hr, "imgs_per_hr_n100": imgs_hr_100, "unet_pass_ms": pass_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

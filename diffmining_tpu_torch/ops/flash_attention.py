@@ -27,7 +27,6 @@ from pathlib import Path
 import torch
 
 LOG2E = 1.4426950408889634
-NEG_INF = -1e30
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_fwd_nomax.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (

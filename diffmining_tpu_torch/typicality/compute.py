@@ -57,9 +57,6 @@ class CategoryFeatures:
         ids = torch.from_numpy(self.tokenizer(typicality_prompts(self.which, categories))).long()
         return self.clip(ids.to(self.device)).float()
 
-    def __getitem__(self, categories):
-        return self.embed(categories)
-
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights, flax's defaults: lecun-normal conv/dense
@@ -238,9 +235,6 @@ class D:
     def _load(self, path: str) -> np.ndarray:
         return load_image(path, self.which, self.bucket_size, native=self.native_res)[0]
 
-    def compute(self, country: str, path: str) -> None:
-        self.compute_batch([(path, country)])
-
     def compute_batch(self, items: Sequence[Tuple[str, str]], progress=None, load: Optional[Loader] = None) -> None:
         """Compute + save the grids of (path, category) items, batching
         same-shape images. ``load(path) -> [H, W, 3] float32 in [-1, 1]``
@@ -326,13 +320,6 @@ class D:
         for b, path in enumerate(paths[:n_real]):
             atomic_save_npy(self.get_path(path), losses_to_reference_layout(host[b]))
         return n_real
-
-
-def get_country(path: str) -> str:
-    country = os.path.split(path)[-1].split("__")[0]
-    if "--" in country:
-        country = country.split("--")[1]
-    return country
 
 
 class Typicality:

@@ -5,9 +5,9 @@ of diffmining_tpu/typicality/engine.py).
                        − eps_{b,n})²      (elementwise, fp32, stored fp16)
 
 A Python loop over sample chunks; within a chunk the UNet batch is
-B·chunk·n_cond with the conditions of one (image, sample) adjacent, and with
-``dedup_prefix`` the condition-independent UNet prefix runs once per
-(image, sample). The sweep takes its random draws as arguments; ``draw``
+B·chunk·n_cond with the conditions of one (image, sample) adjacent, and the
+condition-independent UNet prefix runs once per (image, sample) (the
+``ctx_tile`` dedup, equal to tiling up front: tests/test_torch_port_unet.py). The sweep takes its random draws as arguments; ``draw``
 makes them from a ``torch.Generator`` (the counterpart of
 ``sample_noise_and_t``), and ``SeededDraws`` seeds one generator per image
 from (seed, image uid), so an image's draws do not depend on its group.
@@ -41,12 +41,6 @@ def derive_seed(*parts: int) -> int:
     return h
 
 
-def t_range(t_min: float, t_max: float, num_train_timesteps: int = 1000) -> Tuple[int, int]:
-    """[lo, hi) integer timestep range, the reference's (compute.py:118-120)."""
-    lo = int(t_min * num_train_timesteps)
-    return lo, max(int(t_max * num_train_timesteps), lo + 1)
-
-
 def draw(
     generator: torch.Generator,
     n_samples: int,
@@ -56,8 +50,10 @@ def draw(
     num_train_timesteps: int = 1000,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """N (eps, t) pairs for one image: eps [N, C, h, w] fp32, t [N] int64
-    uniform on the ``t_range``; on the generator's device."""
-    lo, hi = t_range(t_min, t_max, num_train_timesteps)
+    uniform on {int(t_min*T) .. int(t_max*T)-1}, the reference's range
+    (compute.py:118-120); on the generator's device."""
+    lo = int(t_min * num_train_timesteps)
+    hi = max(int(t_max * num_train_timesteps), lo + 1)
     dev = generator.device
     noise = torch.randn((n_samples, *latent_shape), generator=generator, device=dev, dtype=torch.float32)
     t = torch.randint(lo, hi, (n_samples,), generator=generator, device=dev)
@@ -96,7 +92,6 @@ def sweep_losses(
     noises: torch.Tensor,  # [B, N, C, h, w] fp32
     ts: torch.Tensor,  # [B, N] int
     chunk: int,
-    dedup_prefix: bool = True,
 ) -> torch.Tensor:
     """Per-pixel losses [B, N, n_cond, C, h, w] in fp16."""
     B, C, h, w = latents.shape
@@ -111,14 +106,9 @@ def sweep_losses(
         noise_c = noises[:, c0:c0 + chunk].float()  # [B, chunk, C, h, w]
         t_c = ts[:, c0:c0 + chunk]
         noisy = add_noise(schedule, latents[:, None].float(), noise_c, t_c)  # fp32
-        if dedup_prefix:
-            # cond/null share the noisy latent and t: feed the B·chunk unique
-            # rows, the UNet tiles at the first cross-attention (ctx_tile)
-            pred = unet(noisy.reshape(B * chunk, C, h, w).to(dtype), t_c.reshape(-1), ctx_b, ctx_tile=n_cond)
-        else:
-            noisy_b = noisy[:, :, None].expand(B, chunk, n_cond, C, h, w).reshape(B * chunk * n_cond, C, h, w)
-            t_b = t_c[:, :, None].expand(B, chunk, n_cond).reshape(-1)
-            pred = unet(noisy_b.to(dtype), t_b, ctx_b)
+        # cond/null share the noisy latent and t: feed the B·chunk unique rows,
+        # the UNet tiles them at the first cross-attention (ctx_tile)
+        pred = unet(noisy.reshape(B * chunk, C, h, w).to(dtype), t_c.reshape(-1), ctx_b, ctx_tile=n_cond)
         pred = pred.reshape(B, chunk, n_cond, C, h, w)
         # fp32 pred vs noise, elementwise MSE (reference compute.py:101)
         out[:, c0:c0 + chunk] = ((pred.float() - noise_c[:, :, None]) ** 2).half()
@@ -134,8 +124,6 @@ class TypicalityEngine:
     schedule: Schedule
     n_samples: int = 100
     chunk: int = 10
-    # run the condition-independent UNet prefix once per (image, sample)
-    dedup_prefix: bool = True
 
     def __post_init__(self):
         # the loop needs chunk | n_samples; snap to the largest divisor
@@ -151,16 +139,11 @@ class TypicalityEngine:
         if ctx.ndim == 3:
             ctx = ctx[None].expand(latents.shape[0], *ctx.shape)
         dtype = self.unet.conv_in.weight.dtype
-        return sweep_losses(
-            self.unet, self.schedule, latents.to(dtype), ctx, noises, ts, self.chunk,
-            dedup_prefix=self.dedup_prefix,
-        )
+        return sweep_losses(self.unet, self.schedule, latents.to(dtype), ctx, noises, ts, self.chunk)
 
 
 def losses_to_reference_layout(losses) -> np.ndarray:
     """One image's [N, n_cond, C, h, w] losses -> the reference .npy layout,
     a contiguous fp16 numpy array (compute.py:158-160). NCHW makes this a
     copy to the host, where the JAX package transposes from NHWC."""
-    if isinstance(losses, torch.Tensor):
-        losses = losses.detach().cpu().numpy()
-    return np.ascontiguousarray(losses).astype(np.float16)
+    return np.ascontiguousarray(losses.detach().cpu().numpy(), dtype=np.float16)

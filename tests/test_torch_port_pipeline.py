@@ -120,7 +120,7 @@ def _jax_draws(uid, latent_shape):
     noise, t = sample_noise_and_t(key, N, (h, w, c), T_MIN, T_MAX)
     return (torch.from_numpy(np.ascontiguousarray(post)),
             torch.from_numpy(np.ascontiguousarray(np.asarray(noise).transpose(0, 3, 1, 2))),
-            torch.from_numpy(np.asarray(t)).long())
+            torch.from_numpy(np.array(t)).long())
 
 
 def test_image_key_is_the_engine_key():
