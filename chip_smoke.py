@@ -97,7 +97,7 @@ def phase_environment():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    log(f"card: {smi}")
+    log(smi)  # the card's name and power limit, as nvidia-smi gives them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for float32 matmuls and convolutions (the float32 references)")
@@ -312,7 +312,9 @@ def main() -> int:
         "shapes": {name: {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
                                              "bound_ms", "bound_by", "exp2")} for name, r in kern.items()},
     }
-    print(json.dumps({"kernels": [entry], "imgs_per_hr_n4": imgs_hr, "imgs_per_hr_n100": imgs_hr_100, "unet_pass_ms": pass_ms, "card": smi}))
+    print(json.dumps({"slice": {"imgs_per_hr_n4": imgs_hr, "imgs_per_hr_n100": imgs_hr_100,
+                                "unet_pass_ms": pass_ms, "card": smi}}))
+    print(json.dumps({"kernels": [entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
