@@ -319,21 +319,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 
 // Plain C entry point (loaded with ctypes). strides: 12 element strides,
 // (batch, head, row) for q, k, v, o in that order. Returns the CUDA error of
-// the launch (0 on success); D must be a multiple of 8 and at most 160.
+// the launch (0 on success); D must be 40, 80 or 160 (SD-v1.5's head dims).
 extern "C" int flash_fwd_nomax(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
                                int D, const long long* strides, float q_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 0 || D % 8 != 0 || D > 160) return (int)cudaErrorInvalidValue;
-  switch ((D + 15) / 16) {
-    case 1: return (int)launch<16>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
-    case 2: return (int)launch<32>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
-    case 3: return (int)launch<48>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
-    case 4: return (int)launch<64>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
-    case 5: return (int)launch<80>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
-    case 6: return (int)launch<96>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
-    case 7: return (int)launch<112>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
-    case 8: return (int)launch<128>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
-    case 9: return (int)launch<144>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
-    default: return (int)launch<160>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
+  switch (D) {
+    case 40: return (int)launch<48>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
+    case 80: return (int)launch<80>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
+    case 160: return (int)launch<160>(q, k, v, o, B, H, Lq, Lk, D, strides, q_scale, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,10 +3,11 @@
 ``sdpa`` sends the UNet's long self-attention to the hand-written no-max
 flash kernel and everything else to ``sdpa_plain``, the counterpart of
 ``sdpa_xla``. The gate is the JAX package's (attention.py:75-94: self-
-attention with Lq == Lk >= 1024, head dim <= 160, no mask) on CUDA bf16
-tensors — the kernel is a bf16 tensor-core kernel, and float32 is the
-port's validation dtype. Cross-attention (Lk = 77), L <= 256, the VAE's
-single-head D = 512 and CLIP's causal mask take the plain path.
+attention with Lq == Lk >= 1024, head dim <= 160, no mask) on CUDA
+tensors. Cross-attention (Lk = 77), L <= 256, the VAE's single-head
+D = 512, CLIP's causal mask and every CPU tensor take the plain path. The
+kernel is bf16 only: a float32 CUDA tensor at a gated shape raises in the
+wrapper, so float32 validation runs on the CPU.
 
 Unlike the JAX ``sdpa`` there is no try/except around the kernel: a gated
 call launches it or raises.
@@ -37,12 +38,11 @@ def sdpa_plain(
     return torch.matmul(weights, v)
 
 
-def use_kernel(q_shape, k_shape, masked: bool, device: torch.device, dtype: torch.dtype) -> bool:
+def use_kernel(q_shape, k_shape, masked: bool, device: torch.device) -> bool:
     """The dispatch gate, on metadata only."""
     return (
         not masked
         and device.type == "cuda"
-        and dtype == torch.bfloat16
         and q_shape[2] >= 1024
         and q_shape[2] == k_shape[2]
         and q_shape[3] <= 160
@@ -56,6 +56,6 @@ def sdpa(
     mask: torch.Tensor | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    if use_kernel(q.shape, k.shape, mask is not None, q.device, q.dtype):
+    if use_kernel(q.shape, k.shape, mask is not None, q.device):
         return flash_fwd_nomax(q, k, v, scale)
     return sdpa_plain(q, k, v, mask=mask, scale=scale)

@@ -27,6 +27,7 @@ from pathlib import Path
 import torch
 
 LOG2E = 1.4426950408889634
+HEAD_DIMS = (40, 80, 160)  # the kernel's instantiations: SD-v1.5's self-attention head dims
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_fwd_nomax.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -134,14 +135,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError("flash_fwd_nomax: q, k and v must be on one device")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError(f"flash_fwd_nomax: bf16 only, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise ValueError(f"flash_fwd_nomax: bf16 only, got {q.dtype}/{k.dtype}/{v.dtype} "
+                         "(float32 runs on the CPU)")
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
         raise ValueError(f"flash_fwd_nomax: expected [B,H,L,D], got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, _, d = q.shape
     if k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
         raise ValueError(f"flash_fwd_nomax: q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree")
-    if d % 8 != 0 or d > 160:
-        raise ValueError(f"flash_fwd_nomax: head dim {d} must be a multiple of 8 and at most 160")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_fwd_nomax: head dim {d} is not one of SD-v1.5's {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_fwd_nomax: {name}'s head dim must be contiguous")

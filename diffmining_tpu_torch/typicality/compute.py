@@ -521,7 +521,8 @@ def main(argv=None):
                         "reference's cars-256/places-512 downscale")
     parser.add_argument("--dont_compute", action="store_false")
     parser.add_argument("--dtype", type=str, default="bf16", choices=sorted(DTYPES),
-                        help="compute dtype: bf16 on the GPU; fp32 for validation runs")
+                        help="compute dtype: bf16 on the GPU (the flash kernel is bf16 only); "
+                             "fp32 for validation runs with --device cpu")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--countries", nargs="*", default=None)  # reference CLI parity; unused there too
     args = parser.parse_args(argv)

@@ -134,21 +134,21 @@ def test_flash_plain_bf16_rounds_where_the_kernel_does():
 
 
 @pytest.mark.parametrize(
-    "q_shape,k_shape,masked,device,dtype,want",
+    "q_shape,k_shape,masked,device,want",
     [
-        ((16, 8, 4096, 40), (16, 8, 4096, 40), False, "cuda", torch.bfloat16, True),   # K1, L4096
-        ((16, 8, 1024, 80), (16, 8, 1024, 80), False, "cuda", torch.bfloat16, True),   # K1, L1024
-        ((24, 8, 16384, 40), (24, 8, 16384, 40), False, "cuda", torch.bfloat16, True),  # K2, native res
-        ((16, 8, 4096, 40), (16, 8, 77, 40), False, "cuda", torch.bfloat16, False),    # cross-attention
-        ((16, 8, 256, 160), (16, 8, 256, 160), False, "cuda", torch.bfloat16, False),  # short L
-        ((8, 1, 4096, 512), (8, 1, 4096, 512), False, "cuda", torch.bfloat16, False),  # VAE, D=512
-        ((8, 12, 1024, 64), (8, 12, 1024, 64), True, "cuda", torch.bfloat16, False),   # masked (CLIP)
-        ((16, 8, 4096, 40), (16, 8, 4096, 40), False, "cpu", torch.bfloat16, False),   # CPU tensor
-        ((16, 8, 4096, 40), (16, 8, 4096, 40), False, "cuda", torch.float32, False),   # fp32 validation
+        ((16, 8, 4096, 40), (16, 8, 4096, 40), False, "cuda", True),   # K1, L4096
+        ((16, 8, 1024, 80), (16, 8, 1024, 80), False, "cuda", True),   # K1, L1024
+        ((24, 8, 16384, 40), (24, 8, 16384, 40), False, "cuda", True),  # K2, native res
+        ((16, 8, 4096, 40), (16, 8, 77, 40), False, "cuda", False),    # cross-attention
+        ((16, 8, 256, 160), (16, 8, 256, 160), False, "cuda", False),  # short L
+        ((8, 1, 4096, 512), (8, 1, 4096, 512), False, "cuda", False),  # VAE, D=512
+        ((8, 12, 1024, 64), (8, 12, 1024, 64), True, "cuda", False),   # masked (CLIP)
+        ((16, 8, 4096, 40), (16, 8, 4096, 40), False, "cpu", False),   # CPU tensor
+        ((2, 8, 1100, 160), (2, 8, 1100, 160), False, "cuda", True),   # any dtype: the wrapper raises on non-bf16
     ],
 )
-def test_dispatch_gate(q_shape, k_shape, masked, device, dtype, want):
-    assert pattn.use_kernel(q_shape, k_shape, masked, torch.device(device), dtype) is want
+def test_dispatch_gate(q_shape, k_shape, masked, device, want):
+    assert pattn.use_kernel(q_shape, k_shape, masked, torch.device(device)) is want
 
 
 def test_cpu_tensor_never_reaches_the_cuda_wrapper(monkeypatch):
@@ -185,8 +185,11 @@ def test_sdpa_plain_matches_sdpa_xla(masked):
     [(2, 8, 4096, 40), (2, 8, 1024, 80), (1, 8, 1000, 160), (1, 2, 16384, 40)],
 )
 def test_kernel_matches_plain_on_card(b, h, l, d):
-    """The CUDA kernel against its plain version on a GPU (bf16: a bf16 ulp
-    of the output plus ex2.approx vs exp2 rounding of p)."""
+    """The CUDA kernel against its plain version on a GPU. Both round the
+    same fp32 result to bf16, so they may differ by one bf16 ulp of the
+    element (<= 2^-7 relative) where summation order or ex2.approx flips a
+    rounding; the atol is one ulp at the output's scale (chip_smoke.py
+    holds the kernel to the same bound)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     g = torch.Generator(device="cuda")
@@ -195,7 +198,8 @@ def test_kernel_matches_plain_on_card(b, h, l, d):
                .view(b, l, h, d).transpose(1, 2) for _ in range(3))
     got = pfa.flash_fwd_nomax(q, k, v)
     want = pfa.flash_attention_nomax_plain(q, k, v)
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    rms = float(want.float().pow(2).mean().sqrt())
+    torch.testing.assert_close(got.float(), want.float(), atol=2.0**-7 * rms, rtol=2.0**-7)
     scale = 1.0 / math.sqrt(d)
     ref = torch.nn.functional.scaled_dot_product_attention(q.float(), k.float(), v.float(), scale=scale)
     torch.testing.assert_close(got.float(), ref, atol=3e-2, rtol=3e-2)
