@@ -72,3 +72,10 @@ def add_noise(schedule: Schedule, x0: torch.Tensor, noise: torch.Tensor, timeste
     of x0's leading axes (or is a scalar)."""
     sqrt_acp, sqrt_om = _gather_sqrt_coeffs(schedule, timesteps, x0.ndim)
     return (sqrt_acp * x0.float() + sqrt_om * noise.float()).to(x0.dtype)
+
+
+def get_velocity(schedule: Schedule, x0: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    """v-prediction target sqrt(acp_t) eps - sqrt(1-acp_t) x0, in float32,
+    result in x0's dtype."""
+    sqrt_acp, sqrt_om = _gather_sqrt_coeffs(schedule, timesteps, x0.ndim)
+    return (sqrt_acp * noise.float() - sqrt_om * x0.float()).to(x0.dtype)

@@ -8,7 +8,13 @@ the timestep embedding (flip_sin_to_cos, freq_shift), GroupNorm eps 1e-5 in
 the resnets and 1e-6 in the transformers, torch nearest upsampling to the
 skip's size, GEGLU with the exact erf GELU, and the sweep's ``ctx_tile``
 prefix dedup (unet.py:541-569). All attention goes through ops.attention.sdpa,
-which sends the long self-attention to the flash kernel.
+which sends the long self-attention to the flash kernels.
+
+``set_gradient_checkpointing`` is the reference's --gradient_checkpointing
+with the JAX package's remat policies (unet.py:80-91, 570-600), through
+``torch.utils.checkpoint``: "full" recomputes every resnet and transformer
+block in the backward, "attn" only the transformer blocks, "dots" both but
+saves every matmul and convolution output (a selective-checkpoint policy).
 
 The DIFT ``up_ft_indices`` taps and the PnP injection come with the mining
 and PnP slices.
@@ -16,6 +22,7 @@ and PnP slices.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -24,6 +31,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffmining_tpu_torch.ops.attention import sdpa
+
+REMAT_POLICIES = ("full", "attn", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,6 +303,15 @@ class UNet2DCondition(nn.Module):
             prev = out_ch
         self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, bo[0], eps=1e-5)
         self.conv_out = nn.Conv2d(bo[0], cfg.out_channels, 3, padding=1)
+        self.remat_policy: Optional[str] = None
+
+    def set_gradient_checkpointing(self, policy: Optional[str] = "full") -> None:
+        """Recompute blocks in the backward under ``policy`` ("full", "attn"
+        or "dots"; None turns it off). Applies to passes with grad enabled
+        and no ctx_tile, as in the JAX UNet."""
+        if policy is not None and policy not in REMAT_POLICIES:
+            raise ValueError(f"remat policy {policy!r}: expected one of {REMAT_POLICIES}")
+        self.remat_policy = policy
 
     def forward(
         self,
@@ -322,12 +340,14 @@ class UNet2DCondition(nn.Module):
         def tile_carry(temb, skips):
             return temb.repeat_interleave(pending, 0), [s.repeat_interleave(pending, 0) for s in skips]
 
+        res_call, tf_call = _remat_calls(self.remat_policy if torch.is_grad_enabled() and ctx_tile == 1 else None)
+
         skips: List[torch.Tensor] = [x]
         for blk in self.down_blocks:
             for j, res in enumerate(blk.resnets):
-                x = res(x, temb)
+                x = res_call(res, x, temb)
                 if blk.attentions is not None:
-                    x = blk.attentions[j](x, context, ctx_tile=pending or 1)
+                    x = tf_call(blk.attentions[j], x, context, ctx_tile=pending or 1)
                     if pending:
                         # the first transformer tiled the batch inside; bring
                         # temb and the collected skips along
@@ -339,19 +359,48 @@ class UNet2DCondition(nn.Module):
                 skips.append(x)
 
         mid = self.mid_block
-        x = mid.resnets[0](x, temb)
-        x = mid.attentions[0](x, context, ctx_tile=pending or 1)
+        x = res_call(mid.resnets[0], x, temb)
+        x = tf_call(mid.attentions[0], x, context, ctx_tile=pending or 1)
         if pending:  # no down block carried attention: tile at mid
             temb, skips = tile_carry(temb, skips)
             pending = 0
-        x = mid.resnets[1](x, temb)
+        x = res_call(mid.resnets[1], x, temb)
 
         for blk in self.up_blocks:
             for j, res in enumerate(blk.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=1), temb)
+                x = res_call(res, torch.cat([x, skips.pop()], dim=1), temb)
                 if blk.attentions is not None:
-                    x = blk.attentions[j](x, context)
+                    x = tf_call(blk.attentions[j], x, context)
             if blk.upsamplers is not None:
                 x = blk.upsamplers[0](x, skips[-1].shape[2:])
 
         return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
+def _call(mod, *args, **kwargs):
+    return mod(*args, **kwargs)
+
+
+def _save_dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpoint: keep matmul and convolution outputs, recompute
+    the rest (the counterpart of JAX's dots-saveable policy, extended to the
+    convolutions)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    saved = (aten.mm.default, aten.addmm.default, aten.bmm.default, aten.convolution.default)
+    return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_calls(policy: Optional[str]):
+    """(resnet call, transformer call) under a remat policy; plain calls
+    when it is None."""
+    if policy is None:
+        return _call, _call
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {"use_reentrant": False}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots_policy)
+    remat = functools.partial(checkpoint, _call, **kw)
+    return (_call if policy == "attn" else remat), remat

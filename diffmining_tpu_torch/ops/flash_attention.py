@@ -1,18 +1,34 @@
-"""No-max flash attention forward: the hand-written CUDA kernel and its plain
-PyTorch version (counterpart of the no-max kernels of
+"""Flash attention: the hand-written CUDA kernels, their plain PyTorch
+versions, and the autograd Function (counterpart of
 diffmining_tpu/ops/flash_attention.py).
 
-``flash_fwd_nomax`` launches ``csrc/flash_fwd_nomax.cu``, one kernel that
-replaces both ``_flash_kernel_t_1shot`` and ``_flash_kernel_t_nomax`` (the
-source's header says why one suffices on Hopper). ``flash_attention_nomax_plain``
-repeats the same arithmetic step by step in PyTorch: the CPU tests use it, and
-``chip_smoke.py`` holds the kernel against it on the card. The wrapper takes
-the plain version only for a tensor that lies on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+Four kernels, one CUDA source each under ``csrc/``:
 
-The kernel is built with ``nvcc`` at first use, from the source in this
-package, into ``build/kernels/`` beside the package (a plain C entry point
-loaded with ``ctypes``), so importing this module needs neither a GPU nor nvcc.
+  flash_fwd_nomax  no-max forward (TPU ``_flash_kernel_t_1shot`` and
+                   ``_flash_kernel_t_nomax``): the UNet without grad;
+  flash_fwd_lse    online-softmax forward that also writes the natural-log
+                   logsumexp (TPU ``_flash_kernel``): the forward under grad;
+  flash_bwd_dq     dq from lse and delta (TPU ``_bwd_dq_kernel``);
+  flash_bwd_dkv    dk and dv from lse and delta (TPU ``_bwd_dkv_kernel``).
+
+``FlashAttention`` is the counterpart of the JAX custom_vjp: its forward is
+flash_fwd_lse and saves (q, k, v, o, lse); its backward computes delta =
+sum(dO * o) and runs flash_bwd_dq and flash_bwd_dkv. Each ``*_plain``
+function repeats its kernel's arithmetic step by step in PyTorch: the CPU
+tests hold it to the Pallas kernels, and ``chip_smoke.py`` holds the kernel
+to it on the card. A wrapper takes the plain version only for a tensor that
+lies on the CPU; for a CUDA tensor it launches its kernel or raises. Each
+wrapper counts its launches in ``.launches``.
+
+The kernels are bf16 only, for head dims 40, 80 and 160, and read strided
+[B,L,H*D]-as-[B,H,L,D] views in place; they write [B,L,H,D] buffers and
+return [B,H,L,D] views of them, so merging heads (and, in the backward,
+handing the gradients back to the projections) needs no copy.
+
+Each source is built with ``nvcc`` at first use into ``build/kernels/``
+beside the package (a plain C entry point loaded with ``ctypes``), keyed by
+the hash of the source, the shared header and the flags, so importing this
+module needs neither a GPU nor nvcc.
 """
 from __future__ import annotations
 
@@ -23,23 +39,52 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
 LOG2E = 1.4426950408889634
-HEAD_DIMS = (40, 80, 160)  # the kernel's instantiations: SD-v1.5's self-attention head dims
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_fwd_nomax.cu"
+LN2 = 0.6931471805599453
+NEG_INF = -1e30  # the TPU kernels' mask value
+HEAD_DIMS = (40, 80, 160)  # the kernels' instantiations: SD-v1.5's self-attention head dims
+TPU_BLOCK_K = 1024  # the TPU kernel's key block (flash_attention.py:102, :148)
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# one source per kernel, one C entry point of the same name per source
+ARGTYPES = {
+    "flash_fwd_nomax": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
+    "flash_fwd_lse": [_P] * 5 + [_I] * 5 + [_P, _F, _P],
+    "flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _F, _F, _P],
+    "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
+}
+SOURCES = tuple(ARGTYPES)
 
 
 def _prescale(q: torch.Tensor, scale: float) -> float:
-    """scale·log2e rounded to q's dtype — the TPU kernels' caller multiplies
-    q by ``jnp.asarray(scale * LOG2E, q.dtype)`` (flash_attention.py:363)."""
+    """scale·log2e rounded to q's dtype — the TPU kernels' callers multiply
+    q by ``jnp.asarray(scale * LOG2E, q.dtype)`` (flash_attention.py:155,
+    :363, :673)."""
     return torch.tensor(scale * LOG2E, dtype=q.dtype).item()
+
+
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+
+
+def _ftz(p: torch.Tensor) -> torch.Tensor:
+    """Flush subnormal results to zero, as XLA, the TPU and the kernels'
+    ex2.approx.ftz do."""
+    return torch.where(p < torch.finfo(torch.float32).tiny, torch.zeros_like(p), p)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 
 def flash_attention_nomax_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> torch.Tensor:
@@ -54,16 +99,86 @@ def flash_attention_nomax_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     natural-log logits are all below about −87 comes out as zeros: the
     designed underflow edge.
     """
-    d = q.shape[-1]
-    scale = scale if scale is not None else 1.0 / (d**0.5)
-    qs = q * _prescale(q, scale)
+    qs = q * _prescale(q, _scale(q, scale))
     logits = torch.matmul(qs.float(), k.float().transpose(-1, -2))
-    p = torch.exp2(logits)
-    p = torch.where(p < torch.finfo(torch.float32).tiny, torch.zeros_like(p), p)
-    pc = p.to(v.dtype).float()
+    pc = _ftz(torch.exp2(logits)).to(v.dtype).float()
     acc = torch.matmul(pc, v.float())
     l_safe = pc.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return (acc * (1.0 / l_safe)).to(q.dtype)
+
+
+def flash_fwd_lse_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None, block_k: int | None = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's arithmetic (flash_attention.py:59-87) in plain PyTorch: q
+    [B,H,Lq,D], k/v [B,H,Lk,D] -> (o [B,H,Lq,D] in q's dtype, lse [B,H,Lq]
+    float32, natural log).
+
+    Over key blocks of ``block_k`` (default the TPU kernel's, min(1024,
+    max(128, Lk)); the CUDA kernel's tiles are 64): the running max m in base
+    2 starts at −1e30, alpha = exp2(m_prev − m_new), p = exp2(s − m_new) is
+    rounded to v's dtype, acc = acc·alpha + p·v and l = l·alpha + Σp (the
+    ones column); o = acc·(1/max(l, 1e-30)), lse = m·ln2 + log(max(l,
+    1e-30)). The block size decides where p is rounded relative to which max,
+    so only runs at the same block size agree to summation order."""
+    lk = k.shape[2]
+    block_k = block_k or min(TPU_BLOCK_K, max(128, lk))
+    qs = (q * _prescale(q, _scale(q, scale))).float()
+    kf, vf = k.float(), v.float()
+    m = torch.full(q.shape[:-1], NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(q.shape[:-1], dtype=torch.float32, device=q.device)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for j in range(0, lk, block_k):
+        s = torch.matmul(qs, kf[:, :, j:j + block_k].transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = _ftz(torch.exp2(m - m_new))
+        pb = _ftz(torch.exp2(s - m_new[..., None])).to(v.dtype).float()
+        acc = acc * alpha[..., None] + torch.matmul(pb, vf[:, :, j:j + block_k])
+        l = l * alpha + pb.sum(dim=-1)
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    return (acc * (1.0 / l_safe)[..., None]).to(q.dtype), m * LN2 + torch.log(l_safe)
+
+
+def _probs(qs: torch.Tensor, k: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """p = exp2(qs·kᵀ − lse·log2e) in fp32: the softmax re-formed from the
+    forward's logsumexp, with no max (flash_attention.py:595, :632)."""
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    return _ftz(torch.exp2(s - (lse.float() * LOG2E)[..., None]))
+
+
+def attention_delta(g: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """delta = Σ_d dO·o in fp32, [B,H,Lq] contiguous (flash_attention.py:669)."""
+    return (g.float() * o.float()).sum(dim=-1).contiguous()
+
+
+def flash_bwd_dq_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """K5's arithmetic (flash_attention.py:583-606): ds = (p·(dp − delta))
+    cast to k's dtype with dp = dO·vᵀ, dq = (ds·k)·scale in q's dtype."""
+    scale = _scale(q, scale)
+    p = _probs(q * _prescale(q, scale), k, lse)
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta[..., None])).to(k.dtype).float()
+    return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+    scale: float | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's arithmetic (flash_attention.py:620-650): dv = pᵀ·dO with p cast
+    to dO's dtype; ds = (p·(dp − delta)) cast to q's dtype; dk = (dsᵀ·qs)·ln2
+    with qs the pre-scaled q (ln2 undoes its log2e)."""
+    qs = q * _prescale(q, _scale(q, scale))
+    p = _probs(qs, k, lse)
+    dv = torch.matmul(p.to(g.dtype).float().transpose(-1, -2), g.float()).to(v.dtype)
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dk = (torch.matmul(ds.transpose(-1, -2), qs.float()) * LN2).to(k.dtype)
+    return dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -71,8 +186,8 @@ def flash_attention_nomax_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 # ---------------------------------------------------------------------------
 
 _lock = threading.Lock()
-_lib = None
-build_log = ""  # nvcc's output of the build this process made (-Xptxas -v)
+_libs: Dict[str, ctypes.CDLL] = {}
+build_log: Dict[str, str] = {}  # nvcc's output (-Xptxas -v) of each build this process made
 
 
 def _nvcc() -> str:
@@ -83,101 +198,210 @@ def _nvcc() -> str:
     ):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the flash kernel is built from source at first use")
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the flash kernels are built from source at first use")
 
 
-def build() -> Path:
-    """Compile the kernel into build/kernels/ (keyed by the source's and the
-    flags' hash, so an edited source rebuilds) and return the library path."""
-    global build_log
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"flash_fwd_nomax-{key}.so"
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-        capture_output=True, text=True,
-    )
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {_SOURCE.name}:\n{build_log}")
-    os.replace(tmp, out)
-    return out
+def _library_path(name: str) -> Path:
+    """Where ``name``'s library lives, keyed by the hash of its source, the
+    shared headers and the flags (an edited source rebuilds)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _library():
-    global _lib
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every named kernel source not built yet, one nvcc per source,
+    all started together; return each library's path."""
+    paths = {name: _library_path(name) for name in names}
+    procs = {}
+    for name, out in paths.items():
+        if out.is_file():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        build_log[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {name}.cu:\n{build_log[name]}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def _library(name: str):
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.flash_fwd_nomax
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
-            ]
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            fn = getattr(lib, name)
+            fn.argtypes = ARGTYPES[name]
             fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return _libs[name]
 
 
 # ---------------------------------------------------------------------------
-# the wrapper
+# the wrappers
 # ---------------------------------------------------------------------------
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_fwd_nomax: q, k and v must all be CUDA tensors")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_fwd_nomax: q, k and v must be on one device")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError(f"flash_fwd_nomax: bf16 only, got {q.dtype}/{k.dtype}/{v.dtype} "
-                         "(float32 runs on the CPU)")
-    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
-        raise ValueError(f"flash_fwd_nomax: expected [B,H,L,D], got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+def _aligned(t: torch.Tensor) -> bool:
+    """Head dim contiguous, other strides and the base 16-byte aligned."""
+    return t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
+
+
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor) -> None:
+    ts = (q, k, v, *more)
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(f"{name}: every operand must be a CUDA tensor")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{name}: every operand must be on one device")
+    if not all(t.dtype == torch.bfloat16 for t in ts):
+        raise ValueError(f"{name}: bf16 only, got {[str(t.dtype) for t in ts]} (float32 runs on the CPU)")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: expected [B,H,L,D], got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, _, d = q.shape
     if k.shape[0] != b or k.shape[1] != h or k.shape[3] != d:
-        raise ValueError(f"flash_fwd_nomax: q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree")
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree")
+    if any(t.shape != q.shape for t in more):
+        raise ValueError(f"{name}: dO {[tuple(t.shape) for t in more]} does not match q {tuple(q.shape)}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd_nomax: head dim {d} is not one of SD-v1.5's {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"flash_fwd_nomax: {name}'s head dim must be contiguous")
-        if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"flash_fwd_nomax: {name}'s strides and base must be 16-byte aligned")
+        raise ValueError(f"{name}: head dim {d} is not one of SD-v1.5's {HEAD_DIMS}")
+    for t in ts:
+        if not _aligned(t):
+            raise ValueError(f"{name}: strides and base must be 16-byte aligned with the head dim contiguous")
+
+
+def _check_rows(name: str, q: torch.Tensor, *rows: torch.Tensor) -> None:
+    for t in rows:
+        if t.device != q.device or t.dtype != torch.float32 or t.shape != q.shape[:3] or not t.is_contiguous():
+            raise ValueError(f"{name}: lse and delta must be contiguous float32 {tuple(q.shape[:3])} on {q.device}")
+
+
+def _bhld(like: torch.Tensor, length: int) -> torch.Tensor:
+    """An uninitialised [B,H,length,D] view of a [B,length,H,D] buffer."""
+    b, h, _, d = like.shape
+    return torch.empty((b, length, h, d), device=like.device, dtype=like.dtype).permute(0, 2, 1, 3)
+
+
+def _strides(*ts: torch.Tensor):
+    return (ctypes.c_longlong * (3 * len(ts)))(*[s for t in ts for s in t.stride()[:3]])
+
+
+def _launch(name: str, q: torch.Tensor, *args) -> None:
+    fn = getattr(_library(name), name)
+    with torch.cuda.device(q.device):
+        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _requires_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def flash_fwd_nomax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> torch.Tensor:
     """softmax(q·kᵀ·scale)·v without the running max. q [B,H,Lq,D], k/v
-    [B,H,Lk,D] (strided views allowed, head dim contiguous) -> [B,H,Lq,D].
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel on
-    the current stream, or raise on anything it does not take; the output is
-    a [B,H,Lq,D] view of a [B,Lq,H,D] buffer, so merging heads is free.
-    ``flash_fwd_nomax.launches`` counts kernel launches."""
+    [B,H,Lk,D] -> [B,H,Lq,D]. Forward only: it raises when grad mode is on
+    and an input requires grad (use ``flash_attention``), since its output
+    carries no gradient. ``flash_fwd_nomax.launches`` counts launches."""
+    if _requires_grad(q, k, v):
+        raise RuntimeError("flash_fwd_nomax has no backward; under grad use flash_attention")
     if q.device.type == "cpu":
         return flash_attention_nomax_plain(q, k, v, scale)
-    _check(q, k, v)
+    _check("flash_fwd_nomax", q, k, v)
     b, h, lq, d = q.shape
-    lk = k.shape[2]
-    scale = scale if scale is not None else 1.0 / (d**0.5)
-    out = torch.empty((b, lq, h, d), device=q.device, dtype=q.dtype).permute(0, 2, 1, 3)
-    strides = (ctypes.c_longlong * 12)(*[s for t in (q, k, v, out) for s in t.stride()[:3]])
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.flash_fwd_nomax(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, lq, lk, d, ctypes.cast(strides, ctypes.c_void_p), _prescale(q, scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd_nomax launch failed: CUDA error {err}")
+    out = _bhld(q, lq)
+    _launch("flash_fwd_nomax", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, lq, k.shape[2], d, ctypes.cast(_strides(q, k, v, out), _P), _prescale(q, _scale(q, scale)))
     flash_fwd_nomax.launches += 1
     return out
 
 
-flash_fwd_nomax.launches = 0
+def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None):
+    """K4: (o [B,H,Lq,D], lse [B,H,Lq] float32 natural log). CPU tensors take
+    ``flash_fwd_lse_plain``; ``flash_fwd_lse.launches`` counts launches."""
+    if q.device.type == "cpu":
+        return flash_fwd_lse_plain(q, k, v, scale)
+    _check("flash_fwd_lse", q, k, v)
+    b, h, lq, d = q.shape
+    out = _bhld(q, lq)
+    lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+    _launch("flash_fwd_lse", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b, h, lq, k.shape[2], d, ctypes.cast(_strides(q, k, v, out), _P), _prescale(q, _scale(q, scale)))
+    flash_fwd_lse.launches += 1
+    return out, lse
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, scale: float | None = None) -> torch.Tensor:
+    """K5: dq [B,H,Lq,D] from dO ``g``, the forward's ``lse`` and ``delta``.
+    CPU tensors take ``flash_bwd_dq_plain``; ``flash_bwd_dq.launches``
+    counts launches."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, g, lse, delta, scale)
+    _check("flash_bwd_dq", q, k, v, g)
+    _check_rows("flash_bwd_dq", q, lse, delta)
+    b, h, lq, d = q.shape
+    scale = _scale(q, scale)
+    dq = _bhld(q, lq)
+    _launch("flash_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), b, h, lq, k.shape[2], d,
+            ctypes.cast(_strides(q, k, v, g, dq), _P), _prescale(q, scale), scale)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, scale: float | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6: (dk, dv) [B,H,Lk,D] from dO ``g``, the forward's ``lse`` and
+    ``delta``. CPU tensors take ``flash_bwd_dkv_plain``;
+    ``flash_bwd_dkv.launches`` counts launches."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, g, lse, delta, scale)
+    _check("flash_bwd_dkv", q, k, v, g)
+    _check_rows("flash_bwd_dkv", q, lse, delta)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dk, dv = _bhld(k, lk), _bhld(v, lk)
+    _launch("flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, lq, lk, d,
+            ctypes.cast(_strides(q, k, v, g, dk, dv), _P), _prescale(q, _scale(q, scale)))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+for _fn in (flash_fwd_nomax, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv):
+    _fn.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Counterpart of the JAX custom_vjp (flash_attention.py:438-446, :789):
+    forward K4 saving (q, k, v, o, lse); backward delta, then K5 and K6."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_fwd_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        if g.is_cuda and not _aligned(g):
+            g = g.contiguous()
+        delta = attention_delta(g, o)
+        dq = flash_bwd_dq(q, k, v, g, lse, delta, ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """Differentiable flash attention. q [B,H,Lq,D], k/v [B,H,Lk,D] ->
+    [B,H,Lq,D]."""
+    return FlashAttention.apply(q, k, v, scale)

@@ -9,6 +9,9 @@ interoperate.
 
     python -m diffmining_tpu_torch.typicality.compute --which ftt -i DATA \\
         -c OUT -s SUBS -m PIPELINE_DIR --make_submission
+
+``-m`` may also name a finetuning checkpoint (``checkpoint-N``), which is
+exported to ``checkpoint-N-export`` first (finetuning/export.py).
 """
 from __future__ import annotations
 
@@ -527,17 +530,21 @@ def main(argv=None):
     parser.add_argument("--countries", nargs="*", default=None)  # reference CLI parity; unused there too
     args = parser.parse_args(argv)
 
-    if args.model_path is not None and not os.path.isfile(join(args.model_path, "model_index.json")):
-        raise SystemExit(
-            f"--model_path {args.model_path} has no model_index.json. The port reads diffusers "
-            "pipeline dirs only; exporting a finetuning checkpoint is not ported yet "
-            "(python -m diffmining_tpu.typicality.compute exports one)."
-        )
+    model_path = args.model_path
+    if model_path is not None and not os.path.isfile(join(model_path, "model_index.json")):
+        if not os.path.isfile(join(model_path, "state.pt")):
+            raise SystemExit(
+                f"--model_path {model_path} has no model_index.json and is not a finetuning "
+                "checkpoint (checkpoint-N/state.pt)"
+            )
+        from diffmining_tpu_torch.finetuning.export import export_model
+
+        model_path = export_model(args.which, model_path, device=args.device)
     if args.target_path is None:
         args.target_path = args.dataset_path
 
     typ = Typicality(
-        args.which, args.model_path, args.dataset_path, args.typicality_path,
+        args.which, model_path, args.dataset_path, args.typicality_path,
         t_min=args.t_min, t_max=args.t_max, N=args.N,
         batch_images=args.batch_images, chunk=args.chunk,
         bucket_size=args.bucket_size, native_res=args.native_res,
@@ -546,7 +553,7 @@ def main(argv=None):
     if args.make_submission:
         typ.make_submission(args.target_path, args.submission_path, sub_split=args.sub_split)
     if args.dont_compute:
-        if args.model_path is None:
+        if model_path is None:
             raise SystemExit("computing typicality needs --model_path")
         typ.compute_submission(join(args.submission_path, f"{args.split_id}.txt"))
 

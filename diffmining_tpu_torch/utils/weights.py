@@ -6,9 +6,10 @@ The port's modules keep diffusers/transformers state-dict keys, so a
 pipeline dir (unet/ vae/ text_encoder/ scheduler/ tokenizer/,
 model_index.json) loads with ``load_state_dict`` and no renaming. The
 schedule comes from ``scheduler/scheduler_config.json``, never from
-constants. ``read_safetensors`` is the port's own reader (the format is an
-8-byte little-endian header length, a JSON header, then raw little-endian
-tensor data), so no ``safetensors`` package is needed.
+constants. ``read_safetensors`` and ``write_safetensors`` are the port's own
+reader and writer (the format is an 8-byte little-endian header length, a
+JSON header, then raw little-endian tensor data), so no ``safetensors``
+package is needed.
 
 ``params_from_jax`` maps a flax parameter tree (of numpy arrays) of the JAX
 package's UNet, VAE or CLIP text encoder to the port's state dict: the
@@ -60,6 +61,31 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
             arr = np.array(raw.view(np.dtype(_ST_DTYPES[info["dtype"]]).newbyteorder("<")).reshape(shape))
         out[name] = arr
     return out
+
+
+def write_safetensors(path: str, tensors: Dict[str, np.ndarray]) -> None:
+    """Write numpy arrays as one .safetensors file (names sorted, data
+    contiguous in that order, the header space-padded to 8 bytes, as the
+    library writes it). Written to a temporary name and renamed into place."""
+    names = sorted(tensors)
+    arrays = [np.ascontiguousarray(tensors[n]) for n in names]
+    codes = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
+    header, offset = {}, 0
+    for name, a in zip(names, arrays):
+        dt = a.dtype.newbyteorder("=")
+        if dt not in codes:
+            raise TypeError(f"safetensors: no dtype code for {name} ({a.dtype})")
+        header[name] = {"dtype": codes[dt], "shape": list(a.shape), "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for a in arrays:
+            f.write(a.astype(a.dtype.newbyteorder("<"), copy=False).tobytes())
+    os.replace(tmp, path)
 
 
 def read_safetensors_dir(path: str) -> Dict[str, np.ndarray]:
@@ -159,8 +185,8 @@ def load_pipeline_dir(path: str) -> Dict[str, Any]:
     "schedule" and "tokenizer_dir"."""
     if not os.path.isfile(os.path.join(path, "model_index.json")):
         raise FileNotFoundError(
-            f"{path} is not a diffusers pipeline dir (no model_index.json); exporting a "
-            "finetuning checkpoint to one is not ported yet — export it with the JAX package"
+            f"{path} is not a diffusers pipeline dir (no model_index.json); export a "
+            "finetuning checkpoint to one with finetuning/export.py export_model"
         )
     out: Dict[str, Any] = {}
     for sub, from_json in (("unet", unet_config_from_json), ("vae", vae_config_from_json),

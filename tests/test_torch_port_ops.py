@@ -4,12 +4,10 @@ to the JAX package on the CPU.
 The same numpy inputs (from a seed) go through the JAX function and its
 port counterpart. The Pallas kernels run in interpret mode, as
 tests/test_flash_attention.py runs them. The CUDA kernel itself runs only on
-a GPU (test marked ``cuda``, skipped elsewhere); here its plain PyTorch
-version stands in, and the dispatch is checked to never hand a CPU tensor to
+a GPU (tests/test_torch_port_cuda.py); here its plain PyTorch version stands
+in, and the dispatch is checked to never hand a CPU tensor to
 the CUDA wrapper.
 """
-import math
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -177,29 +175,3 @@ def test_sdpa_plain_matches_sdpa_xla(masked):
                                mask=None if mask is None else jnp.asarray(mask)))
     got = pattn.sdpa_plain(_t(q), _t(k), _t(v), mask=None if mask is None else _t(mask)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "b,h,l,d",
-    [(2, 8, 4096, 40), (2, 8, 1024, 80), (1, 8, 1000, 160), (1, 2, 16384, 40)],
-)
-def test_kernel_matches_plain_on_card(b, h, l, d):
-    """The CUDA kernel against its plain version on a GPU. Both round the
-    same fp32 result to bf16, so they may differ by one bf16 ulp of the
-    element (<= 2^-7 relative) where summation order or ex2.approx flips a
-    rounding; the atol is one ulp at the output's scale (chip_smoke.py
-    holds the kernel to the same bound)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    g = torch.Generator(device="cuda")
-    g.manual_seed(0)
-    q, k, v = (torch.randn(b, l, h * d, generator=g, device="cuda").to(torch.bfloat16)
-               .view(b, l, h, d).transpose(1, 2) for _ in range(3))
-    got = pfa.flash_fwd_nomax(q, k, v)
-    want = pfa.flash_attention_nomax_plain(q, k, v)
-    rms = float(want.float().pow(2).mean().sqrt())
-    torch.testing.assert_close(got.float(), want.float(), atol=2.0**-7 * rms, rtol=2.0**-7)
-    scale = 1.0 / math.sqrt(d)
-    ref = torch.nn.functional.scaled_dot_product_attention(q.float(), k.float(), v.float(), scale=scale)
-    torch.testing.assert_close(got.float(), ref, atol=3e-2, rtol=3e-2)
