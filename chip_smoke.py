@@ -34,12 +34,32 @@ back to the CPU):
      time a step, its idle share and the busy time by kernel category); two
      steps under full gradient checkpointing (20 of K4 each); loss finite,
      parameters and EMA moved; the export through end_training() read
-     back; warm step ms, images/s and peak memory.
-Then one JSON line each for the slice and the training run, one of
-per-kernel numbers, and as the last line {"ok": true, "device": {...}}.
+     back; warm step ms, images/s and peak memory;
+  7. inference-mode kernels: K3 (online-softmax forward, no lse) at B8 H8
+     L4096 D40, B8 H8 L1024 D80 and a masked tail at D160, and on the
+     underflow edge, where it stays the softmax; K7 (fused GroupNorm ->
+     proj_in) at the four SpatialTransformer entry shapes of a 512px UNet
+     pass at batch 8, an odd pixel count, the SiLU variant and a
+     channels-last input (the layout after a transformer); each against
+     its plain version, with times, the bound and the library yardsticks
+     (scaled_dot_product_attention's forward for K3; F.group_norm plus a
+     1x1 F.conv2d, two calls, for K7); for K7 also the device's busy time
+     in a call and the kernel's own share of it (torch.profiler);
+  8. mining: 2 labels x 64 synthetic 512x512 PNGs swept at N=4 through the
+     sweep's own decoding, then Cluster.clustering("dift-161") with the CLI
+     defaults twice: under the default modes (K1) and, on a freshly built
+     bundle, under DIFFMINING_FUSED_NORM=1, DIFFMINING_FLASH_ONESHOT=0 and
+     DIFFMINING_FLASH_NOMAX=0 (16 launches of K7 and 10 of K3 per UNet
+     pass); one modes-on UNet pass against float32, the DIFT feature maps of
+     the two modes against each other; every top patch in exactly one
+     cluster, clusters sorted by median D, member crops written.
+Then one JSON line each for the slice, the training run and the mining
+runs, one of per-kernel numbers, and as the last line {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -82,6 +102,25 @@ UNET_REL_L2 = 5e-2
 # bounds do.
 GRAD_REL_L2 = 4e-2
 LSE_ATOL = 1e-3
+# K7 against its plain version: both round h to bf16 at the same point (the
+# kernel's prologue avoids FMA contraction, as the plain version's separate
+# torch ops do) and the product's fp32 sum to bf16 before adding the bias in
+# bf16. Where the sum lands on the other side of a rounding boundary the
+# product flips by one ulp of ITSELF, |want - bias|, which can be several
+# ulps of a result that the bias cancels. The bound is one ulp of the
+# product plus one of the result (plus the rms margin): the elementwise
+# 2^-6 |want| bound read 1.02x where the bias cancelled (silu N1024 C640,
+# an H100). A kernel that skips one 32-channel chunk of the input is far
+# outside it (tests/test_torch_port_fused_norm.py).
+# the DIFT feature map of one image under the K3/K7 modes against the same
+# map under the default modes (K1, module-path GroupNorm), both bf16 with
+# the same weights and draws: they differ by bf16 rounding at other places
+# (p rounded relative to the running max or not; GroupNorm and the 1x1
+# projection rounded once by K7 or through cuDNN), amplified through the
+# UNet. Measured 0.0046 at 512px on an H100 (0.0047 at tiny widths on the
+# CPU); the limit leaves about 3x room. Each kernel is held much tighter
+# against its plain version in phase 7.
+DIFT_MODES_REL_L2 = 1.5e-2
 
 
 def log(msg: str) -> None:
@@ -118,6 +157,30 @@ def attention_bound(b, h, lq, lk, d):
     return bound, ("bytes" if bound == t_bytes else "operations"), logits
 
 
+def device_split(fn, name_part, calls=5):
+    """Device time of one call of ``fn`` from a torch.profiler trace of
+    ``calls`` calls: (all its kernels, the kernels whose name holds
+    ``name_part``) in ms. Beside the CUDA-event time it shows how much of
+    a call the device is busy, and how much of that is the named kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy = named = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.device_time_total
+            named += e.device_time_total if name_part in e.name else 0.0
+    if named <= 0:
+        raise AssertionError(f"the trace holds no device time of {name_part}")
+    return busy / 1e3 / calls, named / 1e3 / calls
+
+
 def plain_chunked(plain, *ts):
     """A plain version over all of B*H, in slices whose float32 logits stay
     near 2 GiB (the whole batch at once would not fit). ``ts`` are [B, H, ...]
@@ -134,13 +197,13 @@ def plain_chunked(plain, *ts):
 
 
 def training_bound(kind, b, h, l, d):
-    """Least time of one training-kernel call: the bytes it must move (bf16
-    [B,H,L,D] operands and fp32 [B,H,L] rows, each read or written once)
-    over the memory rate, against its matmul work on the bf16 tensor cores
-    (4, 6 and 8 L^2 D a head for K4, K5 and K6) and its 4 fp32 operations
-    per logit outside them (K4: max, subtract, exp2, sum; K5/K6: subtract,
-    exp2, subtract, multiply)."""
-    n_bhld, n_rows, matmul = {"K4": (4, 1, 4), "K5": (5, 2, 6), "K6": (6, 2, 8)}[kind]
+    """Least time of one online-softmax or training-kernel call: the bytes it
+    must move (bf16 [B,H,L,D] operands and fp32 [B,H,L] rows, each read or
+    written once) over the memory rate, against its matmul work on the bf16
+    tensor cores (4, 4, 6 and 8 L^2 D a head for K3, K4, K5 and K6) and its
+    4 fp32 operations per logit outside them (K3/K4: max, subtract, exp2,
+    sum; K5/K6: subtract, exp2, subtract, multiply)."""
+    n_bhld, n_rows, matmul = {"K3": (4, 0, 4), "K4": (4, 1, 4), "K5": (5, 2, 6), "K6": (6, 2, 8)}[kind]
     nbytes = n_bhld * 2 * b * h * l * d + n_rows * 4 * b * h * l
     logits = b * h * l * l
     t_bytes = nbytes / (PEAK_HBM_TBS * 1e12) * 1e3
@@ -150,11 +213,27 @@ def training_bound(kind, b, h, l, d):
     return bound, ("bytes" if bound == t_bytes else "operations")
 
 
-def kernel_error(got, want, rtol=KERNEL_RTOL):
-    """(max |got - want|, worst ratio of the error to its tolerance)."""
+def gn_proj_bound(b, n, c, cout):
+    """Least time of one K7 call: x, w, the bias, gamma, beta and the
+    per-channel statistics read once and the output written once over the
+    memory rate, against the projection's 2 N C Cout per image on the bf16
+    tensor cores and the prologue's 4 fp32 operations per x element."""
+    nbytes = 2 * b * n * c + 2 * c * cout + 2 * cout + 4 * (2 * b * c + 2 * c) + 2 * b * n * cout
+    t_bytes = nbytes / (PEAK_HBM_TBS * 1e12) * 1e3
+    t_tensor = 2.0 * b * n * c * cout / (PEAK_BF16_TFLOPS * 1e12) * 1e3
+    t_fp32 = 4.0 * b * n * c / (PEAK_FP32_TFLOPS * 1e12) * 1e3
+    bound = max(t_bytes, t_tensor, t_fp32)
+    return bound, ("bytes" if bound == t_bytes else "operations")
+
+
+def kernel_error(got, want, rtol=KERNEL_RTOL, rounded_before=None):
+    """(max |got - want|, worst ratio of the error to its tolerance).
+    ``rounded_before``: a value both sides rounded to bf16 before the last
+    add (K7's product before the bias); its ulp joins the tolerance."""
     w = want.float()
     err = (got.float() - w).abs()
-    tol = rtol * w.abs() + KERNEL_ATOL_RMS * w.pow(2).mean().sqrt()
+    mag = w.abs() if rounded_before is None else w.abs() + rounded_before.float().abs()
+    tol = rtol * mag + KERNEL_ATOL_RMS * w.pow(2).mean().sqrt()
     return float(err.max()), float((err / tol).max())
 
 
@@ -185,7 +264,7 @@ def phase_build():
         lines = fa.build_log.get(name, "").splitlines()
         regs = [line.split("Used ")[1].split(" registers")[0] for line in lines if "registers" in line]
         spills = [line.strip() for line in lines if "spill" in line and "0 bytes spill stores" not in line]
-        log(f"  ptxas {name}: registers per thread of the head-dim instantiations: {', '.join(regs)}; "
+        log(f"  ptxas {name}: registers per thread of the instantiations: {', '.join(regs)}; "
             f"spills: {spills or 'none'}")
         fa._library(name)
 
@@ -652,6 +731,289 @@ def phase_train(smi):
                 remat_launches=remat_launches, grad_rel_l2=rel, export_s=export_s, profile=profile, card=smi)
 
 
+def phase_inference_kernels():
+    """K3 and K7 against their plain versions at the mining path's shapes,
+    with times and bounds. These launches are not the main path's."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffmining_tpu_torch.ops import flash_attention as fa
+    from diffmining_tpu_torch.ops import fused_norm as fn
+    from diffmining_tpu_torch.ops.attention import sdpa_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 5)
+
+    def k3_plain(q, k, v):
+        return fa.flash_fwd_online_plain(q, k, v, block_k=64)  # the kernel's 64-key tiles
+
+    results = {"K3": {}, "K7": {}}
+    for name, (b, h, l, d) in [("L4096 D40", (8, 8, 4096, 40)), ("L1024 D80", (8, 8, 1024, 80)),
+                               ("masked tail L1100 D160", (2, 8, 1100, 160))]:
+        q, k, v = [torch.randn(b, l, h * d, generator=g, device=dev).to(torch.bfloat16)
+                   .view(b, l, h, d).transpose(1, 2) for _ in range(3)]
+        got = fa.flash_fwd_online(q, k, v)
+        torch.cuda.synchronize()
+        max_err, worst = kernel_error(got, plain_chunked(k3_plain, q, k, v))
+        if worst > 1.0 or not torch.isfinite(got).all():
+            raise AssertionError(f"K3 {name}: kernel disagrees with the plain version ({worst:.3g} x the tolerance)")
+        ms = cuda_time_ms(lambda: fa.flash_fwd_online(q, k, v))
+        plain_ms = cuda_time_ms(lambda: plain_chunked(k3_plain, q, k, v), reps=3, warmup=1)
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bound, by = training_bound("K3", b, h, l, d)
+        results["K3"][name] = dict(shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms,
+                                   plain_ms=plain_ms, library_ms=lib_ms, library="sdpa forward", bound_ms=bound,
+                                   bound_by=by)
+        log(f"kernel K3 {name} B{b} H{h}: max|err| {max_err:.3g} = {worst:.3g} x tolerance  ms {ms:.4f}  "
+            f"plain {plain_ms:.3f}  sdpa forward {lib_ms:.4f}  bound {bound:.4f} ({by})")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+
+    # the underflow edge: every natural logit -95, where the no-max kernel
+    # gives zeros; K3 keeps the running max and gives the softmax
+    d, l = 40, 1024
+    q = torch.zeros(1, 2, l, d, device=dev)
+    k = torch.zeros(1, 2, l, d, device=dev)
+    q[..., 0] = -95.0 * math.sqrt(d)
+    k[..., 0] = 1.0
+    v = torch.randn(1, 2, l, d, generator=g, device=dev)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = fa.flash_fwd_online(q, k, v)
+    torch.cuda.synchronize()
+    _, worst = kernel_error(got, k3_plain(q, k, v))
+    softmax = sdpa_plain(q.float(), k.float(), v.float())
+    soft_err = float((got.float() - softmax).abs().max())
+    if worst > 1.0 or soft_err > 2.0**-7 * float(softmax.abs().max()) or float(got.float().abs().max()) == 0.0:
+        raise AssertionError(f"K3 underflow edge: {worst:.3g} x the tolerance, {soft_err} off the softmax")
+    log(f"kernel K3 underflow edge (all natural logits -95): the softmax, within {soft_err:.3g} of it; "
+        "the no-max kernel gives zeros there (phase 3)")
+
+    cases = [("N4096 C320", (8, 64, 64, 320, "none")), ("N1024 C640", (8, 32, 32, 640, "none")),
+             ("N256 C1280", (8, 16, 16, 1280, "none")), ("N64 C1280", (8, 8, 8, 1280, "none")),
+             ("odd N4095 C320", (8, 63, 65, 320, "none")), ("silu N1024 C640", (8, 32, 32, 640, "silu")),
+             ("channels-last N1024 C640", (8, 32, 32, 640, "none"))]
+    for name, (b, hh, ww, c, act) in cases:
+        x = (torch.randn(b, c, hh, ww, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        if name.startswith("channels-last"):  # as the UNet hands it after a transformer's proj_out
+            x = x.contiguous(memory_format=torch.channels_last)
+        gamma, beta, bias = ((torch.randn(c, generator=g, device=dev) * s + o).to(torch.bfloat16)
+                             for s, o in ((0.3, 1.0), (0.3, 0.0), (0.5, 0.0)))
+        weight = (torch.randn(c, c, 1, 1, generator=g, device=dev) / math.sqrt(c)).to(torch.bfloat16)
+        xv, w = x.permute(0, 2, 3, 1), weight[:, :, 0, 0].t()  # the UNet's NCHW viewed as NHWC; [C, Cout]
+        got = fn.gn_act_proj(xv, gamma, beta, w, bias, 32, act=act)
+        torch.cuda.synchronize()
+        want = fn.gn_act_proj_plain(xv, gamma, beta, w, bias, 32, act=act)
+        max_err, worst = kernel_error(got, want, rounded_before=want.float() - bias.float())
+        if worst > 1.0 or not torch.isfinite(got).all():
+            raise AssertionError(f"K7 {name}: kernel disagrees with the plain version ({worst:.3g} x the tolerance)")
+        ms = cuda_time_ms(lambda: fn.gn_act_proj(xv, gamma, beta, w, bias, 32, act=act))
+        plain_ms = cuda_time_ms(lambda: fn.gn_act_proj_plain(xv, gamma, beta, w, bias, 32, act=act), reps=3, warmup=1)
+        lib_ms = (cuda_time_ms(lambda: F.conv2d(F.group_norm(x, 32, gamma, beta, 1e-6), weight, bias).permute(0, 2, 3, 1))
+                  if act == "none" else None)
+        # the wrapper computes the group statistics with torch ops before the
+        # launch, as the JAX wrapper does with XLA: split the call's device time
+        busy_ms, kernel_ms = device_split(lambda: fn.gn_act_proj(xv, gamma, beta, w, bias, 32, act=act),
+                                          "gn_act_proj_kernel")
+        bound, by = gn_proj_bound(b, hh * ww, c, c)
+        results["K7"][name] = dict(shape=[b, hh * ww, c, c], act=act, max_abs_err=max_err, err_over_tol=worst, ms=ms,
+                                   plain_ms=plain_ms, library_ms=lib_ms,
+                                   library="F.group_norm + 1x1 F.conv2d (two calls)", bound_ms=bound, bound_by=by,
+                                   device_busy_ms=busy_ms, kernel_only_ms=kernel_ms)
+        lib = f"{lib_ms:.4f}" if lib_ms is not None else "-"
+        log(f"kernel K7 {name} B{b} act={act}: max|err| {max_err:.3g} = {worst:.3g} x tolerance  ms {ms:.4f} "
+            f"(device busy {busy_ms:.4f}, the kernel alone {kernel_ms:.4f})  plain {plain_ms:.3f}  "
+            f"group_norm+conv2d {lib}  bound {bound:.4f} ({by})")
+        del x, xv, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def phase_mining(smi):
+    """The mining path: sweep, then Cluster.clustering("dift-161") under the
+    default modes and under the K3/K7 modes, on synthetic PNGs."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diffmining_tpu_torch.models import unet as unet_mod
+    from diffmining_tpu_torch.models.clip import CLIP_VIT_L_TEXT
+    from diffmining_tpu_torch.models.unet import SD15_UNET
+    from diffmining_tpu_torch.models.vae import SD15_VAE
+    from diffmining_tpu_torch.ops import flash_attention as fa
+    from diffmining_tpu_torch.ops import fused_norm as fn
+    from diffmining_tpu_torch.ops.attention import sdpa, sdpa_plain
+    from diffmining_tpu_torch.typicality.cluster import Cluster
+    from diffmining_tpu_torch.typicality.compute import SD, Typicality
+    from diffmining_tpu_torch.typicality.templates import dift_prompt
+    from diffmining_tpu_torch.utils.images import array_from_uint8, image_uid
+
+    labels, per_label, px, N, feature = ["1920", "1960"], 64, 512, 4, "dift-161"
+    work = os.path.join(ROOT, "build", "chip_smoke_mining")
+    shutil.rmtree(work, ignore_errors=True)
+    data, tree, subs = (os.path.join(work, n) for n in ("ftt", "typicality", "subs"))
+    rng = np.random.RandomState(SEED + 6)
+    t0 = time.perf_counter()
+    for c in labels:
+        os.makedirs(os.path.join(data, c))
+        for i in range(per_label):
+            # names unique across labels: patch ids, the embedding cache and
+            # the DIFT draws key on the file name, as in the reference
+            Image.fromarray(rng.randint(0, 256, (px, px, 3), dtype=np.uint8)).save(
+                os.path.join(data, c, f"{c}_img{i}.png"), compress_level=1)
+    log(f"mining: {len(labels)} labels x {per_label} synthetic {px}x{px} PNGs (numpy, seeded) written in "
+        f"{time.perf_counter() - t0:.1f} s; the sweep and the miner decode them")
+
+    def bundle():
+        return SD.init_random("ftt", labels, SD15_UNET, SD15_VAE, CLIP_VIT_L_TEXT, seed=SEED, dtype=torch.bfloat16,
+                              device="cuda")
+
+    sd = bundle()
+    typ = Typicality("ftt", None, data, tree, t_min=0.1, t_max=0.9, sd=sd, N=N, batch_images=8, chunk=1,
+                     device="cuda")
+    typ.make_submission(data, subs, sub_split=1)
+    t0 = time.perf_counter()
+    typ.compute_submission(os.path.join(subs, "0.txt"))
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    log(f"mining: swept {len(labels) * per_label} images at N={N} in {sweep_s:.1f} s")
+
+    kernels = (fa.flash_fwd_nomax, fa.flash_fwd_online, fn.gn_act_proj)
+
+    def mine(sd_, cache):
+        """One clustering run with the CLI defaults; the counts are set to 0
+        just before it and read just after."""
+        cl = Cluster("ftt", tree, data, cache, dift_sd=sd_, device="cuda")
+        cl.init_dift()
+        forward, dift_s = cl.dift.forward, [0.0]
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            out = forward(*a, **k)  # returns host numpy: synchronised
+            dift_s[0] += time.perf_counter() - t
+            return out
+
+        cl.dift.forward = timed
+        for f in kernels:
+            f.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ranked = cl.clustering(feature, k=1000, num_clusters=32)
+        wall = time.perf_counter() - t
+        launches = {f.__name__: f.launches for f in kernels}
+        cl.dift.forward = forward
+        return cl, ranked, launches, dict(wall_s=wall, dift_s=dift_s[0], passes=cl.dift.n_passes,
+                                          dift_images_per_s=cl.dift.n_passes / dift_s[0])
+
+    def check_clusters(cl, ranked, tag):
+        tables = cl.patch_tables()
+        for c in labels:
+            top = cl.get_top_k(tables[c][0], k=1000)
+            ids = [m[2] for members, _ in ranked[c] for m in members]
+            want = {os.path.splitext(os.path.basename(p))[0] + f"_{x0}-{y0}-{x1}-{y1}" for p, x0, y0, x1, y1 in
+                    zip(top.seed, top.x_start, top.y_start, top.x_end, top.y_end)}
+            if len(ids) != len(set(ids)) or set(ids) != want:
+                raise AssertionError(f"mining {tag} {c}: {len(ids)} members for {len(want)} top patches")
+            scores = [s for _, s in ranked[c]]
+            medians = [float(np.median([m[1] for m in members])) for members, _ in ranked[c]]
+            if scores != sorted(scores, reverse=True) or not np.allclose(scores, medians):
+                raise AssertionError(f"mining {tag} {c}: clusters not sorted by median D")
+            crops = os.listdir(os.path.join(cl.cache_path, "images", "clusters", "ranked", feature, c))
+            if len(crops) != len(ids):
+                raise AssertionError(f"mining {tag} {c}: {len(crops)} member crops for {len(ids)} members")
+        return {c: len(ranked[c]) for c in labels}, sum(len(cl.get_top_k(tables[c][0], k=1000)) for c in labels)
+
+    runs = {}
+    cl1, ranked1, launches1, stats1 = mine(sd, os.path.join(work, "cache_default"))
+    want1 = {"flash_fwd_nomax": 10 * stats1["passes"], "flash_fwd_online": 0, "gn_act_proj": 0}
+    if launches1 != want1:
+        raise AssertionError(f"mining (default modes): launches {launches1}, expected {want1}")
+    n_clusters, n_patches = check_clusters(cl1, ranked1, "default")
+    runs["default"] = dict(stats1, launches=launches1, clusters=n_clusters, patches=n_patches)
+    log(f"mining (default modes): {n_patches} top patches in {n_clusters} clusters; {stats1['passes']} DIFT passes "
+        f"(E=8); launches {launches1}; wall {stats1['wall_s']:.1f} s, DIFT {stats1['dift_s']:.1f} s = "
+        f"{stats1['dift_images_per_s']:.2f} images/s on {smi}")
+
+    modes = {"DIFFMINING_FUSED_NORM": "1", "DIFFMINING_FLASH_ONESHOT": "0", "DIFFMINING_FLASH_NOMAX": "0"}
+    saved_env = {k: os.environ.get(k) for k in modes}
+    saved_gates = fa._ONESHOT, fa._NOMAX
+    os.environ.update(modes)
+    fa._ONESHOT, fa._NOMAX = "0", "0"  # the gates are read at import: set them as the tests do
+    try:
+        sd2 = bundle()
+        if not sd2.unet.config.fused_norm:
+            raise AssertionError("DIFFMINING_FUSED_NORM=1 did not turn the bundle's fused entry on")
+        cl2, ranked2, launches2, stats2 = mine(sd2, os.path.join(work, "cache_modes"))
+        want2 = {"flash_fwd_nomax": 0, "flash_fwd_online": 10 * stats2["passes"], "gn_act_proj": 16 * stats2["passes"]}
+        if launches2 != want2:
+            raise AssertionError(f"mining (K3/K7 modes): launches {launches2}, expected {want2}")
+        n_clusters, n_patches = check_clusters(cl2, ranked2, "modes")
+        runs["modes"] = dict(stats2, launches=launches2, clusters=n_clusters, patches=n_patches)
+        log(f"mining (FUSED_NORM=1, ONESHOT=0, NOMAX=0): {n_patches} top patches in {n_clusters} clusters; "
+            f"{stats2['passes']} DIFT passes; launches {launches2} = 10 of K3 and 16 of K7 a pass; wall "
+            f"{stats2['wall_s']:.1f} s, DIFT {stats2['dift_s']:.1f} s = {stats2['dift_images_per_s']:.2f} images/s")
+
+        # the DIFT feature map of one image under both modes (same weights and draws)
+        path = os.path.join(data, labels[0], f"{labels[0]}_img0.png")
+        arr = array_from_uint8(np.asarray(Image.open(path).convert("RGB")))
+        prompt = dift_prompt("ftt", labels[0])
+        f_default = torch.from_numpy(cl1.dift.forward(arr, prompt, t=161, uid=image_uid(path)))
+        f_modes = torch.from_numpy(cl2.dift.forward(arr, prompt, t=161, uid=image_uid(path)))
+        dift_rel = rel_l2(f_modes, f_default)
+        if not (torch.isfinite(f_modes).all() and dift_rel < DIFT_MODES_REL_L2):
+            raise AssertionError(f"DIFT feature map, K3/K7 modes vs default modes: relative L2 {dift_rel}")
+        log(f"mining: DIFT feature map {tuple(f_modes.shape)} of one image, K3/K7 modes vs default modes: relative "
+            f"L2 {dift_rel:.4g} (limit {DIFT_MODES_REL_L2})")
+
+        # one modes-on UNet pass (batch 8, t=161, with the tap) against float32
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 7)
+        x = torch.randn(8, 4, px // 8, px // 8, generator=g, device="cuda")
+        t = torch.full((8,), 161, device="cuda", dtype=torch.long)
+        ctx = sd2.country_embeds[labels[0]][None].expand(8, -1, -1)
+        with torch.inference_mode():
+            before = [f.launches for f in kernels]
+            out16 = sd2.unet(x, t, ctx, up_ft_indices=(1,))
+            per_pass = [f.launches - b for f, b in zip(kernels, before)]
+            if per_pass != [0, 10, 16]:
+                raise AssertionError(f"modes-on UNet pass launched {per_pass} of K1, K3, K7")
+            pass_ms = cuda_time_ms(lambda: sd2.unet(x, t, ctx, up_ft_indices=(1,)), reps=5, warmup=1)
+            # the float32 reference: the kernels are bf16 only, so this pass
+            # alone takes the module path and the plain softmax
+            cfg = sd2.unet.config
+            sd2.unet.config = dataclasses.replace(cfg, fused_norm=False)
+            unet_mod.sdpa = sdpa_plain
+            try:
+                out32 = sd2.unet.float()(x, t, ctx, up_ft_indices=(1,))
+            finally:
+                unet_mod.sdpa = sdpa
+                sd2.unet.config = cfg
+                sd2.unet.to(torch.bfloat16)
+        rel = rel_l2(out16["sample"], out32["sample"])
+        tap_rel = rel_l2(out16["up_ft"][1], out32["up_ft"][1])
+        if not (torch.isfinite(out16["sample"]).all() and rel < UNET_REL_L2 and tap_rel < UNET_REL_L2):
+            raise AssertionError(f"modes-on UNet pass vs float32: relative L2 {rel} (eps), {tap_rel} (tap)")
+        log(f"mining: modes-on UNet pass (B=8, 512px, t=161) vs float32 + plain attention + module path: relative "
+            f"L2 {rel:.4g} (eps), {tap_rel:.4g} (up block 1 tap) (limit {UNET_REL_L2}); {pass_ms:.2f} ms a pass")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        fa._ONESHOT, fa._NOMAX = saved_gates
+    del sd, sd2, cl1, cl2
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(labels=len(labels), images_per_label=per_label, px=px, N=N, feature=feature, sweep_s=sweep_s,
+                runs=runs, unet_rel_l2_modes=rel, tap_rel_l2_modes=tap_rel, dift_modes_rel_l2=dift_rel,
+                unet_pass_ms_modes=pass_ms, card=smi)
+
+
 TRAIN_KERNELS = {
     "K4": ("flash_fwd_lse", "diffmining_tpu_torch/csrc/flash_fwd_lse.cu",
            "diffmining_tpu/ops/flash_attention.py:37 (_flash_kernel, via _flash_forward(return_lse=True) :142)"),
@@ -660,6 +1022,23 @@ TRAIN_KERNELS = {
     "K6": ("flash_bwd_dkv", "diffmining_tpu_torch/csrc/flash_bwd_dkv.cu",
            "diffmining_tpu/ops/flash_attention.py:609 (_bwd_dkv_kernel, via _bwd_pallas :659)"),
 }
+INFERENCE_KERNELS = {  # kind: (wrapper, source, the TPU kernel, the main shape)
+    "K3": ("flash_fwd_online", "diffmining_tpu_torch/csrc/flash_fwd_online.cu",
+           "diffmining_tpu/ops/flash_attention.py:199 (_flash_kernel_t, via _flash_forward_t :417 and "
+           "_flash_forward_cbl :517)", "L4096 D40"),
+    "K7": ("gn_act_proj", "diffmining_tpu_torch/csrc/gn_act_proj.cu",
+           "diffmining_tpu/ops/fused_norm.py:27 (_gn_act_matmul_kernel, via gn_act_proj :44)", "N4096 C320"),
+}
+
+
+def kernel_entry(name, source, replaces, launches, cases, main_case):
+    """One kernel's entry of the kernels line: the main shape's numbers and
+    every shape's beside them."""
+    m = cases[main_case]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in cases.values()), "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "library": m.get("library", "sdpa forward"), "main_shape": main_case, "shapes": cases}
 
 
 def main() -> int:
@@ -677,38 +1056,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_kern = phase_train_kernels()
     train = phase_train(smi)
+    infer_kern = phase_inference_kernels()
+    mining = phase_mining(smi)
 
-    main_case = kern["K1 L4096 D40"]
-    entries = [{
-        "name": "flash_fwd_nomax",
-        "route": "cuda",
-        "source": "diffmining_tpu_torch/csrc/flash_fwd_nomax.cu",
-        "replaces": "diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot); "
-                    "diffmining_tpu/ops/flash_attention.py:250 (_flash_kernel_t_nomax)",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "shapes": kern,
-    }]
+    entries = [kernel_entry(
+        "flash_fwd_nomax", "diffmining_tpu_torch/csrc/flash_fwd_nomax.cu",
+        "diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot); "
+        "diffmining_tpu/ops/flash_attention.py:250 (_flash_kernel_t_nomax)", launches, kern, "K1 L4096 D40")]
     for kind, (name, source, replaces) in TRAIN_KERNELS.items():
-        cases = train_kern[kind]
-        main_case = cases["L4096 D40"]
-        entries.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": train["launches"][name],
-            "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"], "library": main_case["library"],
-            "shapes": cases,
-        })
+        entries.append(kernel_entry(name, source, replaces, train["launches"][name], train_kern[kind], "L4096 D40"))
+    for kind, (name, source, replaces, main_case) in INFERENCE_KERNELS.items():
+        entries.append(kernel_entry(name, source, replaces, mining["runs"]["modes"]["launches"][name],
+                                    infer_kern[kind], main_case))
     print(json.dumps({"slice": {"imgs_per_hr_n4": imgs_hr, "imgs_per_hr_n100": imgs_hr_100,
                                 "unet_pass_ms": pass_ms, "card": smi}}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"mining": mining}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

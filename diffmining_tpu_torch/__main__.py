@@ -2,10 +2,12 @@
 
     finetune    --which {cars,ftt,geo,places,xray} + trainer flags
     typicality  typicality sweep (typicality/compute.py CLI)
+    cluster     mining: patch tables, DIFT features, k-means, ranked
+                clusters and figures (typicality/cluster.py CLI)
 
-The JAX package's other commands (cluster, pnp, parallel, xray, doersch,
-clipmining, html, fidelity, verify_checkpoint) come with later slices of the
-port.
+Each runs on the GPU unless given --device cpu. The JAX package's other
+commands (pnp, parallel, xray, doersch, clipmining, html, fidelity,
+verify_checkpoint) come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -37,8 +39,12 @@ def main(argv=None) -> None:
         from diffmining_tpu_torch.typicality.compute import main as m
 
         m(rest)
+    elif cmd == "cluster":
+        from diffmining_tpu_torch.typicality.cluster import main as m
+
+        m(rest)
     else:
-        raise SystemExit(f"unknown command {cmd!r}; this port has: finetune, typicality")
+        raise SystemExit(f"unknown command {cmd!r}; this port has: finetune, typicality, cluster")
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ image decoding (``path -> [H, W, 3] float32 in [-1, 1]``), as the sweep's
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import math
@@ -90,6 +91,9 @@ class BaseTrainer:
         if sd is not None:
             self.unet, self.vae, self.clip = sd.unet, sd.vae, sd.clip
             self.tokenizer, self.schedule = sd.tokenizer, sd.schedule
+            # the fused GroupNorm kernel is forward only: training keeps the
+            # module path whatever the bundle's gate chose
+            self.unet.config = dataclasses.replace(self.unet.config, fused_norm=False)
         elif os.path.isdir(args.base_name_or_path):
             self.base_dir = base = args.base_name_or_path
             p = load_pipeline_dir(base)

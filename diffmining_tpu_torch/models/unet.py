@@ -16,8 +16,12 @@ with the JAX package's remat policies (unet.py:80-91, 570-600), through
 block in the backward, "attn" only the transformer blocks, "dots" both but
 saves every matmul and convolution output (a selective-checkpoint policy).
 
-The DIFT ``up_ft_indices`` taps and the PnP injection come with the mining
-and PnP slices.
+``up_ft_indices`` returns the DIFT taps, each up block's output after its
+upsampler, as the JAX dict (unet.py:687-703). ``UNetConfig.fused_norm``
+(set by the SD bundle on CUDA under ``DIFFMINING_FUSED_NORM=1``) sends
+every SpatialTransformer entry, GroupNorm → proj_in, through
+``ops.fused_norm.gn_act_proj`` with the same state-dict keys; it is
+forward only. The PnP injection comes with the PnP slice.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffmining_tpu_torch.ops.attention import sdpa
+from diffmining_tpu_torch.ops.fused_norm import gn_act_proj
 
 REMAT_POLICIES = ("full", "attn", "dots")
 
@@ -49,6 +54,10 @@ class UNetConfig:
     freq_shift: int = 0
     flip_sin_to_cos: bool = True
     sample_size: int = 64
+    # the transformer entry GroupNorm → proj_in as one fused kernel pass
+    # (ops/fused_norm.py, unet.py:92-96 in JAX); forward only, the same
+    # state dict either way
+    fused_norm: bool = False
 
     @property
     def up_block_has_attn(self) -> Tuple[bool, ...]:
@@ -192,10 +201,18 @@ class Transformer2DModel(nn.Module):
         )
         self.proj_out = nn.Conv2d(ch, ch, 1)
 
-    def forward(self, x, context, ctx_tile: int = 1):
+    def forward(self, x, context, ctx_tile: int = 1, fused_norm: bool = False):
         b, c, h, w = x.shape
         res = x
-        y = self.proj_in(self.norm(x)).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        if fused_norm:
+            # one fused pass (no activation between them in diffusers); it
+            # writes [B, H, W, C] directly, the blocks' [B, L, C] input
+            y = gn_act_proj(
+                x.permute(0, 2, 3, 1), self.norm.weight, self.norm.bias, self.proj_in.weight[:, :, 0, 0].t(),
+                self.proj_in.bias, self.norm.num_groups, eps=self.norm.eps,
+            ).reshape(b, h * w, c)
+        else:
+            y = self.proj_in(self.norm(x)).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for i, blk in enumerate(self.transformer_blocks):
             y = blk(y, context, ctx_tile=ctx_tile if i == 0 else 1)
         if ctx_tile > 1:
@@ -319,8 +336,10 @@ class UNet2DCondition(nn.Module):
         timesteps: torch.Tensor,  # [B] or []
         encoder_hidden_states: torch.Tensor,  # [B*ctx_tile, L, cross_dim]
         ctx_tile: int = 1,
-    ) -> torch.Tensor:
-        """eps prediction [B*ctx_tile, C, H, W].
+        up_ft_indices: Tuple[int, ...] = (),
+    ):
+        """eps prediction [B*ctx_tile, C, H, W]; with ``up_ft_indices`` the
+        dict {"sample": eps, "up_ft": {i: up block i's output}}.
 
         ctx_tile > 1 (sweep prefix dedup): ``sample``/``timesteps`` carry the
         B unique (image, sample) rows and ``encoder_hidden_states`` the
@@ -341,13 +360,14 @@ class UNet2DCondition(nn.Module):
             return temb.repeat_interleave(pending, 0), [s.repeat_interleave(pending, 0) for s in skips]
 
         res_call, tf_call = _remat_calls(self.remat_policy if torch.is_grad_enabled() and ctx_tile == 1 else None)
+        fused = cfg.fused_norm
 
         skips: List[torch.Tensor] = [x]
         for blk in self.down_blocks:
             for j, res in enumerate(blk.resnets):
                 x = res_call(res, x, temb)
                 if blk.attentions is not None:
-                    x = tf_call(blk.attentions[j], x, context, ctx_tile=pending or 1)
+                    x = tf_call(blk.attentions[j], x, context, ctx_tile=pending or 1, fused_norm=fused)
                     if pending:
                         # the first transformer tiled the batch inside; bring
                         # temb and the collected skips along
@@ -360,21 +380,27 @@ class UNet2DCondition(nn.Module):
 
         mid = self.mid_block
         x = res_call(mid.resnets[0], x, temb)
-        x = tf_call(mid.attentions[0], x, context, ctx_tile=pending or 1)
+        x = tf_call(mid.attentions[0], x, context, ctx_tile=pending or 1, fused_norm=fused)
         if pending:  # no down block carried attention: tile at mid
             temb, skips = tile_carry(temb, skips)
             pending = 0
         x = res_call(mid.resnets[1], x, temb)
 
-        for blk in self.up_blocks:
+        up_ft = {}
+        for i, blk in enumerate(self.up_blocks):
             for j, res in enumerate(blk.resnets):
                 x = res_call(res, torch.cat([x, skips.pop()], dim=1), temb)
                 if blk.attentions is not None:
-                    x = tf_call(blk.attentions[j], x, context)
+                    x = tf_call(blk.attentions[j], x, context, fused_norm=fused)
             if blk.upsamplers is not None:
                 x = blk.upsamplers[0](x, skips[-1].shape[2:])
+            # DIFT taps the whole up block's output, after its upsampler
+            # (reference dift.py:134-165)
+            if i in up_ft_indices:
+                up_ft[i] = x
 
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        eps = self.conv_out(F.silu(self.conv_norm_out(x)))
+        return {"sample": eps, "up_ft": up_ft} if up_ft_indices else eps
 
 
 def _call(mod, *args, **kwargs):

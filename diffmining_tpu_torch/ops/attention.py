@@ -5,14 +5,18 @@ kernels and everything else to ``sdpa_plain``, the counterpart of
 ``sdpa_xla``. The gate is the JAX package's (attention.py:75-94: self-
 attention with Lq == Lk >= 1024, head dim <= 160, no mask) on CUDA
 tensors. A gated call with grad enabled and an input that requires grad
-goes to ``flash_attention`` (forward K4, backward K5/K6), every other gated
-call to the forward-only ``flash_fwd_nomax``: as in JAX, where the primal
-is the no-max kernel and the custom_vjp's fwd rule is K4. Cross-attention
-(Lk = 77), L <= 256, the VAE's single-head D = 512, CLIP's causal mask and
-every CPU tensor take the plain path. The kernels are bf16 only: a float32
-CUDA tensor at a gated shape raises in the wrapper (so ``--mixed_precision
-no`` training raises on the card at the first gated attention), and
-float32 validation runs on the CPU.
+goes to ``flash_attention`` (forward K4, backward K5/K6), as the JAX
+custom_vjp's fwd rule does. Every other gated call takes the forward the
+JAX primal takes under the same settings (``flash_attention.forward_route``:
+``DIFFMINING_FLASH_ONESHOT``, ``DIFFMINING_FLASH_NOMAX``,
+``DIFFMINING_ATTN_TLAYOUT``, the block policy): K1 and K2 run
+``flash_fwd_nomax``, K3 ``flash_fwd_online`` and K4 ``flash_fwd_lse`` with
+the lse dropped. Under the default settings at 512px every gated call is
+K1. Cross-attention (Lk = 77), L <= 256, the VAE's single-head D = 512,
+CLIP's causal mask and every CPU tensor take the plain path. The kernels
+are bf16 only: a float32 CUDA tensor at a gated shape raises in the wrapper
+(so ``--mixed_precision no`` training raises on the card at the first
+gated attention), and float32 validation runs on the CPU.
 
 Unlike the JAX ``sdpa`` there is no try/except around the kernel: a gated
 call launches it or raises.
@@ -21,7 +25,13 @@ from __future__ import annotations
 
 import torch
 
-from diffmining_tpu_torch.ops.flash_attention import flash_attention, flash_fwd_nomax
+from diffmining_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_fwd_lse,
+    flash_fwd_nomax,
+    flash_fwd_online,
+    forward_route,
+)
 
 
 def sdpa_plain(
@@ -56,6 +66,14 @@ def use_kernel(q_shape, k_shape, masked: bool, device: torch.device) -> bool:
     )
 
 
+def _lse_dropped(q, k, v, scale):
+    return flash_fwd_lse(q, k, v, scale)[0]
+
+
+# the port's wrapper for each TPU forward kernel
+FORWARD = {"K1": flash_fwd_nomax, "K2": flash_fwd_nomax, "K3": flash_fwd_online, "K4": _lse_dropped}
+
+
 def sdpa(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -66,5 +84,5 @@ def sdpa(
     if use_kernel(q.shape, k.shape, mask is not None, q.device):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             return flash_attention(q, k, v, scale)
-        return flash_fwd_nomax(q, k, v, scale)
+        return FORWARD[forward_route(q.shape[2], k.shape[2])](q, k, v, scale)
     return sdpa_plain(q, k, v, mask=mask, scale=scale)

@@ -1,15 +1,25 @@
 """Flash attention: the hand-written CUDA kernels, their plain PyTorch
-versions, and the autograd Function (counterpart of
+versions, the forward route gates and the autograd Function (counterpart of
 diffmining_tpu/ops/flash_attention.py).
 
-Four kernels, one CUDA source each under ``csrc/``:
+Five kernels, one CUDA source each under ``csrc/``:
 
-  flash_fwd_nomax  no-max forward (TPU ``_flash_kernel_t_1shot`` and
-                   ``_flash_kernel_t_nomax``): the UNet without grad;
-  flash_fwd_lse    online-softmax forward that also writes the natural-log
-                   logsumexp (TPU ``_flash_kernel``): the forward under grad;
-  flash_bwd_dq     dq from lse and delta (TPU ``_bwd_dq_kernel``);
-  flash_bwd_dkv    dk and dv from lse and delta (TPU ``_bwd_dkv_kernel``).
+  flash_fwd_nomax   no-max forward (TPU ``_flash_kernel_t_1shot``, K1, and
+                    ``_flash_kernel_t_nomax``, K2): the UNet without grad
+                    under the default modes;
+  flash_fwd_online  online-softmax forward without lse (TPU
+                    ``_flash_kernel_t``, K3): the UNet without grad when the
+                    no-max modes are off;
+  flash_fwd_lse     online-softmax forward that also writes the natural-log
+                    logsumexp (TPU ``_flash_kernel``, K4): the forward under
+                    grad, and without grad under ``DIFFMINING_ATTN_TLAYOUT=0``;
+  flash_bwd_dq      dq from lse and delta (TPU ``_bwd_dq_kernel``, K5);
+  flash_bwd_dkv     dk and dv from lse and delta (TPU ``_bwd_dkv_kernel``, K6).
+
+``forward_route`` picks among K1-K4 for a forward without grad as the JAX
+``sdpa`` and ``_flash_forward_t`` do, from the same environment variables,
+read into module attributes at import (``_ONESHOT``, ``_NOMAX``,
+``_BLOCK_Q``, ``_BLOCK_K``) or at call time (``DIFFMINING_ATTN_TLAYOUT``).
 
 ``FlashAttention`` is the counterpart of the JAX custom_vjp: its forward is
 flash_fwd_lse and saves (q, k, v, o, lse); its backward computes delta =
@@ -25,10 +35,11 @@ The kernels are bf16 only, for head dims 40, 80 and 160, and read strided
 return [B,H,L,D] views of them, so merging heads (and, in the backward,
 handing the gradients back to the projections) needs no copy.
 
-Each source is built with ``nvcc`` at first use into ``build/kernels/``
-beside the package (a plain C entry point loaded with ``ctypes``), keyed by
-the hash of the source, the shared header and the flags, so importing this
-module needs neither a GPU nor nvcc.
+Each source under ``csrc/`` (these and ``gn_act_proj.cu``, the fused
+GroupNorm kernel of ops/fused_norm.py) is built with ``nvcc`` at first use
+into ``build/kernels/`` beside the package (a plain C entry point loaded
+with ``ctypes``), keyed by the hash of the source, the shared headers and
+the flags, so importing this module needs neither a GPU nor nvcc.
 """
 from __future__ import annotations
 
@@ -54,15 +65,64 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # one source per kernel, one C entry point of the same name per source
 ARGTYPES = {
     "flash_fwd_nomax": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
+    "flash_fwd_online": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
     "flash_fwd_lse": [_P] * 5 + [_I] * 5 + [_P, _F, _P],
     "flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _F, _F, _P],
     "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
+    "gn_act_proj": [_P] * 8 + [_I] * 4 + [_LL] * 3 + [_I, _P],
 }
 SOURCES = tuple(ARGTYPES)
+
+# The JAX package's forward gates (flash_attention.py:101-133), read from the
+# same environment variables at import; tests set the attributes directly.
+_BLOCK_Q = int(os.environ.get("DIFFMINING_FLASH_BLOCK_Q", "1024"))
+_BLOCK_K = int(os.environ.get("DIFFMINING_FLASH_BLOCK_K", "1024"))
+# no-max one-shot forward when the key row is one TPU key block: "0" off,
+# "1" for Lq >= 4096 only, "all" (default) every single-block shape
+_ONESHOT = os.environ.get("DIFFMINING_FLASH_ONESHOT", "all")
+# multi-block no-max forward at Lq >= 4096 self-attention: "1" (default) on
+_NOMAX = os.environ.get("DIFFMINING_FLASH_NOMAX", "1")
+
+
+def _oneshot_auto(lq: int) -> bool:
+    return _ONESHOT == "all" or (_ONESHOT == "1" and lq >= 4096)
+
+
+def _nomax_auto(lq: int, lk: int) -> bool:
+    return _NOMAX == "1" and lq >= 4096 and lq == lk
+
+
+def block_policy(lq: int, lk: int) -> Tuple[int, int]:
+    """The TPU forward's (block_q, block_k) (flash_attention.py:350-361):
+    512/4096 for self-attention at L >= 4096 unless a block size is set in
+    the environment, else min(_BLOCK, max(128, L)). It decides whether the
+    key row is one block, and the plain K3's block size."""
+    block_q = block_k = None
+    if ("DIFFMINING_FLASH_BLOCK_Q" not in os.environ and "DIFFMINING_FLASH_BLOCK_K" not in os.environ
+            and lq >= 4096 and lq == lk):
+        block_q, block_k = 512, 4096
+    return min(block_q or _BLOCK_Q, max(128, lq)), min(block_k or _BLOCK_K, max(128, lk))
+
+
+def forward_route(lq: int, lk: int) -> str:
+    """The TPU kernel ("K1".."K4") the JAX ``sdpa`` runs for a gated forward
+    without grad at these lengths, under the current settings:
+    ``DIFFMINING_ATTN_TLAYOUT=0`` takes the standard-layout primal
+    (``_flash_forward``, K4; attention.py:126); otherwise
+    ``_flash_forward_t`` (:378-416) takes K1 when the key row is one block
+    and one-shot is on, else K2 when no-max is on, else K3."""
+    if os.environ.get("DIFFMINING_ATTN_TLAYOUT", "1") == "0":
+        return "K4"
+    _, block_k = block_policy(lq, lk)
+    if lk <= block_k and _oneshot_auto(lq):
+        return "K1"
+    if _nomax_auto(lq, lk):
+        return "K2"
+    return "K3"
 
 
 def _prescale(q: torch.Tensor, scale: float) -> float:
@@ -138,6 +198,17 @@ def flash_fwd_lse_plain(
         m = m_new
     l_safe = l.clamp_min(1e-30)
     return (acc * (1.0 / l_safe)[..., None]).to(q.dtype), m * LN2 + torch.log(l_safe)
+
+
+def flash_fwd_online_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None, block_k: int | None = None
+) -> torch.Tensor:
+    """K3's arithmetic (flash_attention.py:215-247), which is K4's without
+    the lse: ``flash_fwd_lse_plain(...)[0]``. The default ``block_k`` is the
+    TPU forward's (``block_policy``: the whole row up to 4096 keys at L >=
+    4096, else min(1024, max(128, Lk))); the CUDA kernel's tiles are 64."""
+    block_k = block_k or block_policy(q.shape[2], k.shape[2])[1]
+    return flash_fwd_lse_plain(q, k, v, scale, block_k)[0]
 
 
 def _probs(qs: torch.Tensor, k: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
@@ -324,6 +395,25 @@ def flash_fwd_nomax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     return out
 
 
+def flash_fwd_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """K3: softmax(q·kᵀ·scale)·v with the running max and no lse. q
+    [B,H,Lq,D], k/v [B,H,Lk,D] -> [B,H,Lq,D]. Forward only, like
+    ``flash_fwd_nomax``: it raises under grad. CPU tensors take
+    ``flash_fwd_online_plain``; ``flash_fwd_online.launches`` counts
+    launches."""
+    if _requires_grad(q, k, v):
+        raise RuntimeError("flash_fwd_online has no backward; under grad use flash_attention")
+    if q.device.type == "cpu":
+        return flash_fwd_online_plain(q, k, v, scale)
+    _check("flash_fwd_online", q, k, v)
+    b, h, lq, d = q.shape
+    out = _bhld(q, lq)
+    _launch("flash_fwd_online", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, lq, k.shape[2], d, ctypes.cast(_strides(q, k, v, out), _P), _prescale(q, _scale(q, scale)))
+    flash_fwd_online.launches += 1
+    return out
+
+
 def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None):
     """K4: (o [B,H,Lq,D], lse [B,H,Lq] float32 natural log). CPU tensors take
     ``flash_fwd_lse_plain``; ``flash_fwd_lse.launches`` counts launches."""
@@ -375,7 +465,7 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, scale: float | None = None) -> Tuple[t
     return dk, dv
 
 
-for _fn in (flash_fwd_nomax, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv):
+for _fn in (flash_fwd_nomax, flash_fwd_online, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv):
     _fn.launches = 0
 
 

@@ -61,6 +61,14 @@ class CategoryFeatures:
         return self.clip(ids.to(self.device)).float()
 
 
+def fused_norm_gate(device: torch.device) -> bool:
+    """``DIFFMINING_FUSED_NORM`` other than "0" turns the fused GroupNorm →
+    proj_in kernel on for the bundle's UNet, on CUDA only: the CPU keeps the
+    module path, as the JAX package keeps it off the TPU (compute.py:84-97).
+    Default off."""
+    return device.type == "cuda" and os.environ.get("DIFFMINING_FUSED_NORM", "0") != "0"
+
+
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights, flax's defaults: lecun-normal conv/dense
     kernels, zero biases, unit norm scales; embeddings N(0, 0.02²)."""
@@ -85,7 +93,9 @@ class SD:
     The modules are moved to ``device`` and cast to the compute ``dtype``
     ONCE here — one shared inference copy of the weights for every
     per-category engine, as the JAX package's ``SD.sweep_params`` keeps one
-    cast tree (compute.py:179)."""
+    cast tree (compute.py:179). ``fused_norm_gate`` may switch the UNet's
+    transformer entries to the fused kernel (same weights); the trainer
+    switches them back."""
 
     which: str
     unet: UNet2DCondition
@@ -99,6 +109,8 @@ class SD:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if fused_norm_gate(self.device) and not self.unet.config.fused_norm:
+            self.unet.config = dataclasses.replace(self.unet.config, fused_norm=True)
         for m in (self.unet, self.vae, self.clip):
             m.to(device=self.device, dtype=self.dtype).eval().requires_grad_(False)
         self.schedule = self.schedule.to(self.device)

@@ -12,7 +12,11 @@ rms(plain). For the forwards rtol is 2^-7, one bf16 ulp of the element
 ex2.approx may flip a rounding); K4 is held to its plain version at the
 kernel's own 64-key tiles. The backward kernels also round p and ds to bf16
 inside their sums, so a flipped rounding there moves the fp32 sum before
-the final rounding: rtol 2^-6, two ulps.
+the final rounding: rtol 2^-6, two ulps. K3 is K4's loop without the lse,
+held the same way. K7 rounds its product to bf16 and then adds the bias in
+bf16, so a flipped rounding of the product is one ulp of the product,
+|plain - bias|, which the bias can cancel down to a smaller result: its
+bound adds 2^-7 |plain - bias|.
 """
 import math
 
@@ -21,13 +25,15 @@ import torch
 
 from diffmining_tpu_torch.ops import attention as pattn
 from diffmining_tpu_torch.ops import flash_attention as pfa
+from diffmining_tpu_torch.ops import fused_norm as pfn
 
 BWD_RTOL = 2.0**-6
 
 
-def _over_tolerance(got: torch.Tensor, want: torch.Tensor, rtol: float = 2.0**-7) -> float:
+def _over_tolerance(got: torch.Tensor, want: torch.Tensor, rtol: float = 2.0**-7, rounded_before=None) -> float:
     w = want.float()
-    tol = rtol * w.abs() + 2.0**-7 * w.pow(2).mean().sqrt()
+    mag = w.abs() if rounded_before is None else w.abs() + rounded_before.float().abs()
+    tol = rtol * mag + 2.0**-7 * w.pow(2).mean().sqrt()
     return float(((got.float() - w).abs() / tol).max())
 
 
@@ -104,3 +110,38 @@ def test_dispatch_under_grad_on_card():
     assert all(t.grad is not None and float(t.grad.float().abs().max()) > 0 for t in leaves)
     with pytest.raises(RuntimeError, match="no backward"):
         pfa.flash_fwd_nomax(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,l,d", [(2, 8, 4096, 40), (2, 8, 1100, 160)])
+def test_online_kernel_matches_plain_on_card(b, h, l, d):
+    """K3 against its plain version at the kernel's own 64-key tiles: a main
+    shape and a masked key tail."""
+    _needs_gpu()
+    q, k, v = _operands(b, h, l, d, 3)
+    got = pfa.flash_fwd_online(q, k, v)
+    assert _over_tolerance(got, pfa.flash_fwd_online_plain(q, k, v, block_k=64)) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hh,ww,c,act,layout", [
+    (4, 64, 64, 320, "none", "nchw"), (2, 63, 65, 320, "none", "nchw"), (2, 8, 8, 1280, "silu", "nchw"),
+    (2, 32, 32, 640, "none", "channels_last"), (2, 33, 31, 640, "silu", "channels_last"),
+])
+def test_fused_norm_kernel_matches_plain_on_card(b, hh, ww, c, act, layout):
+    """K7 on the UNet's activations viewed as NHWC, in both layouts the UNet
+    hands it (NCHW, and channels-last after a transformer's proj_out): the
+    512px level-0 entry, odd pixel counts (element loads) and the mid
+    block's 8x8 with the SiLU variant."""
+    _needs_gpu()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    x = (torch.randn(b, c, hh, ww, generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    x = x.permute(0, 2, 3, 1)
+    gamma, beta, bias = (torch.randn(c, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    w = (torch.randn(c, c, generator=gen, device="cuda") / c**0.5).to(torch.bfloat16).t()
+    got = pfn.gn_act_proj(x, gamma, beta, w, bias, 32, act=act)
+    want = pfn.gn_act_proj_plain(x, gamma, beta, w, bias, 32, act=act)
+    assert got.shape == (b, hh, ww, c) and _over_tolerance(got, want, rounded_before=want.float() - bias.float()) <= 1.0
