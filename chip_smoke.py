@@ -74,19 +74,24 @@ SEED = 0
 PEAK_BF16_TFLOPS = 989.0  # H100 SXM dense bf16 tensor rate
 PEAK_FP32_TFLOPS = 67.0  # H100 SXM float32 outside the tensor cores
 PEAK_HBM_TBS = 3.35  # H100 SXM memory rate
+# The special-function units issue 16 exp2 a clock per SM on Hopper; the SM
+# count and the card's maximum SM clock are read in phase_environment.
+EXP2_PER_CLOCK_PER_SM = 16
+SM_COUNT = 0
+SM_MAX_MHZ = 0.0
 # kernel vs plain, elementwise: |got - want| <= RTOL |want| + ATOL_RMS rms(want).
 # Both round the same fp32 result to bf16, so they differ by at most one bf16
 # ulp of the element (<= 2^-7 relative) where summation order or ex2.approx
 # flips a rounding; the atol, one ulp at the output's own scale, is margin
 # near zero. A kernel that drops one 64-key tile is off by over 200x this.
-# K4 is held to the same bound against its plain version at the kernel's own
-# 64-key tiles (so p is rounded relative to the same running max). K5 and K6
-# round p and ds to bf16 inside their sums, at the same places as their
-# plain versions; where ex2.approx or the summation order flips one of those
-# roundings the fp32 sums differ before the final rounding, so they get two
-# ulps of the element (a measured worst of 1.03 ulps at B4 H8 L1024 D80). A
-# kernel that skips one 64-key tile (or 64 q rows) is over 50x either bound
-# (tests/test_torch_port_flash_bwd.py).
+# K3 and K4 are held to the same bound against their plain versions at the
+# kernel's own key tiles (ONLINE_BLOCK_K, 128 keys; so p is rounded relative
+# to the same running max). K5 and K6 round p and ds to bf16 inside their
+# sums, at the same places as their plain versions; where ex2.approx or the
+# summation order flips one of those roundings the fp32 sums differ before
+# the final rounding, so they get two ulps of the element (a measured worst
+# of 1.03 ulps at B4 H8 L1024 D80). A kernel that skips one key tile (or 64
+# q rows) is over 50x either bound (tests/test_torch_port_flash_bwd.py).
 KERNEL_RTOL = 2.0**-7
 BWD_RTOL = 2.0**-6
 KERNEL_ATOL_RMS = 2.0**-7
@@ -144,17 +149,25 @@ def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def exp2_ms(logits):
+    """The time of one exp2 per logit on the special-function units alone:
+    logits / (16 x SMs x the maximum SM clock). Printed beside the bound but
+    not part of it: a kernel may emulate part of exp2 on the FMA pipes."""
+    return logits / (EXP2_PER_CLOCK_PER_SM * SM_COUNT * SM_MAX_MHZ * 1e6) * 1e3
+
+
 def attention_bound(b, h, lq, lk, d):
     """Least time for one call: each input read and the output written once
     over the memory rate, against QK^T + PV on the bf16 tensor cores and the
-    float32 per-logit work (exp2 and the denominator add) outside them."""
+    float32 per-logit work (exp2 and the denominator add) outside them; and
+    beside it the exp2 work alone on the special-function units (exp2_ms)."""
     nbytes = 2 * (2 * b * h * lq * d + 2 * b * h * lk * d)
     logits = b * h * lq * lk
     t_bytes = nbytes / (PEAK_HBM_TBS * 1e12) * 1e3
     t_tensor = 4.0 * logits * d / (PEAK_BF16_TFLOPS * 1e12) * 1e3
     t_fp32 = 2.0 * logits / (PEAK_FP32_TFLOPS * 1e12) * 1e3
     bound = max(t_bytes, t_tensor, t_fp32)
-    return bound, ("bytes" if bound == t_bytes else "operations"), logits
+    return bound, ("bytes" if bound == t_bytes else "operations"), exp2_ms(logits)
 
 
 def device_split(fn, name_part, calls=5):
@@ -202,7 +215,8 @@ def training_bound(kind, b, h, l, d):
     written once) over the memory rate, against its matmul work on the bf16
     tensor cores (4, 4, 6 and 8 L^2 D a head for K3, K4, K5 and K6) and its
     4 fp32 operations per logit outside them (K3/K4: max, subtract, exp2,
-    sum; K5/K6: subtract, exp2, subtract, multiply)."""
+    sum; K5/K6: subtract, exp2, subtract, multiply); and beside it the exp2
+    work alone on the special-function units (exp2_ms)."""
     n_bhld, n_rows, matmul = {"K3": (4, 0, 4), "K4": (4, 1, 4), "K5": (5, 2, 6), "K6": (6, 2, 8)}[kind]
     nbytes = n_bhld * 2 * b * h * l * d + n_rows * 4 * b * h * l
     logits = b * h * l * l
@@ -210,7 +224,7 @@ def training_bound(kind, b, h, l, d):
     t_tensor = matmul * logits * d / (PEAK_BF16_TFLOPS * 1e12) * 1e3
     t_fp32 = 4.0 * logits / (PEAK_FP32_TFLOPS * 1e12) * 1e3
     bound = max(t_bytes, t_tensor, t_fp32)
-    return bound, ("bytes" if bound == t_bytes else "operations")
+    return bound, ("bytes" if bound == t_bytes else "operations"), exp2_ms(logits)
 
 
 def gn_proj_bound(b, n, c, cout):
@@ -246,6 +260,14 @@ def phase_environment():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
+    global SM_COUNT, SM_MAX_MHZ
+    SM_COUNT = torch.cuda.get_device_properties(0).multi_processor_count
+    SM_MAX_MHZ = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0])
+    log(f"{SM_COUNT} SMs, maximum SM clock {SM_MAX_MHZ:.0f} MHz: exp2 at "
+        f"{EXP2_PER_CLOCK_PER_SM * SM_COUNT * SM_MAX_MHZ * 1e6:.4g} a second on the special-function units")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off for float32 matmuls and convolutions (the float32 references)")
@@ -267,6 +289,15 @@ def phase_build():
         log(f"  ptxas {name}: registers per thread of the instantiations: {', '.join(regs)}; "
             f"spills: {spills or 'none'}")
         fa._library(name)
+    # the online-softmax forward (K3, K4) issues wgmma: the SASS shows HGMMA
+    cuobjdump = os.path.join(os.path.dirname(fa._nvcc()), "cuobjdump")
+    for name in ("flash_fwd_online", "flash_fwd_lse"):
+        sass = subprocess.run([cuobjdump, "-sass", str(fa._library_path(name))], capture_output=True, text=True,
+                              check=True).stdout
+        hgmma = [line.strip() for line in sass.splitlines() if "HGMMA" in line]
+        if not hgmma:
+            raise AssertionError(f"{name}: no HGMMA in the SASS of its library")
+        log(f"  cuobjdump -sass {name}: {len(hgmma)} HGMMA, e.g. {hgmma[0]}")
 
 
 def phase_kernels():
@@ -303,12 +334,11 @@ def phase_kernels():
         ms = cuda_time_ms(lambda: flash_fwd_nomax(q, k, v))
         plain_ms = cuda_time_ms(lambda: plain_chunked(flash_attention_nomax_plain, q, k, v), reps=3, warmup=1)
         lib_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
-        bound, by, n_exp2 = attention_bound(b, h, l, l, d)
+        bound, by, exp2 = attention_bound(b, h, l, l, d)
         results[name] = dict(shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by, exp2=n_exp2)
+                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by, exp2_ms=exp2)
         log(f"kernel {name} B{b} H{h} L{l} D{d}: max|err| {max_err:.3g} = {worst:.3g} x tolerance "
-            f"ms {ms:.4f}  plain {plain_ms:.3f}  sdpa {lib_ms:.4f}  bound {bound:.4f} ({by}; "
-            f"{n_exp2:.3g} exp2)")
+            f"ms {ms:.4f}  plain {plain_ms:.3f}  sdpa {lib_ms:.4f}  bound {bound:.4f} ({by})  exp2 {exp2:.4f}")
         del q, k, v, got, want
         torch.cuda.empty_cache()
 
@@ -450,7 +480,7 @@ def phase_train_kernels():
                 .view(b, l, h, d).transpose(1, 2) for _ in range(4)]
 
     def k4_plain(q, k, v):
-        return fa.flash_fwd_lse_plain(q, k, v, block_k=64)  # the kernel's 64-key tiles
+        return fa.flash_fwd_lse_plain(q, k, v, block_k=fa.ONLINE_BLOCK_K)  # the kernel's key tiles
 
     cases = [
         ("L4096 D40", (4, 8, 4096, 40)),
@@ -496,20 +526,24 @@ def phase_train_kernels():
         }
         # one library call computes dq, dk and dv together: sdpa's backward
         lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(ref, (qr, kr, vr), do, retain_graph=True))
+        # K4's device time beside its CUDA-event time: a short call is host-bound
+        _, k4_device = device_split(lambda: fa.flash_fwd_lse(q, k, v), "flash_fwd_online_kernel")
+        lib_device, _ = device_split(lambda: F.scaled_dot_product_attention(q, k, v), "")
         for kind, (ms, plain_ms, lib_ms) in times.items():
-            bound, by = training_bound(kind, b, h, l, d)
+            bound, by, exp2 = training_bound(kind, b, h, l, d)
             max_err = max(e for e, _ in errs[kind])
             worst = max(w for _, w in errs[kind])
             results[kind][name] = dict(
                 shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms if lib_ms is not None else lib_bwd,
                 library="sdpa forward" if kind == "K4" else "sdpa backward (dq, dk, dv together)",
-                bound_ms=bound, bound_by=by)
+                bound_ms=bound, bound_by=by, exp2_ms=exp2)
             if kind == "K4":
-                results[kind][name]["lse_max_abs_err"] = lse_err
+                results[kind][name].update(lse_max_abs_err=lse_err, device_ms=k4_device, library_device_ms=lib_device)
             log(f"kernel {kind} {name} B{b} H{h}: max|err| {max_err:.3g} = {worst:.3g} x tolerance  "
                 f"ms {ms:.4f}  plain {plain_ms:.3f}  {results[kind][name]['library']} "
-                f"{results[kind][name]['library_ms']:.4f}  bound {bound:.4f} ({by})")
+                f"{results[kind][name]['library_ms']:.4f}  bound {bound:.4f} ({by})  exp2 {exp2:.4f}"
+                + (f"  device {k4_device:.4f} (sdpa {lib_device:.4f})" if kind == "K4" else ""))
         del q, k, v, do, o, lse, delta, dq, dk, dv, qr, kr, vr, ref
         torch.cuda.empty_cache()
     return results
@@ -746,7 +780,7 @@ def phase_inference_kernels():
     g.manual_seed(SEED + 5)
 
     def k3_plain(q, k, v):
-        return fa.flash_fwd_online_plain(q, k, v, block_k=64)  # the kernel's 64-key tiles
+        return fa.flash_fwd_online_plain(q, k, v, block_k=fa.ONLINE_BLOCK_K)  # the kernel's key tiles
 
     results = {"K3": {}, "K7": {}}
     for name, (b, h, l, d) in [("L4096 D40", (8, 8, 4096, 40)), ("L1024 D80", (8, 8, 1024, 80)),
@@ -761,12 +795,17 @@ def phase_inference_kernels():
         ms = cuda_time_ms(lambda: fa.flash_fwd_online(q, k, v))
         plain_ms = cuda_time_ms(lambda: plain_chunked(k3_plain, q, k, v), reps=3, warmup=1)
         lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        bound, by = training_bound("K3", b, h, l, d)
+        _, device_ms = device_split(lambda: fa.flash_fwd_online(q, k, v), "flash_fwd_online_kernel")
+        lib_device, _ = device_split(lambda: F.scaled_dot_product_attention(q, k, v), "")
+        bound, by, exp2 = training_bound("K3", b, h, l, d)
         results["K3"][name] = dict(shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms,
-                                   plain_ms=plain_ms, library_ms=lib_ms, library="sdpa forward", bound_ms=bound,
-                                   bound_by=by)
+                                   device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                   library_device_ms=lib_device, library="sdpa forward",
+                                   bound_ms=bound, bound_by=by, exp2_ms=exp2)
         log(f"kernel K3 {name} B{b} H{h}: max|err| {max_err:.3g} = {worst:.3g} x tolerance  ms {ms:.4f}  "
-            f"plain {plain_ms:.3f}  sdpa forward {lib_ms:.4f}  bound {bound:.4f} ({by})")
+            f"device {device_ms:.4f}  plain {plain_ms:.3f}  sdpa forward {lib_ms:.4f} (device {lib_device:.4f})  "
+            f"bound {bound:.4f} ({by})  "
+            f"exp2 {exp2:.4f}")
         del q, k, v, got
         torch.cuda.empty_cache()
 
@@ -1037,7 +1076,9 @@ def kernel_entry(name, source, replaces, launches, cases, main_case):
     m = cases[main_case]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in cases.values()), "ms": m["ms"], "plain_ms": m["plain_ms"],
-            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "exp2_ms": m.get("exp2_ms"),
+            "device_ms": m.get("device_ms"),
+            "library_ms": m["library_ms"],
             "library": m.get("library", "sdpa forward"), "main_shape": main_case, "shapes": cases}
 
 

@@ -1,6 +1,6 @@
 // The online-softmax flash forward shared by flash_fwd_lse.cu (K4, which also
 // writes the per-row logsumexp) and flash_fwd_online.cu (K3, which does not).
-// Written for Hopper (sm_90a).
+// Written for Hopper (sm_90a): warpgroup wgmma for both products.
 //
 // Arithmetic, matching the TPU kernels step by step (flash_attention.py:59-87
 // for K4, :215-247 for K3; the two differ only in K4's lse output):
@@ -11,65 +11,156 @@
 //   acc   = acc * alpha + pb . v,  l = l * alpha + sum pb   (l = the ones column)
 //   o     = bf16(acc * (1 / max(l, 1e-30)))
 //   lse   = m * ln2 + log(max(l, 1e-30))              (natural log, fp32; K4 only)
-// The running max is taken per 64-key tile here and per key block on the TPU
+// The running max is taken per 128-key tile here (BLOCK_N, which
+// ops/flash_attention.py names ONLINE_BLOCK_K) and per key block on the TPU
 // (1024 keys, or the whole row up to 4096), so p is rounded to bf16 relative
 // to a different max: the output agrees with the TPU kernels to a bf16 ulp
-// or two, and exactly with the plain version run at block_k=64 up to
+// or two, and exactly with the plain version run at block_k=128 up to
 // summation order.
 //
 // What bounds it on an H100 SXM: at B4 H8 L4096 D40 one call is 8.6e10
 // tensor FLOP (QK^T and PV), 0.087 ms at the dense bf16 rate of 989
-// TFLOP/s; per logit it adds a max, a subtract, an exp2 and a sum (5.4e8
-// logits: 2.1e9 fp32 operations, 0.032 ms at 67 TFLOP/s; the exp2 alone is
-// ~0.13 ms on the SFUs at 16 per clock per SM); q, k, v, o and lse are 42
-// MB, 0.013 ms at 3.35 TB/s. The tensor-core and SFU work bound it. The
-// design keeps one exp2 per logit (plus one per row per tile for alpha),
-// folds log2e into q, and masks only the ragged last tile.
+// TFLOP/s; each of its 5.4e8 logits takes one exp2 on the special-function
+// units, 16 a clock per SM, ~0.13 ms at 132 SMs and 1.98 GHz, plus a max, a
+// subtract, a conversion and a sum on the fp32 pipes; q, k, v, o and lse are
+// 42 MB, 0.013 ms at 3.35 TB/s. At D=40 the exp2 and fp32 work per logit
+// outweighs the products; at D=160 the products do.
 //
-// Design (simple first; wgmma, TMA and warp specialisation come later), the
-// structure of flash_fwd_nomax.cu plus the online softmax:
-//   * one block of 4 warps per (batch*head, 64-row q tile); each warp owns
-//     16 q rows and keeps its q fragments in registers for the whole loop;
-//   * a loop over 64-key tiles inside the block (the TPU's sequential k
-//     grid axis); K and V double-buffered in shared memory with cp.async;
-//   * QK^T and PV with mma.sync m16n8k16; the row max is reduced over the
-//     4 threads of a quad with shuffles; p is re-packed as PV's A operand
-//     in registers; the head dim is zero-padded in shared memory to a
-//     multiple of 16 (40 -> 48).
+// Design:
+//   * one block of two warpgroups (256 threads) per (batch*head, 128-row q
+//     tile); each warpgroup owns 64 q rows, so K and V are read from L2 once
+//     per 128 q rows;
+//   * q is loaded once with 16-byte loads, pre-scaled in registers and
+//     stored into shared memory; it stays there as wgmma's A operand;
+//   * K and V stream through a ring of NSTAGE 128-key tiles filled with
+//     cp.async, NSTAGE - 1 tiles ahead, one barrier per tile;
+//   * S = Q.K^T is wgmma m64n128k16 with both operands in shared memory
+//     (K-major); the row max and p are computed in registers in the
+//     accumulator layout (a row is held by the 4 threads of a quad); p is
+//     rounded to bf16 and re-packed in registers as the A operand of
+//     O += P.V, wgmma m64n{D}k16 with V MN-major in shared memory;
+//   * every tile uses wgmma's no-swizzle layout (hopper.cuh), which takes
+//     head dim 40's 80-byte rows; q and k are padded with zeros to a
+//     multiple of 16 along the head dim (40 -> 48) for the k16 steps, and
+//     the pad is written once, since nothing else writes it.
 // Layout: q, k, v, o are [B, H, L, D] with arbitrary 16-byte-aligned
 // element strides for B, H and L (head dim contiguous); lse is a contiguous
 // [B, H, Lq] fp32 tensor.
 #pragma once
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
-constexpr int BLOCK_M = 64;
-constexpr int BLOCK_N = 64;
-constexpr int NUM_THREADS = 128;
+constexpr int BLOCK_M = 128;  // q rows a block: two warpgroups of 64
+constexpr int BLOCK_N = 128;  // keys a tile (ONLINE_BLOCK_K in ops/flash_attention.py)
+constexpr int NUM_THREADS = 256;
 
-template <int D_PAD, bool WRITE_LSE>
-__global__ void __launch_bounds__(NUM_THREADS)
+template <int D>
+struct OnlineCfg {
+  static constexpr int DP = (D + 15) / 16 * 16;  // head dim padded to the k16 step
+  static constexpr int CH = D / 8;               // 16-byte chunks of a row in device memory
+  static constexpr int DPC = DP / 8;             // ... of a padded q or k row in shared memory
+  // D=40: 78 KB of shared memory and 128 registers a thread, two blocks an
+  // SM; D=80 and D=160 take more registers (170, 186) and run one
+  static constexpr int NSTAGE = D == 40 ? 3 : 2;
+  static constexpr int MIN_BLOCKS = D == 40 ? 2 : 1;
+  static constexpr int Q_BYTES = BLOCK_M * DP * 2;
+  static constexpr int K_BYTES = BLOCK_N * DP * 2;  // one stage of the ring
+  static constexpr int V_BYTES = BLOCK_N * D * 2;
+  static constexpr int SMEM = Q_BYTES + NSTAGE * (K_BYTES + V_BYTES);
+  static constexpr uint32_t LBO = 128;              // the next 8 along K: one core matrix on
+  static constexpr uint32_t QK_SBO = DPC * 128;     // the next 8 rows of q or k
+  static constexpr uint32_t V_SBO = BLOCK_N * 16;   // the next 8 head-dim columns of v
+};
+
+// Stage keys [n0, n0 + BLOCK_N) of one head: k K-major as [row/8][chunk][row%8]
+// 16-byte cells (the pad chunk is not touched), v MN-major as [chunk][key].
+// Eight neighbouring threads take eight rows of one chunk, so their shared
+// stores fill 128 contiguous bytes. Keys past Lk are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_kv(unsigned char* sk, unsigned char* sv, const __nv_bfloat16* kb,
+                                        const __nv_bfloat16* vb, long long k_sl, long long v_sl, int n0, int Lk,
+                                        int tid) {
+  using C = OnlineCfg<D>;
+  constexpr int TOTAL = BLOCK_N * C::CH;
+  auto one = [&](int it) {
+    const int i = tid + it * NUM_THREADS;
+    if (TOTAL % NUM_THREADS == 0 || i < TOTAL) {
+      const int r8 = i % 8;
+      const int c = (i / 8) % C::CH;
+      const int g = i / (8 * C::CH);
+      const int row = g * 8 + r8;
+      const bool valid = n0 + row < Lk;
+      const long long r = valid ? n0 + row : 0;
+      cp_async_16(sk + g * C::QK_SBO + c * 128 + r8 * 16, kb + r * k_sl + c * 8, valid);
+      cp_async_16(sv + c * C::V_SBO + row * 16, vb + r * v_sl + c * 8, valid);
+    }
+  };
+  constexpr int ITS = (TOTAL + NUM_THREADS - 1) / NUM_THREADS;
+  if constexpr (D == 160) {  // ten copies a thread: a loop keeps their addresses out of the registers
+#pragma unroll 1
+    for (int it = 0; it < ITS; ++it) one(it);
+  } else {
+#pragma unroll
+    for (int it = 0; it < ITS; ++it) one(it);
+  }
+}
+
+// q rows [m0, m0 + BLOCK_M) pre-scaled in q's dtype, bf16(q * q_scale), into
+// the K-major tile; rows past Lq and the pad chunk are zeros. In that layout
+// the i-th 16-byte cell of the tile is simply at byte 16 i.
+template <int D>
+__device__ __forceinline__ void load_q_scaled(unsigned char* sq, const __nv_bfloat16* qb, long long q_sl, int m0,
+                                              int Lq, float q_scale, int tid) {
+  using C = OnlineCfg<D>;
+  constexpr int TOTAL = BLOCK_M * C::DPC;
+#pragma unroll
+  for (int it = 0; it < (TOTAL + NUM_THREADS - 1) / NUM_THREADS; ++it) {
+    const int i = tid + it * NUM_THREADS;
+    if (TOTAL % NUM_THREADS == 0 || i < TOTAL) {
+      const int c = (i / 8) % C::DPC;
+      const int row = (i / (8 * C::DPC)) * 8 + i % 8;
+      uint4 x = make_uint4(0, 0, 0, 0);
+      if (c < C::CH && m0 + row < Lq) {
+        x = __ldg(reinterpret_cast<const uint4*>(qb + (long long)(m0 + row) * q_sl + c * 8));
+        uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = unpack_bf16x2(w[e]);
+          w[e] = pack_bf16x2(f.x * q_scale, f.y * q_scale);
+        }
+      }
+      *reinterpret_cast<uint4*>(sq + i * 16) = x;
+    }
+  }
+}
+
+template <int D, bool WRITE_LSE>
+__global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
     flash_fwd_online_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                            float* __restrict__ lse, int H, int Lq, int Lk, int D, long long q_sb, long long q_sh,
+                            float* __restrict__ lse, int H, int Lq, int Lk, long long q_sb, long long q_sh,
                             long long q_sl, long long k_sb, long long k_sh, long long k_sl, long long v_sb,
                             long long v_sh, long long v_sl, long long o_sb, long long o_sh, long long o_sl,
                             float q_scale) {
-  constexpr int STRIDE = D_PAD + 8;
-  constexpr int KSTEPS = D_PAD / 16;
-  constexpr int DTILES = D_PAD / 8;
-  constexpr int NTILES = BLOCK_N / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BLOCK_M][STRIDE]
-  __nv_bfloat16* sK = sQ + BLOCK_M * STRIDE;                        // [2][BLOCK_N][STRIDE]
-  __nv_bfloat16* sV = sK + 2 * BLOCK_N * STRIDE;                    // [2][BLOCK_N][STRIDE]
+  using C = OnlineCfg<D>;
+  constexpr int NT = BLOCK_N / 8;   // 8-column blocks of S
+  constexpr int PK = BLOCK_N / 16;  // k16 steps of P.V
+  constexpr int QK = C::DP / 16;    // k16 steps of Q.K^T
+  constexpr int NS = C::NSTAGE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* sQ = smem;
+  unsigned char* sK = sQ + C::Q_BYTES;       // [NSTAGE][K_BYTES]
+  unsigned char* sV = sK + NS * C::K_BYTES;  // [NSTAGE][V_BYTES]
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int wg = tid / 128;           // this thread's warpgroup: q rows 64 wg ..
+  const int warp = (tid % 128) / 32;  // ... of which its warp holds 16
   const int lane = tid % 32;
   const int gid = lane >> 2;
   const int tig = lane & 3;
@@ -83,74 +174,73 @@ __global__ void __launch_bounds__(NUM_THREADS)
   const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
   __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
 
-  zero_pad<D_PAD, STRIDE, NUM_THREADS>(sQ, BLOCK_M + 4 * BLOCK_N, D, tid);
-
+  if constexpr (C::DPC > C::CH) {  // k's zero pad, in every stage: no load writes it
+    constexpr int PADC = C::DPC - C::CH;
+    for (int i = tid; i < NS * BLOCK_N * PADC; i += NUM_THREADS) {
+      const int row = i % BLOCK_N;
+      const int c = C::CH + (i / BLOCK_N) % PADC;
+      const int s = i / (BLOCK_N * PADC);
+      *reinterpret_cast<uint4*>(sK + s * C::K_BYTES + (row / 8) * C::QK_SBO + c * 128 + (row % 8) * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
   const int n_tiles = (Lk + BLOCK_N - 1) / BLOCK_N;
-  load_tile<BLOCK_M, STRIDE, NUM_THREADS>(sQ, qb, q_sl, m0, Lq, D, tid);
-  cp_async_commit();
-  load_tile<BLOCK_N, STRIDE, NUM_THREADS>(sK, kb, k_sl, 0, Lk, D, tid);
-  load_tile<BLOCK_N, STRIDE, NUM_THREADS>(sV, vb, v_sl, 0, Lk, D, tid);
-  cp_async_commit();
-
-  cp_async_wait<1>();  // the q tile has landed
-  __syncthreads();
-  prescale_tile<STRIDE, NUM_THREADS>(sQ, BLOCK_M, D, q_scale, tid);
-  __syncthreads();
-
-  uint32_t qf[KSTEPS][4];
+  auto load_tile = [&](int t) {  // tile t's copies into its stage, t % NS, if it exists
+    if (t < n_tiles) {
+      const int st = t % NS;
+      load_kv<D>(sK + st * C::K_BYTES, sV + st * C::V_BYTES, kb, vb, k_sl, v_sl, t * BLOCK_N, Lk, tid);
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) load_a<STRIDE>(qf[kk], sQ + warp * 16 * STRIDE, kk, gid, tig);
+  for (int t = 0; t < NS - 1; ++t) load_tile(t);
+  load_q_scaled<D>(sQ, qb, q_sl, m0, Lq, q_scale, tid);
 
-  float acc[DTILES][4];
+  const uint64_t desc_q = make_desc(sQ + wg * 64 * C::DP * 2, C::LBO, C::QK_SBO);
+  const uint64_t desc_k = make_desc(sK, C::LBO, C::QK_SBO);
+  const uint64_t desc_v = make_desc(sV, C::LBO, C::V_SBO);
+
+  float acc[D / 2];
 #pragma unroll
-  for (int dt = 0; dt < DTILES; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   // running max (base 2; equal across the quad) and partial denominators
-  // (this thread's columns) of rows gid and gid+8
+  // (this thread's columns) of rows gid and gid+8 of the warp's 16
   float m_lo = NEG_INF, m_hi = NEG_INF;
   float l_lo = 0.f, l_hi = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile<BLOCK_N, STRIDE, NUM_THREADS>(sK + (buf ^ 1) * BLOCK_N * STRIDE, kb, k_sl, (j + 1) * BLOCK_N, Lk, D,
-                                              tid);
-      load_tile<BLOCK_N, STRIDE, NUM_THREADS>(sV + (buf ^ 1) * BLOCK_N * STRIDE, vb, v_sl, (j + 1) * BLOCK_N, Lk, D,
-                                              tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
+    const int stage = j % NS;
+    cp_async_wait<NS - 2>();  // this thread's copies of tile j have landed
+    fence_proxy_async();      // ... and are visible to wgmma, as are q and the pad
+    __syncthreads();          // everyone's; and everyone is done with tile j - 1
+    load_tile(j + NS - 1);    // into the stage of tile j - 1
 
-    const __nv_bfloat16* kt = sK + buf * BLOCK_N * STRIDE;
-    const __nv_bfloat16* vt = sV + buf * BLOCK_N * STRIDE;
-
-    float s[NTILES][4];
+    // S = Qs . K^T over the padded head dim. s is fresh each tile: the first
+    // k16 step does not read it (scale-d 0), so no old value is kept alive.
+    float s[BLOCK_N / 2];
+    const uint64_t dk = desc_add(desc_k, stage * C::K_BYTES);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        uint32_t bfrag[2];
-        load_b_rows<STRIDE>(bfrag, kt, nt * 8, kk, gid, tig);
-        mma_bf16_16816(s[nt], qf[kk], bfrag);
-      }
-    }
+    for (int kk = 0; kk < QK; ++kk) wgmma_m64n128k16_ss(s, desc_add(desc_q, kk * 256), desc_add(dk, kk * 256), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
 
     const int key0 = j * BLOCK_N;
     if (key0 + BLOCK_N > Lk) {
 #pragma unroll
-      for (int nt = 0; nt < NTILES; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (key0 + nt * 8 + tig * 2 + (e & 1) >= Lk) s[nt][e] = NEG_INF;
+          if (key0 + nt * 8 + tig * 2 + (e & 1) >= Lk) s[nt * 4 + e] = NEG_INF;
     }
 
     // the tile's row max, over the quad that holds the row
     float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt) {
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+    for (int nt = 0; nt < NT; ++nt) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nt * 4], s[nt * 4 + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nt * 4 + 2], s[nt * 4 + 3]));
     }
     mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
     mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
@@ -162,42 +252,47 @@ __global__ void __launch_bounds__(NUM_THREADS)
     m_hi = mx_hi;
 
 #pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt) {
-      s[nt][0] = ex2_ftz(s[nt][0] - m_lo);
-      s[nt][1] = ex2_ftz(s[nt][1] - m_lo);
-      s[nt][2] = ex2_ftz(s[nt][2] - m_hi);
-      s[nt][3] = ex2_ftz(s[nt][3] - m_hi);
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt * 4] = ex2_ftz(s[nt * 4] - m_lo);
+      s[nt * 4 + 1] = ex2_ftz(s[nt * 4 + 1] - m_lo);
+      s[nt * 4 + 2] = ex2_ftz(s[nt * 4 + 2] - m_hi);
+      s[nt * 4 + 3] = ex2_ftz(s[nt * 4 + 3] - m_hi);
     }
 #pragma unroll
-    for (int dt = 0; dt < DTILES; ++dt) {
-      acc[dt][0] *= alpha_lo;
-      acc[dt][1] *= alpha_lo;
-      acc[dt][2] *= alpha_hi;
-      acc[dt][3] *= alpha_hi;
+    for (int dt = 0; dt < D / 8; ++dt) {
+      acc[dt * 4] *= alpha_lo;
+      acc[dt * 4 + 1] *= alpha_lo;
+      acc[dt * 4 + 2] *= alpha_hi;
+      acc[dt * 4 + 3] *= alpha_hi;
     }
     l_lo *= alpha_lo;
     l_hi *= alpha_hi;
 
-    // p rounded to bf16 as PV's A operand; l sums the ROUNDED p, as the
+    // p rounded to bf16 as P.V's A operand; l sums the ROUNDED p, as the
     // ones column of the TPU kernel's PV product does
+    uint32_t p[PK][4];
 #pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      uint32_t pf[4];
-      pack_a(pf, s[2 * kk], s[2 * kk + 1]);
-      const float2 a0 = unpack_bf16x2(pf[0]);
-      const float2 a1 = unpack_bf16x2(pf[1]);
-      const float2 a2 = unpack_bf16x2(pf[2]);
-      const float2 a3 = unpack_bf16x2(pf[3]);
+    for (int kk = 0; kk < PK; ++kk) {
+      pack_a(p[kk], &s[kk * 8], &s[kk * 8 + 4]);
+      const float2 a0 = unpack_bf16x2(p[kk][0]);
+      const float2 a1 = unpack_bf16x2(p[kk][1]);
+      const float2 a2 = unpack_bf16x2(p[kk][2]);
+      const float2 a3 = unpack_bf16x2(p[kk][3]);
       l_lo += (a0.x + a0.y) + (a2.x + a2.y);
       l_hi += (a1.x + a1.y) + (a3.x + a3.y);
-#pragma unroll
-      for (int dt = 0; dt < DTILES; ++dt) {
-        uint32_t bfrag[2];
-        load_b_cols<STRIDE>(bfrag, vt, kk * 16, dt * 8, lane);
-        mma_bf16_16816(acc[dt], pf, bfrag);
-      }
     }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+
+    // O += P . V
+    const uint64_t dv = desc_add(desc_v, stage * C::V_BYTES);
+    fence_regs(acc);
+    fence_regs(p);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk) wgmma_pv<D>(acc, p[kk], desc_add(dv, kk * 256));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(p);  // p's registers stay p's until the products have read them
   }
 
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
@@ -209,19 +304,17 @@ __global__ void __launch_bounds__(NUM_THREADS)
   const float inv_lo = 1.0f / ls_lo;
   const float inv_hi = 1.0f / ls_hi;
 
-  const int r_lo = m0 + warp * 16 + gid;
+  const int r_lo = m0 + wg * 64 + warp * 16 + gid;
   const int r_hi = r_lo + 8;
 #pragma unroll
-  for (int dt = 0; dt < DTILES; ++dt) {
+  for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + tig * 2;
-    if (dt * 8 < D) {
-      if (r_lo < Lq)
-        *reinterpret_cast<uint32_t*>(ob + (long long)r_lo * o_sl + col) =
-            pack_bf16x2(acc[dt][0] * inv_lo, acc[dt][1] * inv_lo);
-      if (r_hi < Lq)
-        *reinterpret_cast<uint32_t*>(ob + (long long)r_hi * o_sl + col) =
-            pack_bf16x2(acc[dt][2] * inv_hi, acc[dt][3] * inv_hi);
-    }
+    if (r_lo < Lq)
+      *reinterpret_cast<uint32_t*>(ob + (long long)r_lo * o_sl + col) =
+          pack_bf16x2(acc[dt * 4] * inv_lo, acc[dt * 4 + 1] * inv_lo);
+    if (r_hi < Lq)
+      *reinterpret_cast<uint32_t*>(ob + (long long)r_hi * o_sl + col) =
+          pack_bf16x2(acc[dt * 4 + 2] * inv_hi, acc[dt * 4 + 3] * inv_hi);
   }
   if (WRITE_LSE && tig == 0) {
     float* lb = lse + (long long)bh * Lq;
@@ -230,30 +323,43 @@ __global__ void __launch_bounds__(NUM_THREADS)
   }
 }
 
-template <int D_PAD, bool WRITE_LSE>
+constexpr int MAX_DEVICES = 64;
+
+template <int D, bool WRITE_LSE>
 cudaError_t launch_online(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Lq,
-                          int Lk, int D, const long long* st, float q_scale, cudaStream_t stream) {
-  constexpr int STRIDE = D_PAD + 8;
-  const int smem = (BLOCK_M + 4 * BLOCK_N) * STRIDE * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_online_kernel<D_PAD, WRITE_LSE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                          int Lk, const long long* st, float q_scale, cudaStream_t stream) {
+  using C = OnlineCfg<D>;
+  // the dynamic shared-memory limit is raised once per instantiation and card
+  static bool ready[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_online_kernel<D, WRITE_LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_fwd_online_kernel<D, WRITE_LSE>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    ready[dev] = true;
+  }
   const dim3 grid((Lq + BLOCK_M - 1) / BLOCK_M, B * H);
-  flash_fwd_online_kernel<D_PAD, WRITE_LSE><<<grid, NUM_THREADS, smem, stream>>>(
+  flash_fwd_online_kernel<D, WRITE_LSE><<<grid, NUM_THREADS, C::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, D, st[0], st[1], st[2],
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], q_scale);
   return cudaGetLastError();
 }
 
-// D -> the padded head dim of its instantiation (40 -> 48); 0 for another D.
+// D -> its instantiation; cudaErrorInvalidValue for another D.
 template <bool WRITE_LSE>
 int launch_online_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Lq, int Lk,
                     int D, const long long* st, float q_scale, cudaStream_t s) {
   switch (D) {
-    case 40: return (int)launch_online<48, WRITE_LSE>(q, k, v, o, lse, B, H, Lq, Lk, D, st, q_scale, s);
-    case 80: return (int)launch_online<80, WRITE_LSE>(q, k, v, o, lse, B, H, Lq, Lk, D, st, q_scale, s);
-    case 160: return (int)launch_online<160, WRITE_LSE>(q, k, v, o, lse, B, H, Lq, Lk, D, st, q_scale, s);
+    case 40: return (int)launch_online<40, WRITE_LSE>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 80: return (int)launch_online<80, WRITE_LSE>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 160: return (int)launch_online<160, WRITE_LSE>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

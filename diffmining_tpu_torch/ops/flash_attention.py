@@ -44,6 +44,7 @@ the flags, so importing this module needs neither a GPU nor nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -59,6 +60,10 @@ LN2 = 0.6931471805599453
 NEG_INF = -1e30  # the TPU kernels' mask value
 HEAD_DIMS = (40, 80, 160)  # the kernels' instantiations: SD-v1.5's self-attention head dims
 TPU_BLOCK_K = 1024  # the TPU kernel's key block (flash_attention.py:102, :148)
+# The key tile of the CUDA online-softmax forward (K3, K4; BLOCK_N in
+# csrc/flash_fwd_online.cuh): p is rounded to bf16 relative to the running max
+# of each tile, so the plain versions equal the kernel only at this block_k.
+ONLINE_BLOCK_K = 128
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -129,7 +134,12 @@ def _prescale(q: torch.Tensor, scale: float) -> float:
     """scale·log2e rounded to q's dtype — the TPU kernels' callers multiply
     q by ``jnp.asarray(scale * LOG2E, q.dtype)`` (flash_attention.py:155,
     :363, :673)."""
-    return torch.tensor(scale * LOG2E, dtype=q.dtype).item()
+    return _rounded(scale * LOG2E, q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    return torch.tensor(x, dtype=dtype).item()
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -175,12 +185,13 @@ def flash_fwd_lse_plain(
     float32, natural log).
 
     Over key blocks of ``block_k`` (default the TPU kernel's, min(1024,
-    max(128, Lk)); the CUDA kernel's tiles are 64): the running max m in base
-    2 starts at −1e30, alpha = exp2(m_prev − m_new), p = exp2(s − m_new) is
-    rounded to v's dtype, acc = acc·alpha + p·v and l = l·alpha + Σp (the
-    ones column); o = acc·(1/max(l, 1e-30)), lse = m·ln2 + log(max(l,
-    1e-30)). The block size decides where p is rounded relative to which max,
-    so only runs at the same block size agree to summation order."""
+    max(128, Lk)); the CUDA kernel's tiles are ``ONLINE_BLOCK_K``): the
+    running max m in base 2 starts at −1e30, alpha = exp2(m_prev − m_new),
+    p = exp2(s − m_new) is rounded to v's dtype, acc = acc·alpha + p·v and
+    l = l·alpha + Σp (the ones column); o = acc·(1/max(l, 1e-30)), lse =
+    m·ln2 + log(max(l, 1e-30)). The block size decides where p is rounded
+    relative to which max, so only runs at the same block size agree to
+    summation order."""
     lk = k.shape[2]
     block_k = block_k or min(TPU_BLOCK_K, max(128, lk))
     qs = (q * _prescale(q, _scale(q, scale))).float()
@@ -206,7 +217,8 @@ def flash_fwd_online_plain(
     """K3's arithmetic (flash_attention.py:215-247), which is K4's without
     the lse: ``flash_fwd_lse_plain(...)[0]``. The default ``block_k`` is the
     TPU forward's (``block_policy``: the whole row up to 4096 keys at L >=
-    4096, else min(1024, max(128, Lk))); the CUDA kernel's tiles are 64."""
+    4096, else min(1024, max(128, Lk))); the CUDA kernel's tiles are
+    ``ONLINE_BLOCK_K``."""
     block_k = block_k or block_policy(q.shape[2], k.shape[2])[1]
     return flash_fwd_lse_plain(q, k, v, scale, block_k)[0]
 
@@ -258,6 +270,7 @@ def flash_bwd_dkv_plain(
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, ctypes._CFuncPtr] = {}  # each library's entry point, once loaded
 build_log: Dict[str, str] = {}  # nvcc's output (-Xptxas -v) of each build this process made
 
 
@@ -366,9 +379,15 @@ def _strides(*ts: torch.Tensor):
 
 
 def _launch(name: str, q: torch.Tensor, *args) -> None:
-    fn = getattr(_library(name), name)
-    with torch.cuda.device(q.device):
-        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    """Call ``name``'s entry point on q's device and its current stream. The
+    device is switched only when q is not on the current one: a call of a
+    short kernel is otherwise host-bound (PERF.md)."""
+    fn = _entries.get(name) or _entries.setdefault(name, getattr(_library(name), name))
+    if q.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(q.device):
+            err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 

@@ -9,11 +9,11 @@ with a GPU and no JAX it runs on its own, without the suite's conftest:
 The bounds are chip_smoke.py's: |kernel - plain| <= rtol |plain| + 2^-7
 rms(plain). For the forwards rtol is 2^-7, one bf16 ulp of the element
 (both round the same fp32 result to bf16, where summation order or
-ex2.approx may flip a rounding); K4 is held to its plain version at the
-kernel's own 64-key tiles. The backward kernels also round p and ds to bf16
+ex2.approx may flip a rounding); K3 and K4 are held to their plain
+versions at the kernel's own key tiles (``ONLINE_BLOCK_K``), where p is
+rounded relative to the same running max. The backward kernels also round p and ds to bf16
 inside their sums, so a flipped rounding there moves the fp32 sum before
-the final rounding: rtol 2^-6, two ulps. K3 is K4's loop without the lse,
-held the same way. K7 rounds its product to bf16 and then adds the bias in
+the final rounding: rtol 2^-6, two ulps. K7 rounds its product to bf16 and then adds the bias in
 bf16, so a flipped rounding of the product is one ulp of the product,
 |plain - bias|, which the bias can cancel down to a smaller result: its
 bound adds 2^-7 |plain - bias|.
@@ -42,10 +42,10 @@ def _needs_gpu():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
 
 
-def _operands(b, h, l, d, n):
+def _operands(b, h, l, d, n, seed=0):
     """n [B, L, H*D] bf16 tensors viewed as [B, H, L, D], as the UNet hands them over."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
+    gen.manual_seed(seed)
     return [torch.randn(b, l, h * d, generator=gen, device="cuda").to(torch.bfloat16)
             .view(b, l, h, d).transpose(1, 2) for _ in range(n)]
 
@@ -76,12 +76,12 @@ def test_kernel_matches_plain_on_card(b, h, l, d):
 @pytest.mark.parametrize("b,h,l,d", [(4, 8, 4096, 40), (4, 8, 1024, 80), (2, 8, 1000, 40), (2, 8, 1100, 160)])
 def test_training_kernels_match_plain_on_card(b, h, l, d):
     """K4, K5 and K6 against their plain versions on a GPU, within the
-    bounds of chip_smoke.py; K4 against the plain version at its own 64-key
+    bounds of chip_smoke.py; K4 against the plain version at its own key
     tiles."""
     _needs_gpu()
     q, k, v, g = _operands(b, h, l, d, 4)
     o, lse = pfa.flash_fwd_lse(q, k, v)
-    o_plain, lse_plain = pfa.flash_fwd_lse_plain(q, k, v, block_k=64)
+    o_plain, lse_plain = pfa.flash_fwd_lse_plain(q, k, v, block_k=pfa.ONLINE_BLOCK_K)
     assert _over_tolerance(o, o_plain) <= 1.0
     torch.testing.assert_close(lse, lse_plain, rtol=1e-4, atol=1e-4)
     delta = pfa.attention_delta(g, o)
@@ -115,12 +115,53 @@ def test_dispatch_under_grad_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,l,d", [(2, 8, 4096, 40), (2, 8, 1100, 160)])
 def test_online_kernel_matches_plain_on_card(b, h, l, d):
-    """K3 against its plain version at the kernel's own 64-key tiles: a main
+    """K3 against its plain version at the kernel's own key tiles: a main
     shape and a masked key tail."""
     _needs_gpu()
     q, k, v = _operands(b, h, l, d, 3)
     got = pfa.flash_fwd_online(q, k, v)
-    assert _over_tolerance(got, pfa.flash_fwd_online_plain(q, k, v, block_k=64)) <= 1.0
+    assert _over_tolerance(got, pfa.flash_fwd_online_plain(q, k, v, block_k=pfa.ONLINE_BLOCK_K)) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,d", [(1000, 1100, 40), (1100, 1000, 80), (200, 300, 160), (4096, 4096, 40)])
+def test_online_forwards_match_plain_at_the_kernel_tile_on_card(lq, lk, d):
+    """K4 and K3 against their plain versions at ONLINE_BLOCK_K on the
+    UNet's [B, L, H*D] views (head dim contiguous, rows H*D apart): q
+    lengths that are no multiple of the 128-row q tile, masked key tails,
+    and head dims 40, 80 and 160."""
+    _needs_gpu()
+    (q,) = _operands(2, 8, lq, d, 1, seed=1)
+    k, v = _operands(2, 8, lk, d, 2, seed=2)
+    o, lse = pfa.flash_fwd_lse(q, k, v)
+    o3 = pfa.flash_fwd_online(q, k, v)
+    o_plain, lse_plain = pfa.flash_fwd_lse_plain(q, k, v, block_k=pfa.ONLINE_BLOCK_K)
+    assert o.shape == o3.shape == q.shape and lse.shape == q.shape[:3]
+    assert _over_tolerance(o, o_plain) <= 1.0 and _over_tolerance(o3, o_plain) <= 1.0
+    torch.testing.assert_close(lse, lse_plain, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_online_forwards_stay_the_softmax_at_the_underflow_edge_on_card():
+    """Every natural logit -95: exp2 without the max underflows to zero
+    (the no-max kernel's designed edge), while K3 and K4 keep the running
+    max and give the softmax, as their plain versions do."""
+    _needs_gpu()
+    d, l = 40, 1024
+    q = torch.zeros(1, 2, l, d, device="cuda")
+    k = torch.zeros(1, 2, l, d, device="cuda")
+    q[..., 0] = -95.0 * math.sqrt(d)
+    k[..., 0] = 1.0
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    v = torch.randn(1, 2, l, d, generator=gen, device="cuda")
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    softmax = pattn.sdpa_plain(q.float(), k.float(), v.float())
+    want, _ = pfa.flash_fwd_lse_plain(q, k, v, block_k=pfa.ONLINE_BLOCK_K)
+    for got in (pfa.flash_fwd_lse(q, k, v)[0], pfa.flash_fwd_online(q, k, v)):
+        assert float(got.float().abs().max()) > 0
+        assert _over_tolerance(got, want) <= 1.0
+        assert float((got.float() - softmax).abs().max()) <= 2.0**-7 * float(softmax.abs().max())
 
 
 @pytest.mark.cuda

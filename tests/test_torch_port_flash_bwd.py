@@ -182,21 +182,23 @@ def _over_tolerance(got: torch.Tensor, want: torch.Tensor, rtol: float) -> float
 @pytest.mark.parametrize("l,d", [(1024, 40), (300, 80)])
 def test_kernel_bound_catches_a_dropped_tile(l, d):
     """The bounds that hold each training kernel to its plain version (K4 at
-    the kernel's 64-key tiles) are tight enough to see a kernel that skips
-    one 64-key tile (or, for dk/dv, one 64-row q tile): such an output is
-    over 50x its bound, while K4's plain version at the TPU's key block
-    (other rounding points of p) stays within a few ulps."""
+    the kernel's own key tiles, ONLINE_BLOCK_K) are tight enough to see a
+    kernel that skips one key tile of K4, one 64-key tile of dq or one
+    64-row q tile of dk/dv: such an output is over 50x its bound, while
+    K4's plain version at the TPU's key block (other rounding points of p)
+    stays within a few ulps."""
+    t = pfa.ONLINE_BLOCK_K
     q, k, v, g = (_t(a).to(torch.bfloat16) for a in _inputs(1, 2, l, l, d, seed=7))
-    o64, lse64 = pfa.flash_fwd_lse_plain(q, k, v, block_k=64)
-    dropped, _ = pfa.flash_fwd_lse_plain(q, k[:, :, 64:], v[:, :, 64:], block_k=64)
-    assert _over_tolerance(dropped, o64, 2.0**-7) > 50
+    o_t, lse_t = pfa.flash_fwd_lse_plain(q, k, v, block_k=t)
+    dropped, _ = pfa.flash_fwd_lse_plain(q, k[:, :, t:], v[:, :, t:], block_k=t)
+    assert _over_tolerance(dropped, o_t, 2.0**-7) > 50
     other, _ = pfa.flash_fwd_lse_plain(q, k, v)
-    assert _over_tolerance(other, o64, 2.0**-7) < 4
-    delta = pfa.attention_delta(g, o64)
-    dq = pfa.flash_bwd_dq_plain(q, k, v, g, lse64, delta)
-    dq_dropped = pfa.flash_bwd_dq_plain(q, k[:, :, 64:], v[:, :, 64:], g, lse64, delta)
+    assert _over_tolerance(other, o_t, 2.0**-7) < 4
+    delta = pfa.attention_delta(g, o_t)
+    dq = pfa.flash_bwd_dq_plain(q, k, v, g, lse_t, delta)
+    dq_dropped = pfa.flash_bwd_dq_plain(q, k[:, :, 64:], v[:, :, 64:], g, lse_t, delta)
     assert _over_tolerance(dq_dropped, dq, 2.0**-6) > 50
-    dk, dv = pfa.flash_bwd_dkv_plain(q, k, v, g, lse64, delta)
-    dk_dropped, dv_dropped = pfa.flash_bwd_dkv_plain(q[:, :, 64:], k, v, g[:, :, 64:], lse64[:, :, 64:],
+    dk, dv = pfa.flash_bwd_dkv_plain(q, k, v, g, lse_t, delta)
+    dk_dropped, dv_dropped = pfa.flash_bwd_dkv_plain(q[:, :, 64:], k, v, g[:, :, 64:], lse_t[:, :, 64:],
                                                      delta[:, :, 64:])
     assert _over_tolerance(dk_dropped, dk, 2.0**-6) > 50 and _over_tolerance(dv_dropped, dv, 2.0**-6) > 50
