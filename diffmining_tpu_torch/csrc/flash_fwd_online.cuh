@@ -32,8 +32,14 @@
 //     per 128 q rows;
 //   * q is loaded once with 16-byte loads, pre-scaled in registers and
 //     stored into shared memory; it stays there as wgmma's A operand;
-//   * K and V stream through a ring of NSTAGE 128-key tiles filled with
-//     cp.async, NSTAGE - 1 tiles ahead, one barrier per tile;
+//   * K and V stream through a ring of NSTAGE 128-key tiles that the TMA
+//     unit fills (one thread issues a tile, an mbarrier per stage reports
+//     its bytes). The 5-D tensor maps (8 elements, L, D/8, H, B) take the
+//     views' own strides, so the UNet's [B, L, H*D] projections need no
+//     copy, and cut each tile as [16-byte chunk][key], which is wgmma's
+//     layout for both operands. The last of the 8 warps to finish a stage
+//     refills it: the warpgroups wait only for data, never for each other,
+//     and no block-wide barrier runs in the loop;
 //   * S = Q.K^T is wgmma m64n128k16 with both operands in shared memory
 //     (K-major); the row max and p are computed in registers in the
 //     accumulator layout (a row is held by the 4 threads of a quad); p is
@@ -42,11 +48,17 @@
 //   * every tile uses wgmma's no-swizzle layout (hopper.cuh), which takes
 //     head dim 40's 80-byte rows; q and k are padded with zeros to a
 //     multiple of 16 along the head dim (40 -> 48) for the k16 steps, and
-//     the pad is written once, since nothing else writes it.
+//     the pad is written once, since nothing else writes it;
+//   * no producer warpgroup and no setmaxnreg: at D=40 two blocks of 256
+//     threads share an SM at 128 registers a thread, which a third
+//     warpgroup would not leave room for.
 // Layout: q, k, v, o are [B, H, L, D] with arbitrary 16-byte-aligned
 // element strides for B, H and L (head dim contiguous); lse is a contiguous
 // [B, H, Lq] fp32 tensor.
 #pragma once
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -66,50 +78,21 @@ struct OnlineCfg {
   static constexpr int CH = D / 8;               // 16-byte chunks of a row in device memory
   static constexpr int DPC = DP / 8;             // ... of a padded q or k row in shared memory
   // D=40: 78 KB of shared memory and 128 registers a thread, two blocks an
-  // SM; D=80 and D=160 take more registers (170, 186) and run one
+  // SM; D=80 and D=160 take more registers and run one
   static constexpr int NSTAGE = D == 40 ? 3 : 2;
   static constexpr int MIN_BLOCKS = D == 40 ? 2 : 1;
   static constexpr int Q_BYTES = BLOCK_M * DP * 2;
   static constexpr int K_BYTES = BLOCK_N * DP * 2;  // one stage of the ring
   static constexpr int V_BYTES = BLOCK_N * D * 2;
-  static constexpr int SMEM = Q_BYTES + NSTAGE * (K_BYTES + V_BYTES);
-  static constexpr uint32_t LBO = 128;              // the next 8 along K: one core matrix on
-  static constexpr uint32_t QK_SBO = DPC * 128;     // the next 8 rows of q or k
-  static constexpr uint32_t V_SBO = BLOCK_N * 16;   // the next 8 head-dim columns of v
+  static constexpr uint32_t TILE_BYTES = 2 * BLOCK_N * D * 2;  // what the TMA unit brings a stage: k and v
+  // the stages, then a full barrier and a count of warps done for each
+  static constexpr int SMEM = Q_BYTES + NSTAGE * (K_BYTES + V_BYTES) + NSTAGE * 16;
+  // descriptor strides (hopper.cuh): q as [row/8][chunk][row%8] cells, k
+  // and v as [chunk][key] cells, 16 bytes each
+  static constexpr uint32_t Q_LBO = 128, Q_SBO = DPC * 128;
+  static constexpr uint32_t K_LBO = BLOCK_N * 16, K_SBO = 128;
+  static constexpr uint32_t V_LBO = 128, V_SBO = BLOCK_N * 16;
 };
-
-// Stage keys [n0, n0 + BLOCK_N) of one head: k K-major as [row/8][chunk][row%8]
-// 16-byte cells (the pad chunk is not touched), v MN-major as [chunk][key].
-// Eight neighbouring threads take eight rows of one chunk, so their shared
-// stores fill 128 contiguous bytes. Keys past Lk are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_kv(unsigned char* sk, unsigned char* sv, const __nv_bfloat16* kb,
-                                        const __nv_bfloat16* vb, long long k_sl, long long v_sl, int n0, int Lk,
-                                        int tid) {
-  using C = OnlineCfg<D>;
-  constexpr int TOTAL = BLOCK_N * C::CH;
-  auto one = [&](int it) {
-    const int i = tid + it * NUM_THREADS;
-    if (TOTAL % NUM_THREADS == 0 || i < TOTAL) {
-      const int r8 = i % 8;
-      const int c = (i / 8) % C::CH;
-      const int g = i / (8 * C::CH);
-      const int row = g * 8 + r8;
-      const bool valid = n0 + row < Lk;
-      const long long r = valid ? n0 + row : 0;
-      cp_async_16(sk + g * C::QK_SBO + c * 128 + r8 * 16, kb + r * k_sl + c * 8, valid);
-      cp_async_16(sv + c * C::V_SBO + row * 16, vb + r * v_sl + c * 8, valid);
-    }
-  };
-  constexpr int ITS = (TOTAL + NUM_THREADS - 1) / NUM_THREADS;
-  if constexpr (D == 160) {  // ten copies a thread: a loop keeps their addresses out of the registers
-#pragma unroll 1
-    for (int it = 0; it < ITS; ++it) one(it);
-  } else {
-#pragma unroll
-    for (int it = 0; it < ITS; ++it) one(it);
-  }
-}
 
 // q rows [m0, m0 + BLOCK_M) pre-scaled in q's dtype, bf16(q * q_scale), into
 // the K-major tile; rows past Lq and the pad chunk are zeros. In that layout
@@ -140,161 +123,100 @@ __device__ __forceinline__ void load_q_scaled(unsigned char* sq, const __nv_bflo
   }
 }
 
-template <int D, bool WRITE_LSE>
-__global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
-    flash_fwd_online_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                            float* __restrict__ lse, int H, int Lq, int Lk, long long q_sb, long long q_sh,
-                            long long q_sl, long long k_sb, long long k_sh, long long k_sl, long long v_sb,
-                            long long v_sh, long long v_sl, long long o_sb, long long o_sh, long long o_sl,
-                            float q_scale) {
+// One 128-key tile of the online softmax for this warpgroup's 64 rows:
+// S = Qs . K^T, the mask of keys past Lk, the running max and denominators,
+// p rounded to bf16, O += P . V. Returns once both products have completed,
+// so the tile's stage is free.
+template <int D>
+__device__ __forceinline__ void online_tile(float (&acc)[D / 2], float& m_lo, float& m_hi, float& l_lo, float& l_hi,
+                                            uint64_t desc_q, uint64_t dk, uint64_t dv, int key0, int Lk,
+                                            int tig) {
   using C = OnlineCfg<D>;
   constexpr int NT = BLOCK_N / 8;   // 8-column blocks of S
   constexpr int PK = BLOCK_N / 16;  // k16 steps of P.V
-  constexpr int QK = C::DP / 16;    // k16 steps of Q.K^T
-  constexpr int NS = C::NSTAGE;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* sQ = smem;
-  unsigned char* sK = sQ + C::Q_BYTES;       // [NSTAGE][K_BYTES]
-  unsigned char* sV = sK + NS * C::K_BYTES;  // [NSTAGE][V_BYTES]
-
-  const int tid = threadIdx.x;
-  const int wg = tid / 128;           // this thread's warpgroup: q rows 64 wg ..
-  const int warp = (tid % 128) / 32;  // ... of which its warp holds 16
-  const int lane = tid % 32;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int m0 = blockIdx.x * BLOCK_M;
-
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
-
-  if constexpr (C::DPC > C::CH) {  // k's zero pad, in every stage: no load writes it
-    constexpr int PADC = C::DPC - C::CH;
-    for (int i = tid; i < NS * BLOCK_N * PADC; i += NUM_THREADS) {
-      const int row = i % BLOCK_N;
-      const int c = C::CH + (i / BLOCK_N) % PADC;
-      const int s = i / (BLOCK_N * PADC);
-      *reinterpret_cast<uint4*>(sK + s * C::K_BYTES + (row / 8) * C::QK_SBO + c * 128 + (row % 8) * 16) =
-          make_uint4(0, 0, 0, 0);
-    }
-  }
-  const int n_tiles = (Lk + BLOCK_N - 1) / BLOCK_N;
-  auto load_tile = [&](int t) {  // tile t's copies into its stage, t % NS, if it exists
-    if (t < n_tiles) {
-      const int st = t % NS;
-      load_kv<D>(sK + st * C::K_BYTES, sV + st * C::V_BYTES, kb, vb, k_sl, v_sl, t * BLOCK_N, Lk, tid);
-    }
-    cp_async_commit();
-  };
+  constexpr int QK = C::DP / 16;    // k16 steps of Q.K^T: two 16-byte chunks of q and k each
+  // s is fresh each tile: the first k16 step does not read it (scale-d 0),
+  // so no old value is kept alive
+  float s[BLOCK_N / 2];
+  wgmma_fence();
 #pragma unroll
-  for (int t = 0; t < NS - 1; ++t) load_tile(t);
-  load_q_scaled<D>(sQ, qb, q_sl, m0, Lq, q_scale, tid);
+  for (int kk = 0; kk < QK; ++kk)
+    wgmma_m64n128k16_ss(s, desc_add(desc_q, kk * 2 * C::Q_LBO), desc_add(dk, kk * 2 * C::K_LBO), kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
 
-  const uint64_t desc_q = make_desc(sQ + wg * 64 * C::DP * 2, C::LBO, C::QK_SBO);
-  const uint64_t desc_k = make_desc(sK, C::LBO, C::QK_SBO);
-  const uint64_t desc_v = make_desc(sV, C::LBO, C::V_SBO);
-
-  float acc[D / 2];
+  if (key0 + BLOCK_N > Lk) {
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  // running max (base 2; equal across the quad) and partial denominators
-  // (this thread's columns) of rows gid and gid+8 of the warp's 16
-  float m_lo = NEG_INF, m_hi = NEG_INF;
-  float l_lo = 0.f, l_hi = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j % NS;
-    cp_async_wait<NS - 2>();  // this thread's copies of tile j have landed
-    fence_proxy_async();      // ... and are visible to wgmma, as are q and the pad
-    __syncthreads();          // everyone's; and everyone is done with tile j - 1
-    load_tile(j + NS - 1);    // into the stage of tile j - 1
-
-    // S = Qs . K^T over the padded head dim. s is fresh each tile: the first
-    // k16 step does not read it (scale-d 0), so no old value is kept alive.
-    float s[BLOCK_N / 2];
-    const uint64_t dk = desc_add(desc_k, stage * C::K_BYTES);
-    wgmma_fence();
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int kk = 0; kk < QK; ++kk) wgmma_m64n128k16_ss(s, desc_add(desc_q, kk * 256), desc_add(dk, kk * 256), kk);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-
-    const int key0 = j * BLOCK_N;
-    if (key0 + BLOCK_N > Lk) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (key0 + nt * 8 + tig * 2 + (e & 1) >= Lk) s[nt * 4 + e] = NEG_INF;
-    }
-
-    // the tile's row max, over the quad that holds the row
-    float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nt * 4], s[nt * 4 + 1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nt * 4 + 2], s[nt * 4 + 3]));
-    }
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-    const float alpha_lo = ex2_ftz(m_lo - mx_lo);
-    const float alpha_hi = ex2_ftz(m_hi - mx_hi);
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt * 4] = ex2_ftz(s[nt * 4] - m_lo);
-      s[nt * 4 + 1] = ex2_ftz(s[nt * 4 + 1] - m_lo);
-      s[nt * 4 + 2] = ex2_ftz(s[nt * 4 + 2] - m_hi);
-      s[nt * 4 + 3] = ex2_ftz(s[nt * 4 + 3] - m_hi);
-    }
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt * 4] *= alpha_lo;
-      acc[dt * 4 + 1] *= alpha_lo;
-      acc[dt * 4 + 2] *= alpha_hi;
-      acc[dt * 4 + 3] *= alpha_hi;
-    }
-    l_lo *= alpha_lo;
-    l_hi *= alpha_hi;
-
-    // p rounded to bf16 as P.V's A operand; l sums the ROUNDED p, as the
-    // ones column of the TPU kernel's PV product does
-    uint32_t p[PK][4];
-#pragma unroll
-    for (int kk = 0; kk < PK; ++kk) {
-      pack_a(p[kk], &s[kk * 8], &s[kk * 8 + 4]);
-      const float2 a0 = unpack_bf16x2(p[kk][0]);
-      const float2 a1 = unpack_bf16x2(p[kk][1]);
-      const float2 a2 = unpack_bf16x2(p[kk][2]);
-      const float2 a3 = unpack_bf16x2(p[kk][3]);
-      l_lo += (a0.x + a0.y) + (a2.x + a2.y);
-      l_hi += (a1.x + a1.y) + (a3.x + a3.y);
-    }
-
-    // O += P . V
-    const uint64_t dv = desc_add(desc_v, stage * C::V_BYTES);
-    fence_regs(acc);
-    fence_regs(p);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < PK; ++kk) wgmma_pv<D>(acc, p[kk], desc_add(dv, kk * 256));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_regs(p);  // p's registers stay p's until the products have read them
+      for (int e = 0; e < 4; ++e)
+        if (key0 + nt * 8 + tig * 2 + (e & 1) >= Lk) s[nt * 4 + e] = NEG_INF;
   }
 
+  // the tile's row max, over the quad that holds the row
+  float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    mx_lo = fmaxf(mx_lo, fmaxf(s[nt * 4], s[nt * 4 + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[nt * 4 + 2], s[nt * 4 + 3]));
+  }
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+  const float alpha_lo = ex2_ftz(m_lo - mx_lo);
+  const float alpha_hi = ex2_ftz(m_hi - mx_hi);
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt * 4] = ex2_ftz(s[nt * 4] - m_lo);
+    s[nt * 4 + 1] = ex2_ftz(s[nt * 4 + 1] - m_lo);
+    s[nt * 4 + 2] = ex2_ftz(s[nt * 4 + 2] - m_hi);
+    s[nt * 4 + 3] = ex2_ftz(s[nt * 4 + 3] - m_hi);
+  }
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    acc[dt * 4] *= alpha_lo;
+    acc[dt * 4 + 1] *= alpha_lo;
+    acc[dt * 4 + 2] *= alpha_hi;
+    acc[dt * 4 + 3] *= alpha_hi;
+  }
+  l_lo *= alpha_lo;
+  l_hi *= alpha_hi;
+
+  // p rounded to bf16 as P.V's A operand; l sums the ROUNDED p, as the
+  // ones column of the TPU kernel's PV product does
+  uint32_t p[PK][4];
+#pragma unroll
+  for (int kk = 0; kk < PK; ++kk) {
+    pack_a(p[kk], &s[kk * 8], &s[kk * 8 + 4]);
+    const float2 a0 = unpack_bf16x2(p[kk][0]);
+    const float2 a1 = unpack_bf16x2(p[kk][1]);
+    const float2 a2 = unpack_bf16x2(p[kk][2]);
+    const float2 a3 = unpack_bf16x2(p[kk][3]);
+    l_lo += (a0.x + a0.y) + (a2.x + a2.y);
+    l_hi += (a1.x + a1.y) + (a3.x + a3.y);
+  }
+
+  fence_regs(acc);
+  fence_regs(p);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < PK; ++kk) wgmma_pv<D>(acc, p[kk], desc_add(dv, kk * 2 * C::V_LBO));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(p);  // p's registers stay p's until the products have read them
+}
+
+// o = acc / l for rows r_lo and r_lo + 8 (those below Lq), and K4's lse.
+template <int D, bool WRITE_LSE>
+__device__ __forceinline__ void online_store(const float (&acc)[D / 2], float m_lo, float m_hi, float l_lo,
+                                             float l_hi, __nv_bfloat16* ob, long long o_sl, float* lb, int r_lo,
+                                             int Lq, int tig) {
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
   l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
@@ -303,8 +225,6 @@ __global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
   const float ls_hi = fmaxf(l_hi, 1e-30f);
   const float inv_lo = 1.0f / ls_lo;
   const float inv_hi = 1.0f / ls_hi;
-
-  const int r_lo = m0 + wg * 64 + warp * 16 + gid;
   const int r_hi = r_lo + 8;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
@@ -317,38 +237,160 @@ __global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
           pack_bf16x2(acc[dt * 4 + 2] * inv_hi, acc[dt * 4 + 3] * inv_hi);
   }
   if (WRITE_LSE && tig == 0) {
-    float* lb = lse + (long long)bh * Lq;
     if (r_lo < Lq) lb[r_lo] = m_lo * LN2 + logf(ls_lo);
     if (r_hi < Lq) lb[r_hi] = m_hi * LN2 + logf(ls_hi);
   }
 }
 
+// One block: two warpgroups, 128 q rows of one (batch, head); the key loop
+// inside. The last of the 8 warps done with a stage (counted in shared
+// memory) has the TMA unit refill it, so a warpgroup waits only for its
+// data, never for the other warpgroup.
+template <int D, bool WRITE_LSE>
+__global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
+    flash_fwd_online_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                            const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int H, int Lq, int Lk, long long q_sb, long long q_sh,
+                            long long q_sl, long long o_sb, long long o_sh, long long o_sl, float q_scale) {
+  using C = OnlineCfg<D>;
+  constexpr int NS = C::NSTAGE;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* sQ = smem;
+  unsigned char* sK = sQ + C::Q_BYTES;       // [NSTAGE][K_BYTES]
+  unsigned char* sV = sK + NS * C::K_BYTES;  // [NSTAGE][V_BYTES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + NS * C::V_BYTES);  // [NSTAGE]
+  int* done = reinterpret_cast<int*>(full + NS);                        // [NSTAGE] warps done with the stage
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;  // this thread's warpgroup: q rows 64 wg ..
+  const int lane = tid % 32;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int m0 = blockIdx.x * BLOCK_M;
+  const int n_tiles = (Lk + BLOCK_N - 1) / BLOCK_N;
+
+  auto load_tile = [&](int t) {  // by one thread: tile t into stage t % NS
+    const int st = t % NS;
+    mbar_expect_tx(&full[st], C::TILE_BYTES);
+    tma_load_5d(sK + st * C::K_BYTES, &map_k, &full[st], 0, t * BLOCK_N, 0, h, b);
+    tma_load_5d(sV + st * C::V_BYTES, &map_v, &full[st], 0, t * BLOCK_N, 0, h, b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      done[s] = 0;
+    }
+    fence_mbar_init();
+  }
+  if constexpr (C::DPC > C::CH) {  // k's zero pad chunks, [CH, DPC) of every stage
+    constexpr int PAD = (C::DPC - C::CH) * BLOCK_N;
+    for (int i = tid; i < NS * PAD; i += NUM_THREADS)
+      *reinterpret_cast<uint4*>(sK + (i / PAD) * C::K_BYTES + C::CH * C::K_LBO + (i % PAD) * 16) =
+          make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();  // the barriers are initialised
+  if (tid == 0)
+    for (int t = 0; t < NS && t < n_tiles; ++t) load_tile(t);
+  load_q_scaled<D>(sQ, q + b * q_sb + h * q_sh, q_sl, m0, Lq, q_scale, tid);
+  fence_proxy_async();  // q and the pad, visible to wgmma
+  __syncthreads();
+
+  const uint64_t desc_q = make_desc(sQ + wg * 64 * C::DP * 2, C::Q_LBO, C::Q_SBO);
+  const uint64_t desc_k = make_desc(sK, C::K_LBO, C::K_SBO);
+  const uint64_t desc_v = make_desc(sV, C::V_LBO, C::V_SBO);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // running max (base 2; equal across the quad) and partial denominators
+  // (this thread's columns) of rows lane/4 and lane/4 + 8 of the warp's 16
+  float m_lo = NEG_INF, m_hi = NEG_INF;
+  float l_lo = 0.f, l_hi = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j % NS;
+    mbar_wait(&full[stage], (j / NS) & 1);
+    online_tile<D>(acc, m_lo, m_hi, l_lo, l_hi, desc_q, desc_add(desc_k, stage * C::K_BYTES),
+                   desc_add(desc_v, stage * C::V_BYTES), j * BLOCK_N, Lk, lane & 3);
+    if (lane == 0) {  // this warp's reads of the stage are done
+      __threadfence_block();
+      if (atomicAdd(&done[stage], 1) == NUM_THREADS / 32 - 1) {
+        done[stage] = 0;
+        __threadfence_block();
+        if (j + NS < n_tiles) load_tile(j + NS);
+      }
+    }
+  }
+  online_store<D, WRITE_LSE>(acc, m_lo, m_hi, l_lo, l_hi, o + b * o_sb + h * o_sh, o_sl, lse + (long long)bh * Lq,
+                             m0 + (tid / 32) * 16 + lane / 4, Lq, lane & 3);
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime: the library
+// links no -lcuda.
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) != cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// The 5-D map (8 elements, L, D/8 chunks, H, B) of a [B, H, L, D] view with
+// element strides (sb, sh, sl), cut in boxes of (8, BLOCK_N, D/8, 1, 1).
+template <int D>
+cudaError_t tile_map(CUtensorMap* map, const void* base, int B, int H, int L, long long sb, long long sh,
+                     long long sl) {
+  const auto encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[5] = {8, (cuuint64_t)L, D / 8, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {(cuuint64_t)sl * 2, 16, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[5] = {8, BLOCK_N, D / 8, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 constexpr int MAX_DEVICES = 64;
 
-template <int D, bool WRITE_LSE>
-cudaError_t launch_online(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Lq,
-                          int Lk, const long long* st, float q_scale, cudaStream_t stream) {
-  using C = OnlineCfg<D>;
-  // the dynamic shared-memory limit is raised once per instantiation and card
-  static bool ready[MAX_DEVICES];
+// Raise a kernel's dynamic shared-memory limit once per card.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int smem, bool (&ready)[MAX_DEVICES]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_online_kernel<D, WRITE_LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::SMEM);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_fwd_online_kernel<D, WRITE_LSE>,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
+  return cudaSuccess;
+}
+
+template <int D, bool WRITE_LSE>
+cudaError_t launch_online(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Lq,
+                          int Lk, const long long* st, float q_scale, cudaStream_t stream) {
+  using C = OnlineCfg<D>;
+  static bool ready[MAX_DEVICES];
+  cudaError_t err = prepare(flash_fwd_online_kernel<D, WRITE_LSE>, C::SMEM, ready);
+  CUtensorMap mk, mv;
+  if (err == cudaSuccess) err = tile_map<D>(&mk, k, B, H, Lk, st[3], st[4], st[5]);
+  if (err == cudaSuccess) err = tile_map<D>(&mv, v, B, H, Lk, st[6], st[7], st[8]);
+  if (err != cudaSuccess) return err;
   const dim3 grid((Lq + BLOCK_M - 1) / BLOCK_M, B * H);
   flash_fwd_online_kernel<D, WRITE_LSE><<<grid, NUM_THREADS, C::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], q_scale);
+      mk, mv, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, st[0], st[1],
+      st[2], st[9], st[10], st[11], q_scale);
   return cudaGetLastError();
 }
 
