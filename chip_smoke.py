@@ -9,10 +9,12 @@ back to the CPU):
      the float32 references;
   2. build: compile every kernel source in this checkout, one nvcc each, all
      started together; ptxas registers and spills of each instantiation;
+     the HGMMA (wgmma) instructions in the SASS of K3's and K4's libraries;
   3. kernels: the no-max forward (typicality) against its plain PyTorch
      version at the sweep's shapes, a masked key tail and the underflow
      edge; CUDA-event times of the kernel, the plain version and one PyTorch
-     library call (a yardstick only), and the least time the card could take;
+     library call (a yardstick only), the least time the card could take,
+     and beside it the exp2 work alone on the special-function units;
   4. slice: SD-v1.5 widths (UNet, VAE, CLIP ViT-L text) with random weights
      from a seed, bf16; make_submission + compute_submission over 2 labels x
      8 synthetic 512x512 images; every artifact checked; kernel launches
@@ -21,9 +23,10 @@ back to the CPU):
      of that run and of one warm group of 8 images at N=100;
   5. training kernels: K4 (flash forward with logsumexp), K5 (dq) and K6
      (dk/dv) against their plain versions at the trainer's shapes (B4 H8
-     L4096 D40, B4 H8 L1024 D80) and masked tails at D=40 and D=160, with
-     times, scaled_dot_product_attention's forward (K4) and backward (K5+K6)
-     as yardsticks, and the bound;
+     L4096 D40, B4 H8 L1024 D80) and masked tails at D=40 and D=160, K4 at
+     its own 128-key tiles (ONLINE_BLOCK_K), with times (K4 also by device
+     time from a torch.profiler trace), scaled_dot_product_attention's
+     forward (K4) and backward (K5+K6) as yardsticks, and the bound;
   6. train: the places trainer at SD-v1.5 widths with random weights, bf16
      mixed precision, EMA, batch 4 of synthetic 512x512 images through the
      injected loader: BaseTrainer.training_init(); one forward+backward in
@@ -43,8 +46,9 @@ back to the CPU):
      channels-last input (the layout after a transformer); each against
      its plain version, with times, the bound and the library yardsticks
      (scaled_dot_product_attention's forward for K3; F.group_norm plus a
-     1x1 F.conv2d, two calls, for K7); for K7 also the device's busy time
-     in a call and the kernel's own share of it (torch.profiler);
+     1x1 F.conv2d, two calls, for K7); K3 at its own 128-key tiles and also
+     by device time; for K7 the device's busy time in a call and the
+     kernel's own share of it (torch.profiler);
   8. mining: 2 labels x 64 synthetic 512x512 PNGs swept at N=4 through the
      sweep's own decoding, then Cluster.clustering("dift-161") with the CLI
      defaults twice: under the default modes (K1) and, on a freshly built

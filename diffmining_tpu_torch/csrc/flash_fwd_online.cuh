@@ -270,7 +270,7 @@ __global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
   const int m0 = blockIdx.x * BLOCK_M;
   const int n_tiles = (Lk + BLOCK_N - 1) / BLOCK_N;
 
-  auto load_tile = [&](int t) {  // by one thread: tile t into stage t % NS
+  auto fetch = [&](int t) {  // by one thread: tile t into stage t % NS
     const int st = t % NS;
     mbar_expect_tx(&full[st], C::TILE_BYTES);
     tma_load_5d(sK + st * C::K_BYTES, &map_k, &full[st], 0, t * BLOCK_N, 0, h, b);
@@ -291,7 +291,7 @@ __global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
   }
   __syncthreads();  // the barriers are initialised
   if (tid == 0)
-    for (int t = 0; t < NS && t < n_tiles; ++t) load_tile(t);
+    for (int t = 0; t < NS && t < n_tiles; ++t) fetch(t);
   load_q_scaled<D>(sQ, q + b * q_sb + h * q_sh, q_sl, m0, Lq, q_scale, tid);
   fence_proxy_async();  // q and the pad, visible to wgmma
   __syncthreads();
@@ -318,7 +318,7 @@ __global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
       if (atomicAdd(&done[stage], 1) == NUM_THREADS / 32 - 1) {
         done[stage] = 0;
         __threadfence_block();
-        if (j + NS < n_tiles) load_tile(j + NS);
+        if (j + NS < n_tiles) fetch(j + NS);
       }
     }
   }
