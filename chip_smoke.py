@@ -600,7 +600,8 @@ def places_trainer(work, batch, px, n_images, max_train_steps):
 
 
 STEP_CATEGORIES = (  # first match wins, on the lower-cased kernel name
-    ("flash kernels (K4, K5, K6)", ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")),
+    # K4 runs the online-softmax kernel that K3 shares (flash_fwd_online_kernel)
+    ("flash kernels (K4, K5, K6)", ("flash_fwd_online", "flash_bwd_dq", "flash_bwd_dkv")),
     ("optimizer and EMA (foreach)", ("foreach", "multi_tensor")),
     ("NCHW/NHWC layout transposes", ("nchwtonhwc", "nhwctonchw")),
     ("casts and copies", ("copy_kernel", "direct_copy", "bfloat16_copy")),
