@@ -817,8 +817,7 @@ def phase_inference_kernels():
                                    bound_ms=bound, bound_by=by, exp2_ms=exp2)
         log(f"kernel K3 {name} B{b} H{h}: max|err| {max_err:.3g} = {worst:.3g} x tolerance  ms {ms:.4f}  "
             f"device {device_ms:.4f}  plain {plain_ms:.3f}  sdpa forward {lib_ms:.4f} (device {lib_device:.4f})  "
-            f"bound {bound:.4f} ({by})  "
-            f"exp2 {exp2:.4f}")
+            f"bound {bound:.4f} ({by})  exp2 {exp2:.4f}")
         del q, k, v, got
         torch.cuda.empty_cache()
 
@@ -1090,8 +1089,7 @@ def kernel_entry(name, source, replaces, launches, cases, main_case):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in cases.values()), "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "exp2_ms": m.get("exp2_ms"),
-            "device_ms": m.get("device_ms"),
-            "library_ms": m["library_ms"],
+            "device_ms": m.get("device_ms"), "library_ms": m["library_ms"],
             "library": m.get("library", "sdpa forward"), "main_shape": main_case, "shapes": cases}
 
 

@@ -270,7 +270,6 @@ def flash_bwd_dkv_plain(
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-_entries: Dict[str, ctypes._CFuncPtr] = {}  # each library's entry point, once loaded
 build_log: Dict[str, str] = {}  # nvcc's output (-Xptxas -v) of each build this process made
 
 
@@ -379,15 +378,9 @@ def _strides(*ts: torch.Tensor):
 
 
 def _launch(name: str, q: torch.Tensor, *args) -> None:
-    """Call ``name``'s entry point on q's device and its current stream. The
-    device is switched only when q is not on the current one: a call of a
-    short kernel is otherwise host-bound (PERF.md)."""
-    fn = _entries.get(name) or _entries.setdefault(name, getattr(_library(name), name))
-    if q.device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(q.device):
-            err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    fn = getattr(_library(name), name)
+    with torch.cuda.device(q.device):
+        err = fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
