@@ -174,33 +174,37 @@ def attention_bound(b, h, lq, lk, d):
     return bound, ("bytes" if bound == t_bytes else "operations"), exp2_ms(logits)
 
 
-def device_split(fn, name_part, calls=20):
+def device_split(fn, name_part, calls=20, attempts=3):
     """Device time of ``fn`` from a torch.profiler trace of ``calls`` calls:
     (all its kernels a call, one launch of the kernel whose name holds
     ``name_part``) in ms. Beside the CUDA-event time it shows how much of a
-    call the device is busy, and how much of that is the named kernel. The
-    named kernel's time is averaged over the launches the trace holds: a
-    trace taken after a long one can miss a few kernel records, which would
-    bias a per-call sum."""
+    call the device is busy, and how much of that is the named kernel. A
+    trace taken after a long one can miss kernel records (a few of 20, or
+    all of them), so the named kernel's time is averaged over the launches
+    the trace holds, and a trace that holds none is taken again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    busy = named = 0.0
-    n_named = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy += e.device_time_total
-            if name_part in e.name:
-                named += e.device_time_total
-                n_named += 1
-    if n_named == 0:
-        raise AssertionError(f"the trace holds no device time of {name_part}")
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        busy = named = 0.0
+        n_named = 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                busy += e.device_time_total
+                if name_part in e.name:
+                    named += e.device_time_total
+                    n_named += 1
+        if n_named:
+            break
+        log(f"  (a trace of {calls} calls holds no launch of {name_part or 'any kernel'}; tracing again)")
+    else:
+        raise AssertionError(f"{attempts} traces hold no device time of {name_part}")
     if n_named != calls and name_part:
         log(f"  (the trace holds {n_named} launches of {name_part} for {calls} calls)")
     return busy / 1e3 / calls, named / 1e3 / n_named
