@@ -2,7 +2,7 @@
 """Compare builds of the online-softmax flash forward (K3 and K4) on one GPU.
 
     python3 scripts_gpu/compare_online_forward.py --tree parent=PATH --tree change=. \
-        [--variant NAME=TREE:MACRO=VALUE,...] [--out chiprun_out/compare.json]
+        [--variant NAME=TREE:MACRO=VALUE,...] [--out build/compare_online_forward.json]
 
 Each ``--tree`` is a checkout of this repository (a ``git archive`` of
 another commit, say); its ``csrc/flash_fwd_lse.cu`` and
@@ -103,7 +103,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", default=[], help="NAME=PATH of a checkout")
     ap.add_argument("--variant", action="append", default=[], help="NAME=TREE:MACRO=VALUE,... (-D macros)")
-    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "compare_online_forward.json"))
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "compare_online_forward.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_online_forward: no CUDA device", file=sys.stderr)
