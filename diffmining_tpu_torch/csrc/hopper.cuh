@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the warpgroup kernels: shared-memory
-// matrix descriptors, wgmma issue and synchronisation, and the async-proxy
-// fence that makes generic shared-memory writes visible to wgmma.
+// matrix descriptors, wgmma issue and synchronisation, mbarriers and TMA
+// tile copies, and the async-proxy fence that makes generic shared-memory
+// writes visible to wgmma.
 //
 // Every operand tile here uses wgmma's no-swizzle ("interleave") canonical
 // layout, built from core matrices of 8 rows x 16 bytes (8 bf16) stored as
