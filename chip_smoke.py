@@ -179,15 +179,16 @@ def device_split(fn, name_part, calls=20, attempts=3):
     (all its kernels a call, one launch of the kernel whose name holds
     ``name_part``) in ms. Beside the CUDA-event time it shows how much of a
     call the device is busy, and how much of that is the named kernel. A
-    trace taken after a long one can miss kernel records (a few of 20, or
-    all of them), so the named kernel's time is averaged over the launches
-    the trace holds, and a trace that holds none is taken again."""
+    trace can miss kernel records (a few of 20, or all of them), so a trace
+    is taken again until it holds every call's launches (a whole number of
+    kernels a call when ``name_part`` is empty); the last is used if none
+    does, the named kernel averaged over the launches it holds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -200,13 +201,12 @@ def device_split(fn, name_part, calls=20, attempts=3):
                 if name_part in e.name:
                     named += e.device_time_total
                     n_named += 1
-        if n_named:
+        if n_named and (n_named == calls if name_part else n_named % calls == 0):
             break
-        log(f"  (a trace of {calls} calls holds no launch of {name_part or 'any kernel'}; tracing again)")
-    else:
+        log(f"  (a trace of {calls} calls holds {n_named} launches of {name_part or 'any kernel'}"
+            + ("; tracing again)" if attempt + 1 < attempts else ")"))
+    if n_named == 0:
         raise AssertionError(f"{attempts} traces hold no device time of {name_part}")
-    if n_named != calls and name_part:
-        log(f"  (the trace holds {n_named} launches of {name_part} for {calls} calls)")
     return busy / 1e3 / calls, named / 1e3 / n_named
 
 
