@@ -179,35 +179,33 @@ def device_split(fn, name_part, calls=20, attempts=3):
     (all its kernels a call, one launch of the kernel whose name holds
     ``name_part``) in ms. Beside the CUDA-event time it shows how much of a
     call the device is busy, and how much of that is the named kernel. A
-    trace can miss kernel records (a few of 20, or all of them), so a trace
-    is taken again until it holds every call's launches (a whole number of
-    kernels a call when ``name_part`` is empty); the last is used if none
-    does, the named kernel averaged over the launches it holds."""
+    trace can miss kernel records (two of 20 calls' in a trace taken after
+    the train phase, once all of them), so both times are averages over the
+    records the trace holds: a launch of the named kernel, and a call of
+    ceil(records / calls) kernels. A trace that holds none is taken again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(attempts):
+    for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        busy = named = 0.0
-        n_named = 0
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                busy += e.device_time_total
-                if name_part in e.name:
-                    named += e.device_time_total
-                    n_named += 1
-        if n_named and (n_named == calls if name_part else n_named % calls == 0):
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        named = [e.device_time_total for e in kernels if name_part in e.name]
+        if named:
             break
-        log(f"  (a trace of {calls} calls holds {n_named} launches of {name_part or 'any kernel'}"
-            + ("; tracing again)" if attempt + 1 < attempts else ")"))
-    if n_named == 0:
+        log(f"  (a trace of {calls} calls holds no launch of {name_part or 'any kernel'}; tracing again)")
+    else:
         raise AssertionError(f"{attempts} traces hold no device time of {name_part}")
-    return busy / 1e3 / calls, named / 1e3 / n_named
+    if len(kernels) % calls or (name_part and len(named) != calls):
+        log(f"  (a trace of {calls} calls holds {len(named)} launches of {name_part or 'any kernel'} and "
+            f"{len(kernels)} kernel records)")
+    per_call = -(-len(kernels) // calls)
+    busy = sum(e.device_time_total for e in kernels) / len(kernels) * per_call
+    return busy / 1e3, sum(named) / len(named) / 1e3
 
 
 def plain_chunked(plain, *ts):
