@@ -83,6 +83,9 @@ PEAK_HBM_TBS = 3.35  # H100 SXM memory rate
 EXP2_PER_CLOCK_PER_SM = 16
 SM_COUNT = 0
 SM_MAX_MHZ = 0.0
+TRACE_CALLS = 20  # calls device_split reads from a trace
+TRACE_PAD = 5  # calls it traces but does not read, before and after those
+TRACE_ATTEMPTS = 3  # traces it takes before it gives up
 # kernel vs plain, elementwise: |got - want| <= RTOL |want| + ATOL_RMS rms(want).
 # Both round the same fp32 result to bf16, so they differ by at most one bf16
 # ulp of the element (<= 2^-7 relative) where summation order or ex2.approx
@@ -174,38 +177,46 @@ def attention_bound(b, h, lq, lk, d):
     return bound, ("bytes" if bound == t_bytes else "operations"), exp2_ms(logits)
 
 
-def device_split(fn, name_part, calls=20, attempts=3):
-    """Device time of ``fn`` from a torch.profiler trace of ``calls`` calls:
-    (all its kernels a call, one launch of the kernel whose name holds
-    ``name_part``) in ms. Beside the CUDA-event time it shows how much of a
-    call the device is busy, and how much of that is the named kernel. A
-    trace can miss kernel records (two of 20 calls' in a trace taken after
-    the train phase, once all of them), so both times are averages over the
-    records the trace holds: a launch of the named kernel, and a call of
-    ceil(records / calls) kernels. A trace that holds none is taken again."""
+def device_split(fn, name_part):
+    """Device time of ``fn`` from a torch.profiler trace: (all its kernels a
+    call, one launch of the kernel whose name holds ``name_part``) in ms.
+    Beside the CUDA-event time it shows how much of a call the device is
+    busy, and how much of that is the named kernel. The trace runs
+    TRACE_PAD calls before and after the TRACE_CALLS it reads, with a spin
+    kernel (torch.cuda._sleep) on each side of those, and reads the kernels
+    between the two spins in the device's own order. A trace can lose the
+    records of the first kernels it sees (two calls' in a trace taken after
+    the train phase, every call's in the first trace of a process), and its
+    device clock can sit over 1 ms off its host clock, so a host-side range
+    cannot mark the calls. A trace that does not hold both spins, one
+    launch of the named kernel a call read and a kernel count that is a
+    multiple of TRACE_CALLS is logged and taken again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for _ in range(TRACE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
+            for _ in range(TRACE_PAD):
+                fn()
+            torch.cuda._sleep(1000)
+            for _ in range(TRACE_CALLS):
+                fn()
+            torch.cuda._sleep(1000)
+            for _ in range(TRACE_PAD):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        named = [e.device_time_total for e in kernels if name_part in e.name]
-        if named:
-            break
-        log(f"  (a trace of {calls} calls holds no launch of {name_part or 'any kernel'}; tracing again)")
-    else:
-        raise AssertionError(f"{attempts} traces hold no device time of {name_part}")
-    if len(kernels) % calls or (name_part and len(named) != calls):
-        log(f"  (a trace of {calls} calls holds {len(named)} launches of {name_part or 'any kernel'} and "
-            f"{len(kernels)} kernel records)")
-    per_call = -(-len(kernels) // calls)
-    busy = sum(e.device_time_total for e in kernels) / len(kernels) * per_call
-    return busy / 1e3, sum(named) / len(named) / 1e3
+        kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        spins = [i for i, e in enumerate(kernels) if "spin_kernel" in e.name]
+        read = kernels[spins[0] + 1:spins[1]] if len(spins) == 2 else []
+        named = [e.device_time_total for e in read if name_part in e.name]
+        if read and len(read) % TRACE_CALLS == 0 and (not name_part or len(named) == TRACE_CALLS):
+            return sum(e.device_time_total for e in read) / TRACE_CALLS / 1e3, sum(named) / len(named) / 1e3
+        log(f"  (a trace holds {len(spins)} of 2 spins and {len(named)} launches of {name_part or 'any kernel'} "
+            f"between them for {TRACE_CALLS} calls; tracing again)")
+    raise AssertionError(f"{TRACE_ATTEMPTS} traces miss launches of {name_part or 'any kernel'} in the calls read")
 
 
 def plain_chunked(plain, *ts):
@@ -350,7 +361,7 @@ def phase_kernels():
         lib_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
         bound, by, exp2 = attention_bound(b, h, l, l, d)
         results[name] = dict(shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by, exp2_ms=exp2)
+                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
         log(f"kernel {name} B{b} H{h} L{l} D{d}: max|err| {max_err:.3g} = {worst:.3g} x tolerance "
             f"ms {ms:.4f}  plain {plain_ms:.3f}  sdpa {lib_ms:.4f}  bound {bound:.4f} ({by})  exp2 {exp2:.4f}")
         del q, k, v, got, want
@@ -551,7 +562,7 @@ def phase_train_kernels():
                 shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms if lib_ms is not None else lib_bwd,
                 library="sdpa forward" if kind == "K4" else "sdpa backward (dq, dk, dv together)",
-                bound_ms=bound, bound_by=by, exp2_ms=exp2)
+                bound_ms=bound, bound_by=by)
             if kind == "K4":
                 results[kind][name].update(lse_max_abs_err=lse_err, device_ms=k4_device, library_device_ms=lib_device)
             log(f"kernel {kind} {name} B{b} H{h}: max|err| {max_err:.3g} = {worst:.3g} x tolerance  "
@@ -816,7 +827,7 @@ def phase_inference_kernels():
         results["K3"][name] = dict(shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms,
                                    device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
                                    library_device_ms=lib_device, library="sdpa forward",
-                                   bound_ms=bound, bound_by=by, exp2_ms=exp2)
+                                   bound_ms=bound, bound_by=by)
         log(f"kernel K3 {name} B{b} H{h}: max|err| {max_err:.3g} = {worst:.3g} x tolerance  ms {ms:.4f}  "
             f"device {device_ms:.4f}  plain {plain_ms:.3f}  sdpa forward {lib_ms:.4f} (device {lib_device:.4f})  "
             f"bound {bound:.4f} ({by})  exp2 {exp2:.4f}")
@@ -1090,8 +1101,7 @@ def kernel_entry(name, source, replaces, launches, cases, main_case):
     m = cases[main_case]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in cases.values()), "ms": m["ms"], "plain_ms": m["plain_ms"],
-            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "exp2_ms": m.get("exp2_ms"),
-            "device_ms": m.get("device_ms"), "library_ms": m["library_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "device_ms": m.get("device_ms"), "library_ms": m["library_ms"],
             "library": m.get("library", "sdpa forward"), "main_shape": main_case, "shapes": cases}
 
 
