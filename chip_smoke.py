@@ -24,9 +24,11 @@ back to the CPU):
   5. training kernels: K4 (flash forward with logsumexp), K5 (dq) and K6
      (dk/dv) against their plain versions at the trainer's shapes (B4 H8
      L4096 D40, B4 H8 L1024 D80) and masked tails at D=40 and D=160, K4 at
-     its own 128-key tiles (ONLINE_BLOCK_K), with times (K4 also by device
-     time from a torch.profiler trace), scaled_dot_product_attention's
-     forward (K4) and backward (K5+K6) as yardsticks, and the bound;
+     its own 128-key tiles (ONLINE_BLOCK_K), with times (each also by
+     device time from a torch.profiler trace), scaled_dot_product_attention's
+     forward (K4) and backward (K5+K6) as yardsticks, by events and device
+     time, the port's whole backward (delta, the pre-scale, K5, K6) by
+     device time beside sdpa's, and the bound;
   6. train: the places trainer at SD-v1.5 widths with random weights, bf16
      mixed precision, EMA, batch 4 of synthetic 512x512 images through the
      injected loader: BaseTrainer.training_init(); one forward+backward in
@@ -551,9 +553,18 @@ def phase_train_kernels():
         }
         # one library call computes dq, dk and dv together: sdpa's backward
         lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(ref, (qr, kr, vr), do, retain_graph=True))
-        # K4's device time beside its CUDA-event time: a short call is host-bound
+        # device times beside the CUDA-event times (a short call is host-bound):
+        # each kernel's own launch; sdpa's forward and its backward as a whole
+        # (every kernel of a call); and the port's whole backward through the
+        # autograd Function (delta, the pre-scale, K5, K6)
         _, k4_device = device_split(lambda: fa.flash_fwd_lse(q, k, v), "flash_fwd_online_kernel")
+        _, k5_device = device_split(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta), "flash_bwd_dq_kernel")
+        _, k6_device = device_split(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta), "flash_bwd_dkv_kernel")
         lib_device, _ = device_split(lambda: F.scaled_dot_product_attention(q, k, v), "")
+        lib_bwd_device, _ = device_split(lambda: torch.autograd.grad(ref, (qr, kr, vr), do, retain_graph=True), "")
+        port = fa.flash_attention(qr, kr, vr)
+        bwd_device, _ = device_split(lambda: torch.autograd.grad(port, (qr, kr, vr), do, retain_graph=True), "")
+        devices = {"K4": (k4_device, lib_device), "K5": (k5_device, lib_bwd_device), "K6": (k6_device, lib_bwd_device)}
         for kind, (ms, plain_ms, lib_ms) in times.items():
             bound, by, exp2 = training_bound(kind, b, h, l, d)
             max_err = max(e for e, _ in errs[kind])
@@ -563,13 +574,18 @@ def phase_train_kernels():
                 library_ms=lib_ms if lib_ms is not None else lib_bwd,
                 library="sdpa forward" if kind == "K4" else "sdpa backward (dq, dk, dv together)",
                 bound_ms=bound, bound_by=by)
+            device, lib_dev = devices[kind]
+            results[kind][name].update(device_ms=device, library_device_ms=lib_dev)
             if kind == "K4":
-                results[kind][name].update(lse_max_abs_err=lse_err, device_ms=k4_device, library_device_ms=lib_device)
+                results[kind][name].update(lse_max_abs_err=lse_err)
+            else:
+                results[kind][name].update(backward_device_ms=bwd_device)
             log(f"kernel {kind} {name} B{b} H{h}: max|err| {max_err:.3g} = {worst:.3g} x tolerance  "
                 f"ms {ms:.4f}  plain {plain_ms:.3f}  {results[kind][name]['library']} "
-                f"{results[kind][name]['library_ms']:.4f}  bound {bound:.4f} ({by})  exp2 {exp2:.4f}"
-                + (f"  device {k4_device:.4f} (sdpa {lib_device:.4f})" if kind == "K4" else ""))
-        del q, k, v, do, o, lse, delta, dq, dk, dv, qr, kr, vr, ref
+                f"{results[kind][name]['library_ms']:.4f}  bound {bound:.4f} ({by})  exp2 {exp2:.4f}  "
+                f"device {device:.4f} (sdpa {'forward' if kind == 'K4' else 'backward'} {lib_dev:.4f}"
+                + (")" if kind == "K4" else f"; the port's backward {bwd_device:.4f})"))
+        del q, k, v, do, o, lse, delta, dq, dk, dv, qr, kr, vr, ref, port
         torch.cuda.empty_cache()
     return results
 
@@ -1101,7 +1117,8 @@ def kernel_entry(name, source, replaces, launches, cases, main_case):
     m = cases[main_case]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in cases.values()), "ms": m["ms"], "plain_ms": m["plain_ms"],
-            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "device_ms": m.get("device_ms"), "library_ms": m["library_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "device_ms": m.get("device_ms"),
+            "library_device_ms": m.get("library_device_ms"), "library_ms": m["library_ms"],
             "library": m.get("library", "sdpa forward"), "main_shape": main_case, "shapes": cases}
 
 
