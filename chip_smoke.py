@@ -9,7 +9,7 @@ back to the CPU):
      the float32 references;
   2. build: compile every kernel source in this checkout, one nvcc each, all
      started together; ptxas registers and spills of each instantiation;
-     the HGMMA (wgmma) instructions in the SASS of K3's and K4's libraries;
+     the HGMMA (wgmma) instructions in the SASS of K3-K6's libraries;
   3. kernels: the no-max forward (typicality) against its plain PyTorch
      version at the sweep's shapes, a masked key tail and the underflow
      edge; CUDA-event times of the kernel, the plain version and one PyTorch
@@ -313,12 +313,14 @@ def phase_build():
         lines = fa.build_log.get(name, "").splitlines()
         regs = [line.split("Used ")[1].split(" registers")[0] for line in lines if "registers" in line]
         spills = [line.strip() for line in lines if "spill" in line and "0 bytes spill stores" not in line]
+        warnings = [line.strip() for line in lines if "warning" in line.lower()]
         log(f"  ptxas {name}: registers per thread of the instantiations: {', '.join(regs)}; "
-            f"spills: {spills or 'none'}")
+            f"spills: {spills or 'none'}" + (f"; warnings: {warnings}" if warnings else ""))
         fa._library(name)
-    # the online-softmax forward (K3, K4) issues wgmma: the SASS shows HGMMA
+    # the online-softmax forward (K3, K4) and the backward (K5, K6) issue
+    # wgmma: the SASS shows HGMMA
     cuobjdump = os.path.join(os.path.dirname(fa._nvcc()), "cuobjdump")
-    for name in ("flash_fwd_online", "flash_fwd_lse"):
+    for name in ("flash_fwd_online", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"):
         sass = subprocess.run([cuobjdump, "-sass", str(fa._library_path(name))], capture_output=True, text=True,
                               check=True).stdout
         hgmma = [line.strip() for line in sass.splitlines() if "HGMMA" in line]
@@ -520,8 +522,9 @@ def phase_train_kernels():
         q, k, v, do = operands(b, h, l, d)
         o, lse = fa.flash_fwd_lse(q, k, v)
         delta = fa.attention_delta(do, o)
-        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta)
+        qs = fa.prescaled_q(q)  # as the backward forms it, once for K5 and K6
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, qs=qs)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, qs=qs)
         torch.cuda.synchronize()
         o_p, lse_p = plain_chunked(k4_plain, q, k, v)
         dq_p = plain_chunked(fa.flash_bwd_dq_plain, q, k, v, do, lse, delta)
@@ -544,10 +547,10 @@ def phase_train_kernels():
             "K4": (cuda_time_ms(lambda: fa.flash_fwd_lse(q, k, v)),
                    cuda_time_ms(lambda: plain_chunked(k4_plain, q, k, v), reps=3, warmup=1),
                    cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))),
-            "K5": (cuda_time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta)),
+            "K5": (cuda_time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, qs=qs)),
                    cuda_time_ms(lambda: plain_chunked(fa.flash_bwd_dq_plain, q, k, v, do, lse, delta),
                                 reps=3, warmup=1), None),
-            "K6": (cuda_time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta)),
+            "K6": (cuda_time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, qs=qs)),
                    cuda_time_ms(lambda: plain_chunked(fa.flash_bwd_dkv_plain, q, k, v, do, lse, delta),
                                 reps=3, warmup=1), None),
         }
@@ -558,8 +561,9 @@ def phase_train_kernels():
         # (every kernel of a call); and the port's whole backward through the
         # autograd Function (delta, the pre-scale, K5, K6)
         _, k4_device = device_split(lambda: fa.flash_fwd_lse(q, k, v), "flash_fwd_online_kernel")
-        _, k5_device = device_split(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta), "flash_bwd_dq_kernel")
-        _, k6_device = device_split(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta), "flash_bwd_dkv_kernel")
+        _, k5_device = device_split(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, qs=qs), "flash_bwd_dq_kernel")
+        _, k6_device = device_split(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, qs=qs),
+                                    "flash_bwd_dkv_kernel")
         lib_device, _ = device_split(lambda: F.scaled_dot_product_attention(q, k, v), "")
         lib_bwd_device, _ = device_split(lambda: torch.autograd.grad(ref, (qr, kr, vr), do, retain_graph=True), "")
         port = fa.flash_attention(qr, kr, vr)
@@ -585,7 +589,7 @@ def phase_train_kernels():
                 f"{results[kind][name]['library_ms']:.4f}  bound {bound:.4f} ({by})  exp2 {exp2:.4f}  "
                 f"device {device:.4f} (sdpa {'forward' if kind == 'K4' else 'backward'} {lib_dev:.4f}"
                 + (")" if kind == "K4" else f"; the port's backward {bwd_device:.4f})"))
-        del q, k, v, do, o, lse, delta, dq, dk, dv, qr, kr, vr, ref, port
+        del q, k, v, do, o, lse, delta, qs, dq, dk, dv, qr, kr, vr, ref, port
         torch.cuda.empty_cache()
     return results
 

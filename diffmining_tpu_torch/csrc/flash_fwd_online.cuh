@@ -326,20 +326,6 @@ __global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
                              m0 + (tid / 32) * 16 + lane / 4, Lq, lane & 3);
 }
 
-// cuTensorMapEncodeTiled from the driver, through the runtime: the library
-// links no -lcuda.
-inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status) != cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }();
-  return fn;
-}
-
 // The 5-D map (8 elements, L, D/8 chunks, H, B) of a [B, H, L, D] view with
 // element strides (sb, sh, sl), cut in boxes of (8, BLOCK_N, D/8, 1, 1).
 template <int D>
@@ -355,26 +341,6 @@ cudaError_t tile_map(CUtensorMap* map, const void* base, int B, int H, int L, lo
                             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-constexpr int MAX_DEVICES = 64;
-
-// Raise a kernel's dynamic shared-memory limit once per card.
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int smem, bool (&ready)[MAX_DEVICES]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!ready[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-    ready[dev] = true;
-  }
-  return cudaSuccess;
 }
 
 template <int D, bool WRITE_LSE>

@@ -23,7 +23,8 @@ read into module attributes at import (``_ONESHOT``, ``_NOMAX``,
 
 ``FlashAttention`` is the counterpart of the JAX custom_vjp: its forward is
 flash_fwd_lse and saves (q, k, v, o, lse); its backward computes delta =
-sum(dO * o) and runs flash_bwd_dq and flash_bwd_dkv. Each ``*_plain``
+sum(dO * o) and the pre-scaled q (``prescaled_q``) once, and runs
+flash_bwd_dq and flash_bwd_dkv on them. Each ``*_plain``
 function repeats its kernel's arithmetic step by step in PyTorch: the CPU
 tests hold it to the Pallas kernels, and ``chip_smoke.py`` holds the kernel
 to it on the card. A wrapper takes the plain version only for a tensor that
@@ -76,8 +77,8 @@ ARGTYPES = {
     "flash_fwd_nomax": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
     "flash_fwd_online": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
     "flash_fwd_lse": [_P] * 5 + [_I] * 5 + [_P, _F, _P],
-    "flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _F, _F, _P],
-    "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
+    "flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _F, _P],
+    "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _P],
     "gn_act_proj": [_P] * 8 + [_I] * 4 + [_LL] * 3 + [_I, _P],
 }
 SOURCES = tuple(ARGTYPES)
@@ -140,6 +141,14 @@ def _prescale(q: torch.Tensor, scale: float) -> float:
 @functools.lru_cache(maxsize=None)
 def _rounded(x: float, dtype: torch.dtype) -> float:
     return torch.tensor(x, dtype=dtype).item()
+
+
+def prescaled_q(q: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """qs = q·bf16(scale·log2e) in q's dtype, the pre-scaled q that both
+    backward kernels take: formed once a backward as one tensor operation,
+    as ``_bwd_pallas`` forms ``qs_`` (flash_attention.py:673). It keeps q's
+    strides, so a [B,L,H*D] view stays one."""
+    return q * _prescale(q, _scale(q, scale))
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -441,38 +450,44 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, g, lse, delta, scale: float | None = None) -> torch.Tensor:
+def flash_bwd_dq(q, k, v, g, lse, delta, scale: float | None = None, qs: torch.Tensor | None = None) -> torch.Tensor:
     """K5: dq [B,H,Lq,D] from dO ``g``, the forward's ``lse`` and ``delta``.
-    CPU tensors take ``flash_bwd_dq_plain``; ``flash_bwd_dq.launches``
-    counts launches."""
+    The kernel reads the pre-scaled ``qs`` (``prescaled_q``; formed here if
+    not given). CPU tensors take ``flash_bwd_dq_plain``;
+    ``flash_bwd_dq.launches`` counts launches."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, g, lse, delta, scale)
-    _check("flash_bwd_dq", q, k, v, g)
+    scale = _scale(q, scale)
+    qs = prescaled_q(q, scale) if qs is None else qs
+    _check("flash_bwd_dq", q, k, v, g, qs)
     _check_rows("flash_bwd_dq", q, lse, delta)
     b, h, lq, d = q.shape
-    scale = _scale(q, scale)
     dq = _bhld(q, lq)
-    _launch("flash_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+    _launch("flash_bwd_dq", q, qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), b, h, lq, k.shape[2], d,
-            ctypes.cast(_strides(q, k, v, g, dq), _P), _prescale(q, scale), scale)
+            ctypes.cast(_strides(qs, k, v, g, dq), _P), scale)
     flash_bwd_dq.launches += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, g, lse, delta, scale: float | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_bwd_dkv(
+    q, k, v, g, lse, delta, scale: float | None = None, qs: torch.Tensor | None = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6: (dk, dv) [B,H,Lk,D] from dO ``g``, the forward's ``lse`` and
-    ``delta``. CPU tensors take ``flash_bwd_dkv_plain``;
+    ``delta``. The kernel reads the pre-scaled ``qs`` (``prescaled_q``;
+    formed here if not given). CPU tensors take ``flash_bwd_dkv_plain``;
     ``flash_bwd_dkv.launches`` counts launches."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, g, lse, delta, scale)
-    _check("flash_bwd_dkv", q, k, v, g)
+    qs = prescaled_q(q, scale) if qs is None else qs
+    _check("flash_bwd_dkv", q, k, v, g, qs)
     _check_rows("flash_bwd_dkv", q, lse, delta)
     b, h, lq, d = q.shape
     lk = k.shape[2]
     dk, dv = _bhld(k, lk), _bhld(v, lk)
-    _launch("flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+    _launch("flash_bwd_dkv", q, qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, lq, lk, d,
-            ctypes.cast(_strides(q, k, v, g, dk, dv), _P), _prescale(q, _scale(q, scale)))
+            ctypes.cast(_strides(qs, k, v, g, dk, dv), _P))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -483,7 +498,8 @@ for _fn in (flash_fwd_nomax, flash_fwd_online, flash_fwd_lse, flash_bwd_dq, flas
 
 class FlashAttention(torch.autograd.Function):
     """Counterpart of the JAX custom_vjp (flash_attention.py:438-446, :789):
-    forward K4 saving (q, k, v, o, lse); backward delta, then K5 and K6."""
+    forward K4 saving (q, k, v, o, lse); backward delta and the pre-scaled
+    q (once, for both kernels, as ``_bwd_pallas`` does), then K5 and K6."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -498,8 +514,9 @@ class FlashAttention(torch.autograd.Function):
         if g.is_cuda and not _aligned(g):
             g = g.contiguous()
         delta = attention_delta(g, o)
-        dq = flash_bwd_dq(q, k, v, g, lse, delta, ctx.scale)
-        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.scale)
+        qs = prescaled_q(q, ctx.scale) if q.is_cuda else None  # the plain versions form their own
+        dq = flash_bwd_dq(q, k, v, g, lse, delta, ctx.scale, qs)
+        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.scale, qs)
         return dq, dk, dv, None
 
 

@@ -93,6 +93,61 @@ def test_training_kernels_match_plain_on_card(b, h, l, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,d", [(1000, 1000, 40), (1100, 1100, 160), (1090, 1090, 80), (300, 1100, 80),
+                                     (1100, 300, 40)])
+def test_backward_kernels_match_plain_on_ragged_lengths_on_card(lq, lk, d):
+    """K5 and K6 at their Hopper tiles (64-key stages of K5; 64-row q stages
+    of K6, 32 at D=160) on lengths that leave a partial tile of q rows, of
+    keys or of both, on the UNet's [B, L, H*D] views, with the pre-scaled q
+    that the backward forms once for both: within the two-ulp bound of
+    their plain versions. Forming qs inside the wrapper gives the same
+    result."""
+    _needs_gpu()
+    q, g = _operands(2, 8, lq, d, 2, seed=lq)
+    k, v = _operands(2, 8, lk, d, 2, seed=lk + 1)
+    o, lse = pfa.flash_fwd_lse(q, k, v)
+    delta = pfa.attention_delta(g, o)
+    qs = pfa.prescaled_q(q)
+    assert qs.stride() == q.stride()
+    dq = pfa.flash_bwd_dq(q, k, v, g, lse, delta, qs=qs)
+    dk, dv = pfa.flash_bwd_dkv(q, k, v, g, lse, delta, qs=qs)
+    dk_plain, dv_plain = pfa.flash_bwd_dkv_plain(q, k, v, g, lse, delta)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert _over_tolerance(dq, pfa.flash_bwd_dq_plain(q, k, v, g, lse, delta), BWD_RTOL) <= 1.0
+    assert _over_tolerance(dk, dk_plain, BWD_RTOL) <= 1.0 and _over_tolerance(dv, dv_plain, BWD_RTOL) <= 1.0
+    assert torch.equal(pfa.flash_bwd_dq(q, k, v, g, lse, delta), dq)
+    assert all(torch.equal(a, b_) for a, b_ in zip(pfa.flash_bwd_dkv(q, k, v, g, lse, delta), (dk, dv)))
+
+
+@pytest.mark.cuda
+def test_backward_with_a_non_contiguous_dO_on_card():
+    """dO as the kernels may meet it: an aligned strided view handed straight
+    to the wrappers, and one whose head dim is strided (not aligned) through
+    the autograd Function, which copies it first. Both within the two-ulp
+    bound of the plain versions on the contiguous dO."""
+    _needs_gpu()
+    b, h, l, d = 2, 8, 1024, 80
+    leaves = [t.detach().requires_grad_(True) for t in _operands(b, h, l, d, 3, seed=5)]
+    q, k, v = leaves
+    o, lse = pfa.flash_fwd_lse(q, k, v)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    g_view = torch.randn(b, l, h, d, generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+    g_wide = torch.randn(b, h, l, 2 * d, generator=gen, device="cuda").to(torch.bfloat16)[..., ::2]
+    assert not g_view.is_contiguous() and g_wide.stride(3) == 2
+    for g in (g_view, g_wide):
+        gc = g.contiguous()
+        delta = pfa.attention_delta(gc, o)
+        want = (pfa.flash_bwd_dq_plain(q, k, v, gc, lse, delta), *pfa.flash_bwd_dkv_plain(q, k, v, gc, lse, delta))
+        if g is g_view:
+            got = (pfa.flash_bwd_dq(q, k, v, g, lse, pfa.attention_delta(g, o)),
+                   *pfa.flash_bwd_dkv(q, k, v, g, lse, pfa.attention_delta(g, o)))
+        else:
+            got = torch.autograd.grad(pfa.flash_attention(q, k, v), leaves, g)
+        assert all(_over_tolerance(a, w, BWD_RTOL) <= 1.0 for a, w in zip(got, want))
+
+
+@pytest.mark.cuda
 def test_dispatch_under_grad_on_card():
     """On a GPU: the gated UNet shape under grad goes through the autograd
     Function and launches K4, K5 and K6 once each; without grad, the no-max
