@@ -139,30 +139,29 @@ __global__ void __launch_bounds__(NUM_THREADS, DkvCfg<D>::MIN_BLOCKS)
     fence_regs(dp_t);
 
     // p^T = exp2(s^T - lse2) and ds^T = p^T (dp^T - delta): the columns are
-    // q rows, so a thread reads lse and delta of its columns 8j + 2 tig + {0, 1}
+    // q rows, so a thread reads lse and delta of its columns 8j + 2 tig + {0, 1};
+    // q rows past Lq get s = -1e30, so p = 0
     const int q0 = i * NQ;
     const float* lrow = reinterpret_cast<const float*>(s + 2 * C::Q_BYTES) + ((row0 + q0) & 3);
     const float* drow = lrow + C::ROW_BYTES / 4;
-    const bool ragged = q0 + NQ > Lq;
+    if (q0 + NQ > Lq) {
+#pragma unroll
+      for (int e = 0; e < NQ / 2; ++e)
+        if (q0 + (e / 4) * 8 + tig * 2 + (e & 1) >= Lq) s_t[e] = NEG_INF;
+    }
 #pragma unroll
     for (int j = 0; j < NQ / 8; ++j) {
       const int c = j * 8 + tig * 2;
-      const bool live0 = !ragged || q0 + c < Lq;
-      const bool live1 = !ragged || q0 + c + 1 < Lq;
       const float l0 = lrow[c] * LOG2E, l1 = lrow[c + 1] * LOG2E;
       const float d0 = drow[c], d1 = drow[c + 1];
-      const float p0 = live0 ? ex2_ftz(s_t[4 * j] - l0) : 0.f;
-      const float p1 = live1 ? ex2_ftz(s_t[4 * j + 1] - l1) : 0.f;
-      const float p2 = live0 ? ex2_ftz(s_t[4 * j + 2] - l0) : 0.f;
-      const float p3 = live1 ? ex2_ftz(s_t[4 * j + 3] - l1) : 0.f;
-      s_t[4 * j] = p0;
-      s_t[4 * j + 1] = p1;
-      s_t[4 * j + 2] = p2;
-      s_t[4 * j + 3] = p3;
-      dp_t[4 * j] = p0 * (dp_t[4 * j] - d0);
-      dp_t[4 * j + 1] = p1 * (dp_t[4 * j + 1] - d1);
-      dp_t[4 * j + 2] = p2 * (dp_t[4 * j + 2] - d0);
-      dp_t[4 * j + 3] = p3 * (dp_t[4 * j + 3] - d1);
+      s_t[4 * j] = ex2_ftz(s_t[4 * j] - l0);
+      s_t[4 * j + 1] = ex2_ftz(s_t[4 * j + 1] - l1);
+      s_t[4 * j + 2] = ex2_ftz(s_t[4 * j + 2] - l0);
+      s_t[4 * j + 3] = ex2_ftz(s_t[4 * j + 3] - l1);
+      dp_t[4 * j] = s_t[4 * j] * (dp_t[4 * j] - d0);
+      dp_t[4 * j + 1] = s_t[4 * j + 1] * (dp_t[4 * j + 1] - d1);
+      dp_t[4 * j + 2] = s_t[4 * j + 2] * (dp_t[4 * j + 2] - d0);
+      dp_t[4 * j + 3] = s_t[4 * j + 3] * (dp_t[4 * j + 3] - d1);
     }
     uint32_t pa[PK][4], da[PK][4];  // bf16(p^T), bf16(ds^T) as register A operands
 #pragma unroll

@@ -135,17 +135,18 @@ __global__ void __launch_bounds__(NUM_THREADS, DqCfg<D>::MIN_BLOCKS)
     fence_regs(sc);
     fence_regs(dp);
 
-    // ds = p (dp - delta) with p = exp2(s - lse2); keys past Lk: p = 0
+    // ds = p (dp - delta) with p = exp2(s - lse2); keys past Lk get
+    // s = -1e30, so p = 0
     const int key0 = j * NK;
-    const bool ragged = key0 + NK > Lk;
+    if (key0 + NK > Lk) {
 #pragma unroll
-    for (int nt = 0; nt < NK / 8; ++nt) {
+      for (int e = 0; e < NK / 2; ++e)
+        if (key0 + (e / 4) * 8 + tig * 2 + (e & 1) >= Lk) sc[e] = NEG_INF;
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool live = !ragged || key0 + nt * 8 + tig * 2 + (e & 1) < Lk;
-        const float p = live ? ex2_ftz(sc[nt * 4 + e] - (e < 2 ? lse2_lo : lse2_hi)) : 0.f;
-        sc[nt * 4 + e] = p * (dp[nt * 4 + e] - (e < 2 ? del_lo : del_hi));
-      }
+    for (int e = 0; e < NK / 2; ++e) {
+      const bool hi = e & 2;  // the accumulator's second row of the pair
+      sc[e] = ex2_ftz(sc[e] - (hi ? lse2_hi : lse2_lo)) * (dp[e] - (hi ? del_hi : del_lo));
     }
     uint32_t da[PK][4];  // bf16(ds) as register A operands
 #pragma unroll
