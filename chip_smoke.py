@@ -311,9 +311,9 @@ def phase_build():
         "(one nvcc each, in parallel; set-up)")
     for name in fa.SOURCES:
         lines = fa.build_log.get(name, "").splitlines()
-        regs = [line.split("Used ")[1].split(" registers")[0] for line in lines if "registers" in line]
+        regs = [line.split("Used ")[1].split(" registers")[0] for line in lines if "Used " in line]
         spills = [line.strip() for line in lines if "spill" in line and "0 bytes spill stores" not in line]
-        warnings = [line.strip() for line in lines if "warning" in line.lower()]
+        warnings = [line.strip() for line in lines if "warning" in line.lower() or "Performance Loss" in line]
         log(f"  ptxas {name}: registers per thread of the instantiations: {', '.join(regs)}; "
             f"spills: {spills or 'none'}" + (f"; warnings: {warnings}" if warnings else ""))
         fa._library(name)

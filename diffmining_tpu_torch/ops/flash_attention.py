@@ -240,8 +240,10 @@ def _probs(qs: torch.Tensor, k: torch.Tensor, lse: torch.Tensor) -> torch.Tensor
 
 
 def attention_delta(g: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-    """delta = Σ_d dO·o in fp32, [B,H,Lq] contiguous (flash_attention.py:669)."""
-    return (g.float() * o.float()).sum(dim=-1).contiguous()
+    """delta = Σ_d dO·o in fp32, [B,H,Lq] contiguous (flash_attention.py:669).
+    o is cast inside the product (the products of bf16 values are exact in
+    fp32), which saves a float32 copy of it."""
+    return (g.float() * o).sum(dim=-1).contiguous()
 
 
 def flash_bwd_dq_plain(
