@@ -18,8 +18,8 @@
 // with dO and qs read MN-major from the same [chunk][row] tiles. qs, dO and
 // the q tile's lse and delta rows (a 1-D map over the flat [B*H*Lq] rows)
 // stream through a ring of NSTAGE stages. Registers a thread are about
-// D (dk and dv) + NQ (s^T and dp^T): NQ = 32 q rows a stage at D=40 and
-// 160, 64 at D=80.
+// D (dk and dv) + NQ (s^T and dp^T): NQ = 48 q rows a stage at D=40, 64 at
+// D=80 and 32 at D=160.
 
 #include "flash_bwd.cuh"
 
@@ -30,10 +30,10 @@ constexpr int BLOCK_N = 128;  // keys a block: two warpgroups of 64
 template <int D>
 struct DkvCfg {
   using Dm = BwdDims<D>;
-  // q rows a stage: 32 at D=40 keeps two blocks an SM within 128 registers
-  // without spills, 32 at D=160 keeps the accumulators and s^T, dp^T within
-  // 255
-  static constexpr int NQ = D == 80 ? 64 : 32;
+  // q rows a stage: 48 at D=40 keeps two blocks an SM within 128 registers
+  // without spills (64 spilled), 32 at D=160 keeps the accumulators and s^T,
+  // dp^T within 255
+  static constexpr int NQ = D == 40 ? 48 : D == 80 ? 64 : 32;
   static constexpr int NSTAGE = D == 40 ? 6 : 3;
   static constexpr int MIN_BLOCKS = D == 40 ? 2 : 1;
   static constexpr int KV_BYTES = BLOCK_N * Dm::DP * 2;  // the K tile, and the V tile

@@ -7,8 +7,9 @@ bf16(scale·log2e), formed once a backward by ``prescaled_q`` as
 JAX's bit for bit in bf16. The plain versions re-form p from the lse, so
 they hold at any tile; what depends on the tiles is whether chip_smoke.py's
 bound (two bf16 ulps plus one at the output's scale) would see a kernel
-that skips one of them: one q stage of K6 (32 rows, 64 at D=80) and one
-key stage of K5 (64 keys), read from the kernels' sources.
+that skips one of them: one q stage of K6 (48 rows at D=40, 64 at D=80,
+32 at D=160) and one key stage of K5 (64 keys), read from the kernels'
+sources.
 """
 import re
 
@@ -28,8 +29,8 @@ BWD_RTOL = 2.0**-6  # chip_smoke.py's bound for K5/K6 against their plain versio
 def _k6_q_tile(d: int) -> int:
     """K6's q rows a stage at head dim d, from csrc/flash_bwd_dkv.cu."""
     src = (pfa.CSRC / "flash_bwd_dkv.cu").read_text()
-    at, then, other = re.search(r"int NQ = D == (\d+) \? (\d+) : (\d+);", src).groups()
-    return int(then) if d == int(at) else int(other)
+    at40, at80, other = re.search(r"int NQ = D == 40 \? (\d+) : D == 80 \? (\d+) : (\d+);", src).groups()
+    return int({40: at40, 80: at80}.get(d, other))
 
 
 def _k5_key_tile() -> int:
@@ -48,7 +49,7 @@ def _bits(t: torch.Tensor) -> np.ndarray:
 
 
 def test_tiles_read_from_the_sources():
-    assert [_k6_q_tile(d) for d in pfa.HEAD_DIMS] == [32, 64, 32]
+    assert [_k6_q_tile(d) for d in pfa.HEAD_DIMS] == [48, 64, 32]
     assert _k5_key_tile() == 64
 
 
