@@ -21,8 +21,9 @@ back to the CPU):
      counted over that run; one UNet pass in bf16 with the kernel held
      against the same pass in float32 through the plain attention; imgs/hr
      of that run and of one warm group of 8 images at N=100;
-  5. training kernels: K4 (flash forward with logsumexp), K5 (dq) and K6
-     (dk/dv) against their plain versions at the trainer's shapes (B4 H8
+  5. training kernels: K4 (flash forward with logsumexp), K5 (dq, and
+     delta, held to attention_delta) and K6 (dk/dv) against their plain
+     versions at the trainer's shapes (B4 H8
      L4096 D40, B4 H8 L1024 D80) and masked tails at D=40 and D=160, K4 at
      its own 128-key tiles (ONLINE_BLOCK_K), with times (each also by
      device time from a torch.profiler trace), scaled_dot_product_attention's
@@ -116,6 +117,10 @@ UNET_REL_L2 = 5e-2
 # bounds do.
 GRAD_REL_L2 = 4e-2
 LSE_ATOL = 1e-3
+# K5 forms delta = sum_d dO o itself: the same D <= 160 exact fp32 products
+# as attention_delta's, summed in another order, so the two differ by at most
+# 2 (D - 1) 2^-24 of sum_d |dO o| (1.9e-5 at D=160); the bound is 2^-15 of it.
+DELTA_RTOL = 2.0**-15
 # K7 against its plain version: both round h to bf16 at the same point (the
 # kernel's prologue avoids FMA contraction, as the plain version's separate
 # torch ops do) and the product's fp32 sum to bf16 before adding the bias in
@@ -239,12 +244,12 @@ def plain_chunked(plain, *ts):
 def training_bound(kind, b, h, l, d):
     """Least time of one online-softmax or training-kernel call: the bytes it
     must move (bf16 [B,H,L,D] operands and fp32 [B,H,L] rows, each read or
-    written once) over the memory rate, against its matmul work on the bf16
+    written once; K5 reads o and writes delta too) over the memory rate, against its matmul work on the bf16
     tensor cores (4, 4, 6 and 8 L^2 D a head for K3, K4, K5 and K6) and its
     4 fp32 operations per logit outside them (K3/K4: max, subtract, exp2,
     sum; K5/K6: subtract, exp2, subtract, multiply); and beside it the exp2
     work alone on the special-function units (exp2_ms)."""
-    n_bhld, n_rows, matmul = {"K3": (4, 0, 4), "K4": (4, 1, 4), "K5": (5, 2, 6), "K6": (6, 2, 8)}[kind]
+    n_bhld, n_rows, matmul = {"K3": (4, 0, 4), "K4": (4, 1, 4), "K5": (6, 2, 6), "K6": (6, 2, 8)}[kind]
     nbytes = n_bhld * 2 * b * h * l * d + n_rows * 4 * b * h * l
     logits = b * h * l * l
     t_bytes = nbytes / (PEAK_HBM_TBS * 1e12) * 1e3
@@ -523,9 +528,12 @@ def phase_train_kernels():
         o, lse = fa.flash_fwd_lse(q, k, v)
         delta = fa.attention_delta(do, o)
         qs = fa.prescaled_q(q)  # as the backward forms it, once for K5 and K6
-        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, qs=qs)
+        dq, delta_k = fa.flash_bwd_dq(q, k, v, do, o, lse, qs=qs)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, qs=qs)
         torch.cuda.synchronize()
+        delta_err = float(((delta_k - delta).abs() / (do.float() * o.float()).abs().sum(-1)).max())
+        if not delta_err <= DELTA_RTOL:
+            raise AssertionError(f"K5 {name}: delta differs from attention_delta by {delta_err:.3g} of sum|dO o|")
         o_p, lse_p = plain_chunked(k4_plain, q, k, v)
         dq_p = plain_chunked(fa.flash_bwd_dq_plain, q, k, v, do, lse, delta)
         dk_p, dv_p = plain_chunked(fa.flash_bwd_dkv_plain, q, k, v, do, lse, delta)
@@ -547,7 +555,7 @@ def phase_train_kernels():
             "K4": (cuda_time_ms(lambda: fa.flash_fwd_lse(q, k, v)),
                    cuda_time_ms(lambda: plain_chunked(k4_plain, q, k, v), reps=3, warmup=1),
                    cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))),
-            "K5": (cuda_time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, qs=qs)),
+            "K5": (cuda_time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, o, lse, qs=qs)),
                    cuda_time_ms(lambda: plain_chunked(fa.flash_bwd_dq_plain, q, k, v, do, lse, delta),
                                 reps=3, warmup=1), None),
             "K6": (cuda_time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, qs=qs)),
@@ -561,7 +569,7 @@ def phase_train_kernels():
         # (every kernel of a call); and the port's whole backward through the
         # autograd Function (delta, the pre-scale, K5, K6)
         _, k4_device = device_split(lambda: fa.flash_fwd_lse(q, k, v), "flash_fwd_online_kernel")
-        _, k5_device = device_split(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, qs=qs), "flash_bwd_dq_kernel")
+        _, k5_device = device_split(lambda: fa.flash_bwd_dq(q, k, v, do, o, lse, qs=qs), "flash_bwd_dq_kernel")
         _, k6_device = device_split(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, qs=qs),
                                     "flash_bwd_dkv_kernel")
         lib_device, _ = device_split(lambda: F.scaled_dot_product_attention(q, k, v), "")
@@ -584,12 +592,15 @@ def phase_train_kernels():
                 results[kind][name].update(lse_max_abs_err=lse_err)
             else:
                 results[kind][name].update(backward_device_ms=bwd_device)
+            if kind == "K5":
+                results[kind][name].update(delta_err_over_abs_sum=delta_err)
             log(f"kernel {kind} {name} B{b} H{h}: max|err| {max_err:.3g} = {worst:.3g} x tolerance  "
                 f"ms {ms:.4f}  plain {plain_ms:.3f}  {results[kind][name]['library']} "
                 f"{results[kind][name]['library_ms']:.4f}  bound {bound:.4f} ({by})  exp2 {exp2:.4f}  "
                 f"device {device:.4f} (sdpa {'forward' if kind == 'K4' else 'backward'} {lib_dev:.4f}"
-                + (")" if kind == "K4" else f"; the port's backward {bwd_device:.4f})"))
-        del q, k, v, do, o, lse, delta, qs, dq, dk, dv, qr, kr, vr, ref, port
+                + (")" if kind == "K4" else f"; the port's backward {bwd_device:.4f})")
+                + (f"  delta {delta_err / DELTA_RTOL:.3g} x its bound" if kind == "K5" else ""))
+        del q, k, v, do, o, lse, delta, qs, dq, delta_k, dk, dv, qr, kr, vr, ref, port
         torch.cuda.empty_cache()
     return results
 

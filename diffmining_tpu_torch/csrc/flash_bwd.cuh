@@ -103,6 +103,19 @@ __device__ __forceinline__ bool last_warp_done(int* done) {
   return false;
 }
 
+// acc + the dot product of 8 bf16 values with 8 others, in fp32.
+__device__ __forceinline__ float dot8_bf16(const uint4& x, const uint4& y, float acc) {
+  const uint32_t* a = reinterpret_cast<const uint32_t*>(&x);
+  const uint32_t* b = reinterpret_cast<const uint32_t*>(&y);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 u = unpack_bf16x2(a[e]), w = unpack_bf16x2(b[e]);
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
+}
+
 // Rows r_lo and r_lo + 8 (those below L) of a warpgroup's 64 x D fp32
 // accumulator, times `mul`, stored as bf16.
 template <int D>

@@ -17,6 +17,11 @@
 //   dq += ds . K                    (wgmma, A in registers, K MN-major),
 // and K and V stream through the ring in NK-key stages. Registers a thread
 // are about D/2 (dq) + NK (s and dp): 84 at D=40, 144 at D=160.
+//
+// The kernel also forms delta = sum_d dO . o of its rows (fp32; the
+// products of bf16 values are exact), from the dO tile already in shared
+// memory and o read once, and writes it for the dk/dv kernel: the XLA pass
+// of _bwd_pallas (:669) would read dO and o again.
 
 #include "flash_bwd.cuh"
 
@@ -46,8 +51,9 @@ template <int D>
 __global__ void __launch_bounds__(NUM_THREADS, DqCfg<D>::MIN_BLOCKS)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_g,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk, long long dq_sb, long long dq_sh,
+                        const __nv_bfloat16* __restrict__ o, const float* __restrict__ lse,
+                        float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk,
+                        long long o_sb, long long o_sh, long long o_sl, long long dq_sb, long long dq_sh,
                         long long dq_sl, float scale) {
   using C = DqCfg<D>;
   using Dm = BwdDims<D>;
@@ -95,16 +101,27 @@ __global__ void __launch_bounds__(NUM_THREADS, DqCfg<D>::MIN_BLOCKS)
     for (int t = 0; t < NS && t < n_tiles; ++t) fetch(t);
   }
 
-  // lse (base 2) and delta of rows r_lo and r_lo + 8; rows past Lq are
-  // zeros in qs and dO, computed harmlessly and never stored
+  // lse (base 2) of rows r_lo and r_lo + 8, and the 16-byte chunks
+  // tig, tig + 4, .. of their o rows, read while the TMA unit brings qs and
+  // dO; rows past Lq are zeros in qs, dO and o, computed harmlessly and
+  // never stored
+  constexpr int OC = (Dm::CH + 3) / 4;
   const int r_lo = m0 + (tid / 32) * 16 + lane / 4;
   const int r_hi = r_lo + 8;
   const float* lb = lse + (long long)bh * Lq;
-  const float* db = delta + (long long)bh * Lq;
   const float lse2_lo = r_lo < Lq ? lb[r_lo] * LOG2E : 0.f;
   const float lse2_hi = r_hi < Lq ? lb[r_hi] * LOG2E : 0.f;
-  const float del_lo = r_lo < Lq ? db[r_lo] : 0.f;
-  const float del_hi = r_hi < Lq ? db[r_hi] : 0.f;
+  const __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+  uint4 o_lo[OC], o_hi[OC];
+#pragma unroll
+  for (int c = 0; c < OC; ++c) {
+    const int ch = tig + 4 * c;
+    const bool in = ch < Dm::CH;
+    o_lo[c] = in && r_lo < Lq ? __ldg(reinterpret_cast<const uint4*>(ob + (long long)r_lo * o_sl + ch * 8))
+                              : make_uint4(0, 0, 0, 0);
+    o_hi[c] = in && r_hi < Lq ? __ldg(reinterpret_cast<const uint4*>(ob + (long long)r_hi * o_sl + ch * 8))
+                              : make_uint4(0, 0, 0, 0);
+  }
 
   // this warpgroup's 64 rows of qs and dO, K-major A operands
   const uint64_t desc_q = desc_rows(sQ + wg * 64 * 16, BLOCK_M);
@@ -113,6 +130,26 @@ __global__ void __launch_bounds__(NUM_THREADS, DqCfg<D>::MIN_BLOCKS)
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   mbar_wait(q_full, 0);
+
+  // delta of rows r_lo and r_lo + 8: this thread's chunks, then the quad's
+  const unsigned char* g_lo = sG + (r_lo - m0) * 16;  // row r_lo's cell of chunk 0
+  float del_lo = 0.f, del_hi = 0.f;
+#pragma unroll
+  for (int c = 0; c < OC; ++c) {
+    const int ch = tig + 4 * c;
+    if (ch < Dm::CH) {
+      del_lo = dot8_bf16(*reinterpret_cast<const uint4*>(g_lo + ch * BLOCK_M * 16), o_lo[c], del_lo);
+      del_hi = dot8_bf16(*reinterpret_cast<const uint4*>(g_lo + ch * BLOCK_M * 16 + 8 * 16), o_hi[c], del_hi);
+    }
+  }
+  del_lo += __shfl_xor_sync(0xffffffffu, del_lo, 1);
+  del_lo += __shfl_xor_sync(0xffffffffu, del_lo, 2);
+  del_hi += __shfl_xor_sync(0xffffffffu, del_hi, 1);
+  del_hi += __shfl_xor_sync(0xffffffffu, del_hi, 2);
+  if (tig == 0) {
+    if (r_lo < Lq) delta[(long long)bh * Lq + r_lo] = del_lo;
+    if (r_hi < Lq) delta[(long long)bh * Lq + r_hi] = del_hi;
+  }
 
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % NS;
@@ -171,8 +208,8 @@ __global__ void __launch_bounds__(NUM_THREADS, DqCfg<D>::MIN_BLOCKS)
 }
 
 template <int D>
-cudaError_t launch(const void* qs, const void* k, const void* v, const void* g, const float* lse,
-                   const float* delta, void* dq, int B, int H, int Lq, int Lk, const long long* st, float scale,
+cudaError_t launch(const void* qs, const void* k, const void* v, const void* g, const void* o, const float* lse,
+                   float* delta, void* dq, int B, int H, int Lq, int Lk, const long long* st, float scale,
                    cudaStream_t stream) {
   using C = DqCfg<D>;
   static bool ready[MAX_DEVICES];
@@ -184,29 +221,30 @@ cudaError_t launch(const void* qs, const void* k, const void* v, const void* g, 
   if (err == cudaSuccess) err = bhld_map<D>(&mg, g, B, H, Lq, st[9], st[10], st[11], BLOCK_M);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + BLOCK_M - 1) / BLOCK_M, B * H);
-  flash_bwd_dq_kernel<D><<<grid, NUM_THREADS, C::SMEM, stream>>>(mq, mk, mv, mg, lse, delta,
-                                                                   static_cast<__nv_bfloat16*>(dq), H, Lq, Lk,
-                                                                   st[12], st[13], st[14], scale);
+  flash_bwd_dq_kernel<D><<<grid, NUM_THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, mg, static_cast<const __nv_bfloat16*>(o), lse, delta, static_cast<__nv_bfloat16*>(dq), H, Lq,
+      Lk, st[12], st[13], st[14], st[15], st[16], st[17], scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). qs is q pre-scaled by
-// bf16(scale*log2e) in q's dtype. strides: 15 element strides, (batch,
-// head, row) for qs, k, v, dO, dq in that order; lse and delta are
-// contiguous [B, H, Lq] float32 buffers. Returns the CUDA error of the
-// launch (0 on success); D must be 40, 80 or 160.
-extern "C" int flash_bwd_dq(const void* qs, const void* k, const void* v, const void* g, const void* lse,
-                            const void* delta, void* dq, int B, int H, int Lq, int Lk, int D,
+// bf16(scale*log2e) in q's dtype; o is the forward's output. strides: 18
+// element strides, (batch, head, row) for qs, k, v, dO, o, dq in that
+// order; lse (read) and delta (written) are contiguous [B, H, Lq] float32
+// buffers. Returns the CUDA error of the launch (0 on success); D must be
+// 40, 80 or 160.
+extern "C" int flash_bwd_dq(const void* qs, const void* k, const void* v, const void* g, const void* o,
+                            const void* lse, void* delta, void* dq, int B, int H, int Lq, int Lk, int D,
                             const long long* strides, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
+  float* dl = static_cast<float*>(delta);
   switch (D) {
-    case 40: return (int)launch<40>(qs, k, v, g, l, dl, dq, B, H, Lq, Lk, strides, scale, s);
-    case 80: return (int)launch<80>(qs, k, v, g, l, dl, dq, B, H, Lq, Lk, strides, scale, s);
-    case 160: return (int)launch<160>(qs, k, v, g, l, dl, dq, B, H, Lq, Lk, strides, scale, s);
+    case 40: return (int)launch<40>(qs, k, v, g, o, l, dl, dq, B, H, Lq, Lk, strides, scale, s);
+    case 80: return (int)launch<80>(qs, k, v, g, o, l, dl, dq, B, H, Lq, Lk, strides, scale, s);
+    case 160: return (int)launch<160>(qs, k, v, g, o, l, dl, dq, B, H, Lq, Lk, strides, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -13,7 +13,8 @@ Five kernels, one CUDA source each under ``csrc/``:
   flash_fwd_lse     online-softmax forward that also writes the natural-log
                     logsumexp (TPU ``_flash_kernel``, K4): the forward under
                     grad, and without grad under ``DIFFMINING_ATTN_TLAYOUT=0``;
-  flash_bwd_dq      dq from lse and delta (TPU ``_bwd_dq_kernel``, K5);
+  flash_bwd_dq      dq from lse, and delta from dO and o (TPU
+                    ``_bwd_dq_kernel``, K5, and the delta of ``_bwd_pallas``);
   flash_bwd_dkv     dk and dv from lse and delta (TPU ``_bwd_dkv_kernel``, K6).
 
 ``forward_route`` picks among K1-K4 for a forward without grad as the JAX
@@ -22,9 +23,9 @@ read into module attributes at import (``_ONESHOT``, ``_NOMAX``,
 ``_BLOCK_Q``, ``_BLOCK_K``) or at call time (``DIFFMINING_ATTN_TLAYOUT``).
 
 ``FlashAttention`` is the counterpart of the JAX custom_vjp: its forward is
-flash_fwd_lse and saves (q, k, v, o, lse); its backward computes delta =
-sum(dO * o) and the pre-scaled q (``prescaled_q``) once, and runs
-flash_bwd_dq and flash_bwd_dkv on them. Each ``*_plain``
+flash_fwd_lse and saves (q, k, v, o, lse); its backward forms the
+pre-scaled q (``prescaled_q``) once and runs flash_bwd_dq, which also
+forms delta = sum(dO * o), and flash_bwd_dkv. Each ``*_plain``
 function repeats its kernel's arithmetic step by step in PyTorch: the CPU
 tests hold it to the Pallas kernels, and ``chip_smoke.py`` holds the kernel
 to it on the card. A wrapper takes the plain version only for a tensor that
@@ -77,7 +78,7 @@ ARGTYPES = {
     "flash_fwd_nomax": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
     "flash_fwd_online": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
     "flash_fwd_lse": [_P] * 5 + [_I] * 5 + [_P, _F, _P],
-    "flash_bwd_dq": [_P] * 7 + [_I] * 5 + [_P, _F, _P],
+    "flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
     "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _P],
     "gn_act_proj": [_P] * 8 + [_I] * 4 + [_LL] * 3 + [_I, _P],
 }
@@ -240,10 +241,8 @@ def _probs(qs: torch.Tensor, k: torch.Tensor, lse: torch.Tensor) -> torch.Tensor
 
 
 def attention_delta(g: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-    """delta = Σ_d dO·o in fp32, [B,H,Lq] contiguous (flash_attention.py:669).
-    o is cast inside the product (the products of bf16 values are exact in
-    fp32), which saves a float32 copy of it."""
-    return (g.float() * o).sum(dim=-1).contiguous()
+    """delta = Σ_d dO·o in fp32, [B,H,Lq] contiguous (flash_attention.py:669)."""
+    return (g.float() * o.float()).sum(dim=-1).contiguous()
 
 
 def flash_bwd_dq_plain(
@@ -452,24 +451,30 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, g, lse, delta, scale: float | None = None, qs: torch.Tensor | None = None) -> torch.Tensor:
-    """K5: dq [B,H,Lq,D] from dO ``g``, the forward's ``lse`` and ``delta``.
-    The kernel reads the pre-scaled ``qs`` (``prescaled_q``; formed here if
-    not given). CPU tensors take ``flash_bwd_dq_plain``;
+def flash_bwd_dq(
+    q, k, v, g, o, lse, scale: float | None = None, qs: torch.Tensor | None = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: (dq [B,H,Lq,D], delta [B,H,Lq] float32) from dO ``g`` and the
+    forward's ``o`` and ``lse``: the kernel forms delta = Σ dO·o of its rows
+    itself (``attention_delta``'s arithmetic) and returns it for K6. It
+    reads the pre-scaled ``qs`` (``prescaled_q``; formed here if not given).
+    CPU tensors take ``attention_delta`` and ``flash_bwd_dq_plain``;
     ``flash_bwd_dq.launches`` counts launches."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, g, lse, delta, scale)
+        delta = attention_delta(g, o)
+        return flash_bwd_dq_plain(q, k, v, g, lse, delta, scale), delta
     scale = _scale(q, scale)
     qs = prescaled_q(q, scale) if qs is None else qs
-    _check("flash_bwd_dq", q, k, v, g, qs)
-    _check_rows("flash_bwd_dq", q, lse, delta)
+    _check("flash_bwd_dq", q, k, v, g, o, qs)
+    _check_rows("flash_bwd_dq", q, lse)
     b, h, lq, d = q.shape
     dq = _bhld(q, lq)
-    _launch("flash_bwd_dq", q, qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), b, h, lq, k.shape[2], d,
-            ctypes.cast(_strides(qs, k, v, g, dq), _P), scale)
+    delta = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+    _launch("flash_bwd_dq", q, qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, lq, k.shape[2], d,
+            ctypes.cast(_strides(qs, k, v, g, o, dq), _P), scale)
     flash_bwd_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 def flash_bwd_dkv(
@@ -500,8 +505,9 @@ for _fn in (flash_fwd_nomax, flash_fwd_online, flash_fwd_lse, flash_bwd_dq, flas
 
 class FlashAttention(torch.autograd.Function):
     """Counterpart of the JAX custom_vjp (flash_attention.py:438-446, :789):
-    forward K4 saving (q, k, v, o, lse); backward delta and the pre-scaled
-    q (once, for both kernels, as ``_bwd_pallas`` does), then K5 and K6."""
+    forward K4 saving (q, k, v, o, lse); backward the pre-scaled q (once,
+    for both kernels, as ``_bwd_pallas`` does), then K5, which also forms
+    delta, and K6."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -515,9 +521,8 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if g.is_cuda and not _aligned(g):
             g = g.contiguous()
-        delta = attention_delta(g, o)
         qs = prescaled_q(q, ctx.scale) if q.is_cuda else None  # the plain versions form their own
-        dq = flash_bwd_dq(q, k, v, g, lse, delta, ctx.scale, qs)
+        dq, delta = flash_bwd_dq(q, k, v, g, o, lse, ctx.scale, qs)
         dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.scale, qs)
         return dq, dk, dv, None
 

@@ -37,6 +37,14 @@ def _over_tolerance(got: torch.Tensor, want: torch.Tensor, rtol: float = 2.0**-7
     return float(((got.float() - w).abs() / tol).max())
 
 
+def _delta_over_tolerance(got: torch.Tensor, g: torch.Tensor, o: torch.Tensor) -> float:
+    """K5's delta against attention_delta, in units of chip_smoke.py's bound:
+    2^-15 of sum_d |dO o| (the same exact fp32 products summed in another
+    order differ by at most 2 (D - 1) 2^-24 of it)."""
+    want = pfa.attention_delta(g, o)
+    return float(((got - want).abs() / ((g.float() * o.float()).abs().sum(-1) * 2.0**-15)).max())
+
+
 def _needs_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -85,8 +93,9 @@ def test_training_kernels_match_plain_on_card(b, h, l, d):
     assert _over_tolerance(o, o_plain) <= 1.0
     torch.testing.assert_close(lse, lse_plain, rtol=1e-4, atol=1e-4)
     delta = pfa.attention_delta(g, o)
-    assert _over_tolerance(pfa.flash_bwd_dq(q, k, v, g, lse, delta),
-                           pfa.flash_bwd_dq_plain(q, k, v, g, lse, delta), BWD_RTOL) <= 1.0
+    dq, delta_k = pfa.flash_bwd_dq(q, k, v, g, o, lse)
+    assert _over_tolerance(dq, pfa.flash_bwd_dq_plain(q, k, v, g, lse, delta), BWD_RTOL) <= 1.0
+    assert _delta_over_tolerance(delta_k, g, o) <= 1.0
     dk, dv = pfa.flash_bwd_dkv(q, k, v, g, lse, delta)
     dk_plain, dv_plain = pfa.flash_bwd_dkv_plain(q, k, v, g, lse, delta)
     assert _over_tolerance(dk, dk_plain, BWD_RTOL) <= 1.0 and _over_tolerance(dv, dv_plain, BWD_RTOL) <= 1.0
@@ -96,12 +105,13 @@ def test_training_kernels_match_plain_on_card(b, h, l, d):
 @pytest.mark.parametrize("lq,lk,d", [(1000, 1000, 40), (1100, 1100, 160), (1090, 1090, 80), (300, 1100, 80),
                                      (1100, 300, 40)])
 def test_backward_kernels_match_plain_on_ragged_lengths_on_card(lq, lk, d):
-    """K5 and K6 at their Hopper tiles (64-key stages of K5; 64-row q stages
-    of K6, 32 at D=160) on lengths that leave a partial tile of q rows, of
-    keys or of both, on the UNet's [B, L, H*D] views, with the pre-scaled q
-    that the backward forms once for both: within the two-ulp bound of
-    their plain versions. Forming qs inside the wrapper gives the same
-    result."""
+    """K5 and K6 at their Hopper tiles (64-key stages of K5; q stages of K6
+    of 48 rows at D=40, 64 at D=80, 32 at D=160) on lengths that leave a
+    partial tile of q rows, of keys or of both, on the UNet's [B, L, H*D]
+    views, with the pre-scaled q that the backward forms once for both:
+    within the two-ulp bound of their plain versions, and K5's delta within
+    its bound of attention_delta. Forming qs inside the wrapper gives the
+    same result."""
     _needs_gpu()
     q, g = _operands(2, 8, lq, d, 2, seed=lq)
     k, v = _operands(2, 8, lk, d, 2, seed=lk + 1)
@@ -109,13 +119,14 @@ def test_backward_kernels_match_plain_on_ragged_lengths_on_card(lq, lk, d):
     delta = pfa.attention_delta(g, o)
     qs = pfa.prescaled_q(q)
     assert qs.stride() == q.stride()
-    dq = pfa.flash_bwd_dq(q, k, v, g, lse, delta, qs=qs)
+    dq, delta_k = pfa.flash_bwd_dq(q, k, v, g, o, lse, qs=qs)
     dk, dv = pfa.flash_bwd_dkv(q, k, v, g, lse, delta, qs=qs)
+    assert delta_k.shape == delta.shape and _delta_over_tolerance(delta_k, g, o) <= 1.0
     dk_plain, dv_plain = pfa.flash_bwd_dkv_plain(q, k, v, g, lse, delta)
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
     assert _over_tolerance(dq, pfa.flash_bwd_dq_plain(q, k, v, g, lse, delta), BWD_RTOL) <= 1.0
     assert _over_tolerance(dk, dk_plain, BWD_RTOL) <= 1.0 and _over_tolerance(dv, dv_plain, BWD_RTOL) <= 1.0
-    assert torch.equal(pfa.flash_bwd_dq(q, k, v, g, lse, delta), dq)
+    assert all(torch.equal(a, b_) for a, b_ in zip(pfa.flash_bwd_dq(q, k, v, g, o, lse), (dq, delta_k)))
     assert all(torch.equal(a, b_) for a, b_ in zip(pfa.flash_bwd_dkv(q, k, v, g, lse, delta), (dk, dv)))
 
 
@@ -140,8 +151,8 @@ def test_backward_with_a_non_contiguous_dO_on_card():
         delta = pfa.attention_delta(gc, o)
         want = (pfa.flash_bwd_dq_plain(q, k, v, gc, lse, delta), *pfa.flash_bwd_dkv_plain(q, k, v, gc, lse, delta))
         if g is g_view:
-            got = (pfa.flash_bwd_dq(q, k, v, g, lse, pfa.attention_delta(g, o)),
-                   *pfa.flash_bwd_dkv(q, k, v, g, lse, pfa.attention_delta(g, o)))
+            dq, delta_k = pfa.flash_bwd_dq(q, k, v, g, o, lse)
+            got = (dq, *pfa.flash_bwd_dkv(q, k, v, g, lse, delta_k))
         else:
             got = torch.autograd.grad(pfa.flash_attention(q, k, v), leaves, g)
         assert all(_over_tolerance(a, w, BWD_RTOL) <= 1.0 for a, w in zip(got, want))
