@@ -528,8 +528,8 @@ def phase_train_kernels():
         o, lse = fa.flash_fwd_lse(q, k, v)
         delta = fa.attention_delta(do, o)
         qs = fa.prescaled_q(q)  # as the backward forms it, once for K5 and K6
-        dq, delta_k = fa.flash_bwd_dq(q, k, v, do, o, lse, qs=qs)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, qs=qs)
+        dq, delta_k = fa.flash_bwd_dq(q, k, v, do, o, lse, qs)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, qs)
         torch.cuda.synchronize()
         delta_err = float(((delta_k - delta).abs() / (do.float() * o.float()).abs().sum(-1)).max())
         if not delta_err <= DELTA_RTOL:
@@ -555,10 +555,10 @@ def phase_train_kernels():
             "K4": (cuda_time_ms(lambda: fa.flash_fwd_lse(q, k, v)),
                    cuda_time_ms(lambda: plain_chunked(k4_plain, q, k, v), reps=3, warmup=1),
                    cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))),
-            "K5": (cuda_time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, o, lse, qs=qs)),
+            "K5": (cuda_time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, o, lse, qs)),
                    cuda_time_ms(lambda: plain_chunked(fa.flash_bwd_dq_plain, q, k, v, do, lse, delta),
                                 reps=3, warmup=1), None),
-            "K6": (cuda_time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, qs=qs)),
+            "K6": (cuda_time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, qs)),
                    cuda_time_ms(lambda: plain_chunked(fa.flash_bwd_dkv_plain, q, k, v, do, lse, delta),
                                 reps=3, warmup=1), None),
         }
@@ -569,8 +569,8 @@ def phase_train_kernels():
         # (every kernel of a call); and the port's whole backward through the
         # autograd Function (delta, the pre-scale, K5, K6)
         _, k4_device = device_split(lambda: fa.flash_fwd_lse(q, k, v), "flash_fwd_online_kernel")
-        _, k5_device = device_split(lambda: fa.flash_bwd_dq(q, k, v, do, o, lse, qs=qs), "flash_bwd_dq_kernel")
-        _, k6_device = device_split(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, qs=qs),
+        _, k5_device = device_split(lambda: fa.flash_bwd_dq(q, k, v, do, o, lse, qs), "flash_bwd_dq_kernel")
+        _, k6_device = device_split(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, qs),
                                     "flash_bwd_dkv_kernel")
         lib_device, _ = device_split(lambda: F.scaled_dot_product_attention(q, k, v), "")
         lib_bwd_device, _ = device_split(lambda: torch.autograd.grad(ref, (qr, kr, vr), do, retain_graph=True), "")

@@ -20,9 +20,9 @@
 // TFLOP/s; each of their 5.4e8 logits takes an exp2 on the special-function
 // units (~0.13 ms at 16 a clock per SM, 132 SMs, 1.98 GHz) and two
 // subtractions, a multiplication and two bf16 roundings on the fp32 pipes;
-// their operands are 52 and 63 MB, ~0.02 ms at 3.35 TB/s. As in the
-// forward, the per-logit work sets the pace at D=40 and the products at
-// D=160.
+// their operands are 64 and 63 MB (K5 also reads o and writes delta), ~0.02
+// ms at 3.35 TB/s. As in the forward, the per-logit work sets the pace at
+// D=40 and the products at D=160.
 //
 // Shared design:
 //   * one block of two warpgroups (256 threads); each warpgroup owns 64 rows
@@ -132,24 +132,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], __nv_bfloa
       *reinterpret_cast<uint32_t*>(base + (long long)r_hi * sl + col) =
           pack_bf16x2(acc[dt * 4 + 2] * mul, acc[dt * 4 + 3] * mul);
   }
-}
-
-// The 5-D map (8 elements, L, D/8 chunks, H, B) of a [B, H, L, D] view with
-// element strides (sb, sh, sl), cut in boxes of (8, rows, D/8, 1, 1); rows
-// past L read as zeros.
-template <int D>
-cudaError_t bhld_map(CUtensorMap* map, const void* base, int B, int H, int L, long long sb, long long sh,
-                     long long sl, int rows) {
-  const auto encode = tensor_map_encoder();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[5] = {8, (cuuint64_t)L, D / 8, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[4] = {(cuuint64_t)sl * 2, 16, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[5] = {8, (cuuint32_t)rows, D / 8, 1, 1};
-  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // The 1-D map of n contiguous fp32 values, cut in boxes of `rows`: the

@@ -326,23 +326,6 @@ __global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
                              m0 + (tid / 32) * 16 + lane / 4, Lq, lane & 3);
 }
 
-// The 5-D map (8 elements, L, D/8 chunks, H, B) of a [B, H, L, D] view with
-// element strides (sb, sh, sl), cut in boxes of (8, BLOCK_N, D/8, 1, 1).
-template <int D>
-cudaError_t tile_map(CUtensorMap* map, const void* base, int B, int H, int L, long long sb, long long sh,
-                     long long sl) {
-  const auto encode = tensor_map_encoder();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[5] = {8, (cuuint64_t)L, D / 8, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[4] = {(cuuint64_t)sl * 2, 16, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[5] = {8, BLOCK_N, D / 8, 1, 1};
-  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D, bool WRITE_LSE>
 cudaError_t launch_online(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Lq,
                           int Lk, const long long* st, float q_scale, cudaStream_t stream) {
@@ -350,8 +333,8 @@ cudaError_t launch_online(const void* q, const void* k, const void* v, void* o, 
   static bool ready[MAX_DEVICES];
   cudaError_t err = prepare(flash_fwd_online_kernel<D, WRITE_LSE>, C::SMEM, ready);
   CUtensorMap mk, mv;
-  if (err == cudaSuccess) err = tile_map<D>(&mk, k, B, H, Lk, st[3], st[4], st[5]);
-  if (err == cudaSuccess) err = tile_map<D>(&mv, v, B, H, Lk, st[6], st[7], st[8]);
+  if (err == cudaSuccess) err = bhld_map<D>(&mk, k, B, H, Lk, st[3], st[4], st[5], BLOCK_N);
+  if (err == cudaSuccess) err = bhld_map<D>(&mv, v, B, H, Lk, st[6], st[7], st[8], BLOCK_N);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + BLOCK_M - 1) / BLOCK_M, B * H);
   flash_fwd_online_kernel<D, WRITE_LSE><<<grid, NUM_THREADS, C::SMEM, stream>>>(

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the warpgroup kernels: shared-memory
 // matrix descriptors, wgmma issue and synchronisation, mbarriers and TMA
 // tile copies, and the async-proxy fence that makes generic shared-memory
-// writes visible to wgmma; on the host, the tensor-map encoder and
-// `prepare`, which sets a kernel's attributes once per card.
+// writes visible to wgmma; on the host, the tensor-map encoder, the tile
+// map of a strided [B, H, L, D] view, and `prepare`, which sets a kernel's
+// attributes once per card.
 //
 // Every operand tile here uses wgmma's no-swizzle ("interleave") canonical
 // layout, built from core matrices of 8 rows x 16 bytes (8 bf16) stored as
@@ -316,7 +317,8 @@ __device__ __forceinline__ void wgmma_pv<160>(float (&d)[80], const uint32_t (&a
   wgmma_m64n160k16_rs_tb(d, a, desc_b);
 }
 
-// Host side: the tensor-map encoder and the kernels' attributes.
+// Host side: the tensor-map encoder, the 5-D tile map of a [B, H, L, D]
+// view, and the kernels' attributes.
 
 // cuTensorMapEncodeTiled from the driver, through the runtime: the library
 // links no -lcuda.
@@ -330,6 +332,24 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
     return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
   }();
   return fn;
+}
+
+// The 5-D map (8 elements, L, D/8 chunks, H, B) of a [B, H, L, D] view with
+// element strides (sb, sh, sl), cut in boxes of (8, rows, D/8, 1, 1); rows
+// past L read as zeros.
+template <int D>
+cudaError_t bhld_map(CUtensorMap* map, const void* base, int B, int H, int L, long long sb, long long sh,
+                     long long sl, int rows) {
+  const auto encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[5] = {8, (cuuint64_t)L, D / 8, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {(cuuint64_t)sl * 2, 16, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[5] = {8, (cuuint32_t)rows, D / 8, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 constexpr int MAX_DEVICES = 64;

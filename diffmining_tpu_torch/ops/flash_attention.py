@@ -451,20 +451,17 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     return out, lse
 
 
-def flash_bwd_dq(
-    q, k, v, g, o, lse, scale: float | None = None, qs: torch.Tensor | None = None
-) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_bwd_dq(q, k, v, g, o, lse, qs, scale: float | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: (dq [B,H,Lq,D], delta [B,H,Lq] float32) from dO ``g`` and the
     forward's ``o`` and ``lse``: the kernel forms delta = Σ dO·o of its rows
     itself (``attention_delta``'s arithmetic) and returns it for K6. It
-    reads the pre-scaled ``qs`` (``prescaled_q``; formed here if not given).
-    CPU tensors take ``attention_delta`` and ``flash_bwd_dq_plain``;
-    ``flash_bwd_dq.launches`` counts launches."""
+    reads ``qs = prescaled_q(q, scale)`` in place of q. CPU tensors take
+    ``attention_delta`` and ``flash_bwd_dq_plain``, which pre-scales q
+    itself; ``flash_bwd_dq.launches`` counts launches."""
     if q.device.type == "cpu":
         delta = attention_delta(g, o)
         return flash_bwd_dq_plain(q, k, v, g, lse, delta, scale), delta
     scale = _scale(q, scale)
-    qs = prescaled_q(q, scale) if qs is None else qs
     _check("flash_bwd_dq", q, k, v, g, o, qs)
     _check_rows("flash_bwd_dq", q, lse)
     b, h, lq, d = q.shape
@@ -477,16 +474,13 @@ def flash_bwd_dq(
     return dq, delta
 
 
-def flash_bwd_dkv(
-    q, k, v, g, lse, delta, scale: float | None = None, qs: torch.Tensor | None = None
-) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_bwd_dkv(q, k, v, g, lse, delta, qs, scale: float | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6: (dk, dv) [B,H,Lk,D] from dO ``g``, the forward's ``lse`` and
-    ``delta``. The kernel reads the pre-scaled ``qs`` (``prescaled_q``;
-    formed here if not given). CPU tensors take ``flash_bwd_dkv_plain``;
+    ``delta``. The kernel reads ``qs = prescaled_q(q, scale)`` in place of
+    q. CPU tensors take ``flash_bwd_dkv_plain``, which pre-scales q itself;
     ``flash_bwd_dkv.launches`` counts launches."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, g, lse, delta, scale)
-    qs = prescaled_q(q, scale) if qs is None else qs
     _check("flash_bwd_dkv", q, k, v, g, qs)
     _check_rows("flash_bwd_dkv", q, lse, delta)
     b, h, lq, d = q.shape
@@ -521,9 +515,9 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if g.is_cuda and not _aligned(g):
             g = g.contiguous()
-        qs = prescaled_q(q, ctx.scale) if q.is_cuda else None  # the plain versions form their own
-        dq, delta = flash_bwd_dq(q, k, v, g, o, lse, ctx.scale, qs)
-        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.scale, qs)
+        qs = prescaled_q(q, ctx.scale)
+        dq, delta = flash_bwd_dq(q, k, v, g, o, lse, qs, ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, qs, ctx.scale)
         return dq, dk, dv, None
 
 

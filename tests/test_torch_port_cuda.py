@@ -93,10 +93,11 @@ def test_training_kernels_match_plain_on_card(b, h, l, d):
     assert _over_tolerance(o, o_plain) <= 1.0
     torch.testing.assert_close(lse, lse_plain, rtol=1e-4, atol=1e-4)
     delta = pfa.attention_delta(g, o)
-    dq, delta_k = pfa.flash_bwd_dq(q, k, v, g, o, lse)
+    qs = pfa.prescaled_q(q)
+    dq, delta_k = pfa.flash_bwd_dq(q, k, v, g, o, lse, qs)
     assert _over_tolerance(dq, pfa.flash_bwd_dq_plain(q, k, v, g, lse, delta), BWD_RTOL) <= 1.0
     assert _delta_over_tolerance(delta_k, g, o) <= 1.0
-    dk, dv = pfa.flash_bwd_dkv(q, k, v, g, lse, delta)
+    dk, dv = pfa.flash_bwd_dkv(q, k, v, g, lse, delta, qs)
     dk_plain, dv_plain = pfa.flash_bwd_dkv_plain(q, k, v, g, lse, delta)
     assert _over_tolerance(dk, dk_plain, BWD_RTOL) <= 1.0 and _over_tolerance(dv, dv_plain, BWD_RTOL) <= 1.0
 
@@ -110,8 +111,7 @@ def test_backward_kernels_match_plain_on_ragged_lengths_on_card(lq, lk, d):
     partial tile of q rows, of keys or of both, on the UNet's [B, L, H*D]
     views, with the pre-scaled q that the backward forms once for both:
     within the two-ulp bound of their plain versions, and K5's delta within
-    its bound of attention_delta. Forming qs inside the wrapper gives the
-    same result."""
+    its bound of attention_delta."""
     _needs_gpu()
     q, g = _operands(2, 8, lq, d, 2, seed=lq)
     k, v = _operands(2, 8, lk, d, 2, seed=lk + 1)
@@ -119,15 +119,13 @@ def test_backward_kernels_match_plain_on_ragged_lengths_on_card(lq, lk, d):
     delta = pfa.attention_delta(g, o)
     qs = pfa.prescaled_q(q)
     assert qs.stride() == q.stride()
-    dq, delta_k = pfa.flash_bwd_dq(q, k, v, g, o, lse, qs=qs)
-    dk, dv = pfa.flash_bwd_dkv(q, k, v, g, lse, delta, qs=qs)
+    dq, delta_k = pfa.flash_bwd_dq(q, k, v, g, o, lse, qs)
+    dk, dv = pfa.flash_bwd_dkv(q, k, v, g, lse, delta, qs)
     assert delta_k.shape == delta.shape and _delta_over_tolerance(delta_k, g, o) <= 1.0
     dk_plain, dv_plain = pfa.flash_bwd_dkv_plain(q, k, v, g, lse, delta)
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
     assert _over_tolerance(dq, pfa.flash_bwd_dq_plain(q, k, v, g, lse, delta), BWD_RTOL) <= 1.0
     assert _over_tolerance(dk, dk_plain, BWD_RTOL) <= 1.0 and _over_tolerance(dv, dv_plain, BWD_RTOL) <= 1.0
-    assert all(torch.equal(a, b_) for a, b_ in zip(pfa.flash_bwd_dq(q, k, v, g, o, lse), (dq, delta_k)))
-    assert all(torch.equal(a, b_) for a, b_ in zip(pfa.flash_bwd_dkv(q, k, v, g, lse, delta), (dk, dv)))
 
 
 @pytest.mark.cuda
@@ -151,8 +149,9 @@ def test_backward_with_a_non_contiguous_dO_on_card():
         delta = pfa.attention_delta(gc, o)
         want = (pfa.flash_bwd_dq_plain(q, k, v, gc, lse, delta), *pfa.flash_bwd_dkv_plain(q, k, v, gc, lse, delta))
         if g is g_view:
-            dq, delta_k = pfa.flash_bwd_dq(q, k, v, g, o, lse)
-            got = (dq, *pfa.flash_bwd_dkv(q, k, v, g, lse, delta_k))
+            qs = pfa.prescaled_q(q)
+            dq, delta_k = pfa.flash_bwd_dq(q, k, v, g, o, lse, qs)
+            got = (dq, *pfa.flash_bwd_dkv(q, k, v, g, lse, delta_k, qs))
         else:
             got = torch.autograd.grad(pfa.flash_attention(q, k, v), leaves, g)
         assert all(_over_tolerance(a, w, BWD_RTOL) <= 1.0 for a, w in zip(got, want))
