@@ -11,16 +11,19 @@ back to the CPU):
      started together; ptxas registers and spills of each instantiation;
      the HGMMA (wgmma) instructions in the SASS of K3-K6's libraries;
   3. kernels: the no-max forward (typicality) against its plain PyTorch
-     version at the sweep's shapes, a masked key tail and the underflow
+     version at the sweep's shapes, masked key tails and the underflow
      edge; CUDA-event times of the kernel, the plain version and one PyTorch
-     library call (a yardstick only), the least time the card could take,
+     library call (a yardstick only), the kernel's and the library call's
+     device times (torch.profiler), the least time the card could take,
      and beside it the exp2 work alone on the special-function units;
   4. slice: SD-v1.5 widths (UNet, VAE, CLIP ViT-L text) with random weights
      from a seed, bf16; make_submission + compute_submission over 2 labels x
      8 synthetic 512x512 images; every artifact checked; kernel launches
      counted over that run; one UNet pass in bf16 with the kernel held
-     against the same pass in float32 through the plain attention; imgs/hr
-     of that run and of one warm group of 8 images at N=100;
+     against the same pass in float32 through the plain attention; that
+     pass's device busy time and the no-max kernel's share of it
+     (torch.profiler); imgs/hr of that run and of one warm group of 8
+     images at N=100;
   5. training kernels: K4 (flash forward with logsumexp), K5 (dq, and
      delta, held to attention_delta) and K6 (dk/dv) against their plain
      versions at the trainer's shapes (B4 H8
@@ -184,9 +187,10 @@ def attention_bound(b, h, lq, lk, d):
     return bound, ("bytes" if bound == t_bytes else "operations"), exp2_ms(logits)
 
 
-def device_split(fn, name_part):
+def device_split(fn, name_part, launches=1):
     """Device time of ``fn`` from a torch.profiler trace: (all its kernels a
-    call, one launch of the kernel whose name holds ``name_part``) in ms.
+    call, one launch of the kernel whose name holds ``name_part``) in ms;
+    ``launches`` is how many times a call launches that kernel.
     Beside the CUDA-event time it shows how much of a call the device is
     busy, and how much of that is the named kernel. The trace runs
     TRACE_PAD calls before and after the TRACE_CALLS it reads, with a spin
@@ -196,8 +200,8 @@ def device_split(fn, name_part):
     the train phase, every call's in the first trace of a process), and its
     device clock can sit over 1 ms off its host clock, so a host-side range
     cannot mark the calls. A trace that does not hold both spins, one
-    launch of the named kernel a call read and a kernel count that is a
-    multiple of TRACE_CALLS is logged and taken again."""
+    launch of the named kernel a call read per launch a call and a kernel
+    count that is a multiple of TRACE_CALLS is logged and taken again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -219,10 +223,10 @@ def device_split(fn, name_part):
         spins = [i for i, e in enumerate(kernels) if "spin_kernel" in e.name]
         read = kernels[spins[0] + 1:spins[1]] if len(spins) == 2 else []
         named = [e.device_time_total for e in read if name_part in e.name]
-        if read and len(read) % TRACE_CALLS == 0 and (not name_part or len(named) == TRACE_CALLS):
+        if read and len(read) % TRACE_CALLS == 0 and (not name_part or len(named) == launches * TRACE_CALLS):
             return sum(e.device_time_total for e in read) / TRACE_CALLS / 1e3, sum(named) / len(named) / 1e3
         log(f"  (a trace holds {len(spins)} of 2 spins and {len(named)} launches of {name_part or 'any kernel'} "
-            f"between them for {TRACE_CALLS} calls; tracing again)")
+            f"between them for {TRACE_CALLS} calls of {launches}; tracing again)")
     raise AssertionError(f"{TRACE_ATTEMPTS} traces miss launches of {name_part or 'any kernel'} in the calls read")
 
 
@@ -336,6 +340,7 @@ def phase_build():
 
 def phase_kernels():
     import torch
+    import torch.nn.functional as F
 
     from diffmining_tpu_torch.ops.flash_attention import flash_attention_nomax_plain, flash_fwd_nomax
 
@@ -367,12 +372,16 @@ def phase_kernels():
                                  f"{worst:.3g} x the tolerance)")
         ms = cuda_time_ms(lambda: flash_fwd_nomax(q, k, v))
         plain_ms = cuda_time_ms(lambda: plain_chunked(flash_attention_nomax_plain, q, k, v), reps=3, warmup=1)
-        lib_ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        _, device_ms = device_split(lambda: flash_fwd_nomax(q, k, v), "flash_fwd_nomax_kernel")
+        lib_device, _ = device_split(lambda: F.scaled_dot_product_attention(q, k, v), "")
         bound, by, exp2 = attention_bound(b, h, l, l, d)
         results[name] = dict(shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                             device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             library_device_ms=lib_device, library="sdpa forward", bound_ms=bound, bound_by=by)
         log(f"kernel {name} B{b} H{h} L{l} D{d}: max|err| {max_err:.3g} = {worst:.3g} x tolerance "
-            f"ms {ms:.4f}  plain {plain_ms:.3f}  sdpa {lib_ms:.4f}  bound {bound:.4f} ({by})  exp2 {exp2:.4f}")
+            f"ms {ms:.4f}  device {device_ms:.4f}  plain {plain_ms:.3f}  sdpa {lib_ms:.4f} (device {lib_device:.4f})  "
+            f"bound {bound:.4f} ({by})  exp2 {exp2:.4f}")
         del q, k, v, got, want
         torch.cuda.empty_cache()
 
@@ -466,6 +475,8 @@ def phase_slice(smi):
         if flash_fwd_nomax.launches - before != 10:
             raise AssertionError("the bf16 UNet pass did not launch the kernel 10 times")
         pass_ms = cuda_time_ms(lambda: sd.unet(x, t, ctx, ctx_tile=2), reps=5, warmup=1)
+        # these launches are not the main path's: its counts were read above
+        busy_ms, k1_ms = device_split(lambda: sd.unet(x, t, ctx, ctx_tile=2), "flash_fwd_nomax_kernel", launches=10)
         # the float32 reference: the kernel is bf16 only, so this pass (and
         # only this one) swaps the UNet's attention for the plain softmax
         unet_mod.sdpa = sdpa_plain
@@ -479,7 +490,8 @@ def phase_slice(smi):
         raise AssertionError(f"UNet pass: bf16+kernel vs float32 plain relative L2 error {rel}")
     log(f"slice: UNet pass (B={batch_images}x2, 512px) bf16+kernel vs float32+plain attention: "
         f"relative L2 error {rel:.4g} (limit {UNET_REL_L2}: bf16 rounding through the whole UNet)")
-    log(f"slice: one UNet pass (batch {batch_images * 2}, dedup) {pass_ms:.2f} ms")
+    log(f"slice: one UNet pass (batch {batch_images * 2}, dedup) {pass_ms:.2f} ms; device busy {busy_ms:.2f} ms, "
+        f"of which flash_fwd_nomax {10 * k1_ms:.2f} ms ({10 * k1_ms / busy_ms:.1%}; 10 launches)")
 
     # the product setting, N=100, on one warm group of 8 images
     d100 = D(sd, os.path.join(work, "n100"), "ftt", N=100, t_min=0.1, t_max=0.9,
@@ -495,7 +507,8 @@ def phase_slice(smi):
     imgs_hr_100 = batch_images / dt100 * 3600.0
     log(f"slice: N=100 sweep of {batch_images} images in {dt100:.2f} s = {imgs_hr_100:.1f} imgs/hr on {smi}")
     shutil.rmtree(work, ignore_errors=True)
-    return launches, imgs_hr, imgs_hr_100, pass_ms
+    return launches, imgs_hr, imgs_hr_100, dict(unet_pass_ms=pass_ms, unet_pass_busy_ms=busy_ms,
+                                                 unet_pass_k1_ms=10 * k1_ms)
 
 
 def phase_train_kernels():
@@ -1148,7 +1161,7 @@ def main() -> int:
     smi = phase_environment()
     phase_build()
     kern = phase_kernels()
-    launches, imgs_hr, imgs_hr_100, pass_ms = phase_slice(smi)
+    launches, imgs_hr, imgs_hr_100, unet_pass = phase_slice(smi)
     torch.cuda.empty_cache()
     train_kern = phase_train_kernels()
     train = phase_train(smi)
@@ -1164,8 +1177,8 @@ def main() -> int:
     for kind, (name, source, replaces, main_case) in INFERENCE_KERNELS.items():
         entries.append(kernel_entry(name, source, replaces, mining["runs"]["modes"]["launches"][name],
                                     infer_kern[kind], main_case))
-    print(json.dumps({"slice": {"imgs_per_hr_n4": imgs_hr, "imgs_per_hr_n100": imgs_hr_100,
-                                "unet_pass_ms": pass_ms, "card": smi}}))
+    print(json.dumps({"slice": {"imgs_per_hr_n4": imgs_hr, "imgs_per_hr_n100": imgs_hr_100, **unet_pass,
+                                "card": smi}}))
     print(json.dumps({"train": train}))
     print(json.dumps({"mining": mining}))
     print(json.dumps({"kernels": entries}))
