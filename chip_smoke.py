@@ -9,7 +9,7 @@ back to the CPU):
      the float32 references;
   2. build: compile every kernel source in this checkout, one nvcc each, all
      started together; ptxas registers and spills of each instantiation;
-     the HGMMA (wgmma) instructions in the SASS of K3-K6's libraries;
+     the HGMMA (wgmma) instructions in the SASS of K1-K6's libraries;
   3. kernels: the no-max forward (typicality) against its plain PyTorch
      version at the sweep's shapes, masked key tails and the underflow
      edge; CUDA-event times of the kernel, the plain version and one PyTorch
@@ -326,10 +326,10 @@ def phase_build():
         log(f"  ptxas {name}: registers per thread of the instantiations: {', '.join(regs)}; "
             f"spills: {spills or 'none'}" + (f"; warnings: {warnings}" if warnings else ""))
         fa._library(name)
-    # the online-softmax forward (K3, K4) and the backward (K5, K6) issue
-    # wgmma: the SASS shows HGMMA
+    # the forwards (K1-K4) and the backward (K5, K6) issue wgmma: the SASS
+    # shows HGMMA
     cuobjdump = os.path.join(os.path.dirname(fa._nvcc()), "cuobjdump")
-    for name in ("flash_fwd_online", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd_nomax", "flash_fwd_online", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"):
         sass = subprocess.run([cuobjdump, "-sass", str(fa._library_path(name))], capture_output=True, text=True,
                               check=True).stdout
         hgmma = [line.strip() for line in sass.splitlines() if "HGMMA" in line]
