@@ -360,16 +360,16 @@ def phase_kernels():
         ("masked tail L1000 D40", (2, 8, 1000, 40)),
         ("masked tail L1100 D160", (2, 8, 1100, 160)),
     ]
-    results = {}
+    results, failed = {}, []
     for name, (b, h, l, d) in cases:
         q, k, v = qkv(b, h, l, d)
         got = flash_fwd_nomax(q, k, v)
         torch.cuda.synchronize()
         want = plain_chunked(flash_attention_nomax_plain, q, k, v)
         max_err, worst = kernel_error(got, want)
-        if worst > 1.0 or not torch.isfinite(got).all():
-            raise AssertionError(f"{name}: kernel disagrees with the plain version (max abs err {max_err}, "
-                                 f"{worst:.3g} x the tolerance)")
+        if worst > 1.0 or not torch.isfinite(got).all():  # timed all the same; the phase fails at its end
+            failed.append(f"{name}: kernel disagrees with the plain version (max abs err {max_err}, "
+                          f"{worst:.3g} x the tolerance)")
         ms = cuda_time_ms(lambda: flash_fwd_nomax(q, k, v))
         plain_ms = cuda_time_ms(lambda: plain_chunked(flash_attention_nomax_plain, q, k, v), reps=3, warmup=1)
         lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
@@ -384,6 +384,8 @@ def phase_kernels():
             f"bound {bound:.4f} ({by})  exp2 {exp2:.4f}")
         del q, k, v, got, want
         torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
 
     # the designed underflow edge: every natural logit -95 -> p = 0 -> zeros
     d, l = 40, 1024
