@@ -79,16 +79,6 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
-// Named barriers (bar.sync / bar.arrive) over `threads` threads of the
-// block, a multiple of 32: a sync waits for the barrier's count, an arrive
-// adds to it without waiting.
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // mbarriers and TMA. A full barrier of a stage counts one arrival (the
 // thread that issues the stage's copies, with the bytes it expects) and
 // completes when those bytes have landed; waits go by phase parity.
