@@ -27,22 +27,23 @@
 // 0.35 ms at the dense bf16 rate of 989 TFLOP/s (0.38 ms with q and k
 // padded 40 -> 48); one exp2 a logit on the special-function units, 16 a
 // clock per SM, is 0.51 ms; q, k, v and o are 168 MB, 0.05 ms at 3.35 TB/s.
-// So at D=40 the exp2 unit is the floor, above the tensor bound; at D=80
-// and D=160 the products are. The no-max arithmetic already does the least
-// exp2 work there is (one a logit: no max, subtract or rescale); the design
-// runs the products at the wgmma rate under it and moves a share of the
-// exp2 onto the FMA pipes.
+// On paper the exp2 unit is the floor at D=40 and the products at D=80 and
+// D=160. Measured, the two-warpgroup loop took 1.14 ms there with or
+// without its exp2, and with or without its products, and 0.87 ms when the
+// TMA unit brought K alone: the time went with the K/V tiles brought from
+// L2 (20 KB a 128-key tile, cut into 16-byte rows), not with the
+// arithmetic. Taking a share of the exp2 onto the FMA pipes lost time.
 //
 // Design: the online forward's kernel (flash_fwd_online.cuh) in its no-max
 // mode, which drops the running max, its quad shuffles, alpha and the
-// rescale: two warpgroups a 128-row q tile; K and V in 128-key tiles
-// through a TMA ring cut by 5-D tensor maps of the strided [B, L, H*D]
-// views (no copy); S by wgmma m64n128k16; p rounded to bf16 in registers as
-// the A operand of the wgmma P.V; l summed from the rounded p; masking
-// only on the ragged last tile; the kernel's attributes set once per card.
-// At D=40, EX2_FMA_BLOCKS of the 16 8-column blocks of each tile's S take
-// their exp2 on the FMA pipes (2^round(x) into the exponent bits times a
-// degree-4 polynomial of the rest; ex2_fma), the others on ex2.approx.ftz.
+// rescale; K and V in 128-key tiles through a TMA ring cut by 5-D tensor
+// maps of the strided [B, L, H*D] views (no copy); S by wgmma m64n128k16;
+// p rounded to bf16 in registers as the A operand of the wgmma P.V; l
+// summed from the rounded p; masking only on the ragged last tile; the
+// kernel's attributes set once per card. To bring each K/V tile to more q
+// rows, a block runs four warpgroups (256 q rows) at D=40, three (192) at
+// D=80, one block an SM with a ring of six and four tiles; D=160 runs two,
+// as the online forward does.
 
 #include "flash_fwd_online.cuh"
 

@@ -178,6 +178,41 @@ def test_dispatch_under_grad_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("lq,lk", [(200, 300), (1000, 1000), (4096, 4096)])
+def test_nomax_kernel_matches_plain_on_ragged_lengths_on_card(lq, lk, d):
+    """K1/K2 at lengths that are no multiple of its q block (256, 192 or 128
+    rows at D=40, 80, 160) or of its 128-key tile, and with Lq != Lk, on the
+    UNet's [B, L, H*D] views, against the plain version at the one-ulp
+    bound."""
+    _needs_gpu()
+    (q,) = _operands(2, 8, lq, d, 1, seed=4)
+    k, v = _operands(2, 8, lk, d, 2, seed=5)
+    got = pfa.flash_fwd_nomax(q, k, v)
+    assert got.shape == q.shape
+    assert _over_tolerance(got, pfa.flash_attention_nomax_plain(q, k, v)) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_nomax_kernel_reads_a_fused_qkv_view_on_card(d):
+    """q, k and v as slices of one [B, L, 3*H*D] projection, viewed as
+    [B, H, L, D] (rows 3*H*D apart, not contiguous), as a fused QKV
+    projection hands them over: the kernel reads them in place and agrees
+    with the plain version on contiguous copies."""
+    _needs_gpu()
+    b, h, l = 2, 8, 1000
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    qkv = torch.randn(b, l, 3 * h * d, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d).transpose(1, 2) for i in range(3))
+    assert not q.is_contiguous() and q.stride(2) == 3 * h * d
+    got = pfa.flash_fwd_nomax(q, k, v)
+    want = pfa.flash_attention_nomax_plain(q.contiguous(), k.contiguous(), v.contiguous())
+    assert _over_tolerance(got, want) <= 1.0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,h,l,d", [(2, 8, 4096, 40), (2, 8, 1100, 160)])
 def test_online_kernel_matches_plain_on_card(b, h, l, d):
     """K3 against its plain version at the kernel's own key tiles: a main

@@ -11,17 +11,8 @@ at a 128-key block in interpret mode, in float32 at rtol 1e-5 (summation
 order only), for head dims 40, 80 and 160 with a q tail and a masked key
 tail; in bf16 it equals the plain version to one bf16 ulp. A row whose
 natural logits all lie below -87 gives zeros in all three.
-
-The kernel computes a share of its exp2 at head dim 40 on the FMA pipes
-(``ex2_fma`` in ``csrc/flash_fwd_online.cuh``): 2^round(x) added into the
-exponent bits times a degree-5 polynomial of the rest. A float32 model of
-it, with the coefficients read from the header, holds 2^x within 2^-21
-relative error (as ex2.approx does; far below a bf16 ulp, 2^-8), flushes
-results below 2^-126 to zero as ex2.approx.ftz does, and rounds to the
-same bf16 as the exact 2^x almost everywhere.
 """
 import math
-import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,7 +30,6 @@ TILE = pfa.ONLINE_BLOCK_K  # the kernel's key tile (BLOCK_N in csrc/flash_fwd_on
 # Lq 200: a full 128-row q tile and a tail; Lk 300: two full key tiles and a
 # tail of 44 keys masked in the third
 LQ, LK = 200, 300
-HEADER = pfa.CSRC / "flash_fwd_online.cuh"
 
 
 def _qkv(d, seed):
@@ -118,49 +108,3 @@ def test_underflow_row_is_zeros_by_tiles():
     for got in (_nomax_by_tiles(_t(q), _t(k), _t(v)).numpy(),
                 pfa.flash_attention_nomax_plain(_t(q), _t(k), _t(v)).numpy(), _jax_nomax(q, k, v)):
         assert np.abs(got).max() == 0.0
-
-
-def _header_ex2():
-    """(coefficients c0..c5, the rounding constant) of ex2_fma in the header."""
-    src = HEADER.read_text()
-    coef = {int(i): np.float32(x) for i, x in re.findall(r"EX2_C(\d) = ([0-9.e+-]+)f", src)}
-    magic = np.float32(re.search(r"constexpr float ROUND_MAGIC = ([0-9.]+)f;", src).group(1))
-    return [coef[i] for i in range(6)], magic
-
-
-def _ex2_fma(x):
-    """A float32 model of the kernel's ex2_fma: r = x + magic rounds x to an
-    integer j in its low bits, f = x - (r - magic), 2^f by Horner (each fma
-    exact in float64 before one rounding to float32), and j added into the
-    exponent bits; x < -126 gives 0."""
-    c, magic = _header_ex2()
-    x = np.asarray(x, np.float32)
-    r = (x + magic).astype(np.float32)
-    f = (x - (r - magic).astype(np.float32)).astype(np.float32)
-    p = c[5]
-    for ci in (c[4], c[3], c[2], c[1], c[0]):
-        p = (p.astype(np.float64) * f.astype(np.float64) + np.float64(ci)).astype(np.float32)
-    bits = p.view(np.uint32) + (r.view(np.uint32) << np.uint32(23))
-    return np.where(x < -126.0, np.float32(0), bits.view(np.float32))
-
-
-def test_ex2_fma_is_exp2_far_below_a_bf16_ulp():
-    x = np.concatenate([np.linspace(-126, 64, 2_000_001, dtype=np.float32),
-                        np.random.RandomState(0).uniform(-20, 20, 1_000_000).astype(np.float32)])
-    got = _ex2_fma(x).astype(np.float64)
-    want = np.exp2(x.astype(np.float64))
-    assert np.all(np.isfinite(got)) and np.all(got > 0)
-    assert float(np.max(np.abs(got / want - 1))) < 2.0**-21
-
-
-def test_ex2_fma_flushes_and_rounds_to_bf16_as_exp2():
-    """Below -126 the result is 0, as ex2.approx.ftz flushes a subnormal
-    result (and the mask's -1e30 gives 0); above, bf16(ex2_fma(x)) equals
-    bf16(2^x) for all but a rare x within 2^-21 of a rounding boundary."""
-    assert np.all(_ex2_fma(np.array([-126.5, -127.0, -150.0, -1e30], np.float32)) == 0)
-    edge = float(_ex2_fma(np.array([-126.0], np.float32))[0])  # the least normal result, kept
-    assert abs(edge / 2.0**-126 - 1) < 2.0**-21
-    x = np.random.RandomState(1).randn(1_000_000).astype(np.float32) * 4
-    got = torch.from_numpy(_ex2_fma(x)).to(torch.bfloat16)
-    want = torch.exp2(torch.from_numpy(x).double()).to(torch.bfloat16)
-    assert float((got == want).float().mean()) > 0.9999
