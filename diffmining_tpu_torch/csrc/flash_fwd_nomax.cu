@@ -41,9 +41,9 @@
 // p rounded to bf16 in registers as the A operand of the wgmma P.V; l
 // summed from the rounded p; masking only on the ragged last tile; the
 // kernel's attributes set once per card. To bring each K/V tile to more q
-// rows, a block runs four warpgroups (256 q rows) at D=40, three (192) at
-// D=80, one block an SM with a ring of six and four tiles; D=160 runs two,
-// as the online forward does.
+// rows, a block runs four warpgroups (256 q rows) at D=40 and three (192)
+// at D=80, one block an SM with a ring of three tiles; D=160 runs two, as
+// the online forward does.
 
 #include "flash_fwd_online.cuh"
 
