@@ -1,9 +1,12 @@
-// The online-softmax flash forward shared by flash_fwd_lse.cu (K4, which also
-// writes the per-row logsumexp) and flash_fwd_online.cu (K3, which does not).
-// Written for Hopper (sm_90a): warpgroup wgmma for both products.
+// The flash forward shared by flash_fwd_lse.cu (K4: the online softmax,
+// also writing the per-row logsumexp), flash_fwd_online.cu (K3: the online
+// softmax without it) and flash_fwd_nomax.cu (K1 and K2: exp2 without the
+// running max). Written for Hopper (sm_90a): warpgroup wgmma for both
+// products.
 //
-// Arithmetic, matching the TPU kernels step by step (flash_attention.py:59-87
-// for K4, :215-247 for K3; the two differ only in K4's lse output):
+// Arithmetic of the online softmax, matching the TPU kernels step by step
+// (flash_attention.py:59-87 for K4, :215-247 for K3; the two differ only in
+// K4's lse output):
 //   qs    = bf16(q * bf16(scale*log2e))               (the pre-scale, q's dtype)
 //   s     = qs . k^T in fp32; keys past Lk get -1e30
 //   m_new = max(m, rowmax(s)), alpha = exp2(m - m_new), m starts at -1e30
@@ -18,18 +21,30 @@
 // or two, and exactly with the plain version run at block_k=128 up to
 // summation order.
 //
+// The no-max mode (NOMAX, K1 and K2; flash_attention.py:250-330) drops the
+// max, alpha and the rescale: p = exp2(s), masked keys 0, acc = sum pb . v,
+// l = sum pb. With nothing carried but the sums, the tile size enters no
+// rounding, so the plain version (flash_attention_nomax_plain) has no tile
+// constant. A row whose natural logits are all below about -87 gets p = 0
+// everywhere and outputs zeros: the designed underflow edge of the TPU
+// kernels, kept (exp2 results below 2^-126 flush to zero as on the TPU).
+//
 // What bounds it on an H100 SXM: at B4 H8 L4096 D40 one call is 8.6e10
 // tensor FLOP (QK^T and PV), 0.087 ms at the dense bf16 rate of 989
 // TFLOP/s; each of its 5.4e8 logits takes one exp2 on the special-function
 // units, 16 a clock per SM, ~0.13 ms at 132 SMs and 1.98 GHz, plus a max, a
 // subtract, a conversion and a sum on the fp32 pipes; q, k, v, o and lse are
 // 42 MB, 0.013 ms at 3.35 TB/s. At D=40 the exp2 and fp32 work per logit
-// outweighs the products; at D=160 the products do.
+// outweighs the products; at D=160 the products do. The no-max mode does
+// the least exp2 work there is, one a logit; its measured time went with
+// the K/V tiles the TMA unit brings, not with its exp2 or its products
+// (flash_fwd_nomax.cu), so it brings each tile to more q rows.
 //
 // Design:
 //   * one block of two warpgroups (256 threads) per (batch*head, 128-row q
 //     tile); each warpgroup owns 64 q rows, so K and V are read from L2 once
-//     per 128 q rows;
+//     per 128 q rows. The no-max mode runs four warpgroups a block at D=40
+//     and three at D=80 (256 and 192 q rows, one block an SM);
 //   * q is loaded once with 16-byte loads, pre-scaled in registers and
 //     stored into shared memory; it stays there as wgmma's A operand;
 //   * K and V stream through a ring of NSTAGE 128-key tiles that the TMA
@@ -37,21 +52,22 @@
 //     its bytes). The 5-D tensor maps (8 elements, L, D/8, H, B) take the
 //     views' own strides, so the UNet's [B, L, H*D] projections need no
 //     copy, and cut each tile as [16-byte chunk][key], which is wgmma's
-//     layout for both operands. The last of the 8 warps to finish a stage
-//     refills it: the warpgroups wait only for data, never for each other,
-//     and no block-wide barrier runs in the loop;
+//     layout for both operands. The last of the block's warps to finish a
+//     stage refills it: the warpgroups wait only for data, never for each
+//     other, and no block-wide barrier runs in the loop;
 //   * S = Q.K^T is wgmma m64n128k16 with both operands in shared memory
 //     (K-major); the row max and p are computed in registers in the
 //     accumulator layout (a row is held by the 4 threads of a quad); p is
 //     rounded to bf16 and re-packed in registers as the A operand of
 //     O += P.V, wgmma m64n{D}k16 with V MN-major in shared memory;
+//   * only the ragged last key tile is masked;
 //   * every tile uses wgmma's no-swizzle layout (hopper.cuh), which takes
 //     head dim 40's 80-byte rows; q and k are padded with zeros to a
 //     multiple of 16 along the head dim (40 -> 48) for the k16 steps, and
 //     the pad is written once, since nothing else writes it;
 //   * no producer warpgroup and no setmaxnreg: at D=40 two blocks of 256
-//     threads share an SM at 128 registers a thread, which a third
-//     warpgroup would not leave room for.
+//     threads (the no-max mode: one of 512) share an SM at 128 registers a
+//     thread, which another warpgroup would not leave room for.
 // Layout: q, k, v, o are [B, H, L, D] with arbitrary 16-byte-aligned
 // element strides for B, H and L (head dim contiguous); lse is a contiguous
 // [B, H, Lq] fp32 tensor.
@@ -68,19 +84,25 @@ namespace {
 using namespace flash;
 using namespace hopper;
 
-constexpr int BLOCK_M = 128;  // q rows a block: two warpgroups of 64
 constexpr int BLOCK_N = 128;  // keys a tile (ONLINE_BLOCK_K in ops/flash_attention.py)
-constexpr int NUM_THREADS = 256;
 
-template <int D>
+template <int D, bool NOMAX>
 struct OnlineCfg {
   static constexpr int DP = (D + 15) / 16 * 16;  // head dim padded to the k16 step
   static constexpr int CH = D / 8;               // 16-byte chunks of a row in device memory
   static constexpr int DPC = DP / 8;             // ... of a padded q or k row in shared memory
-  // D=40: 78 KB of shared memory and 128 registers a thread, two blocks an
-  // SM; D=80 and D=160 take more registers and run one
-  static constexpr int NSTAGE = D == 40 ? 3 : 2;
-  static constexpr int MIN_BLOCKS = D == 40 ? 2 : 1;
+  // The online softmax: two warpgroups a block; D=40 at 78 KB of shared
+  // memory and 128 registers a thread runs two blocks an SM, D=80 and D=160
+  // take more registers and run one; rings of three tiles at D=40, two at
+  // D=80 and D=160. The no-max mode brings each K/V tile to more q rows
+  // instead (its time went with the tiles brought): four warpgroups at D=40
+  // (128 registers a thread), three at D=80, one block an SM, each with a
+  // ring of three tiles (rings of 4, 6 and 8 were slower), two at D=160.
+  static constexpr int WARPGROUPS = NOMAX ? (D == 40 ? 4 : D == 80 ? 3 : 2) : 2;
+  static constexpr int BLOCK_M = 64 * WARPGROUPS;  // q rows a block
+  static constexpr int THREADS = 128 * WARPGROUPS;
+  static constexpr int NSTAGE = NOMAX ? (D == 160 ? 2 : 3) : (D == 40 ? 3 : 2);
+  static constexpr int MIN_BLOCKS = !NOMAX && D == 40 ? 2 : 1;
   static constexpr int Q_BYTES = BLOCK_M * DP * 2;
   static constexpr int K_BYTES = BLOCK_N * DP * 2;  // one stage of the ring
   static constexpr int V_BYTES = BLOCK_N * D * 2;
@@ -97,15 +119,15 @@ struct OnlineCfg {
 // q rows [m0, m0 + BLOCK_M) pre-scaled in q's dtype, bf16(q * q_scale), into
 // the K-major tile; rows past Lq and the pad chunk are zeros. In that layout
 // the i-th 16-byte cell of the tile is simply at byte 16 i.
-template <int D>
+template <int D, bool NOMAX>
 __device__ __forceinline__ void load_q_scaled(unsigned char* sq, const __nv_bfloat16* qb, long long q_sl, int m0,
                                               int Lq, float q_scale, int tid) {
-  using C = OnlineCfg<D>;
-  constexpr int TOTAL = BLOCK_M * C::DPC;
+  using C = OnlineCfg<D, NOMAX>;
+  constexpr int TOTAL = C::BLOCK_M * C::DPC;
 #pragma unroll
-  for (int it = 0; it < (TOTAL + NUM_THREADS - 1) / NUM_THREADS; ++it) {
-    const int i = tid + it * NUM_THREADS;
-    if (TOTAL % NUM_THREADS == 0 || i < TOTAL) {
+  for (int it = 0; it < (TOTAL + C::THREADS - 1) / C::THREADS; ++it) {
+    const int i = tid + it * C::THREADS;
+    if (TOTAL % C::THREADS == 0 || i < TOTAL) {
       const int c = (i / 8) % C::DPC;
       const int row = (i / (8 * C::DPC)) * 8 + i % 8;
       uint4 x = make_uint4(0, 0, 0, 0);
@@ -124,14 +146,14 @@ __device__ __forceinline__ void load_q_scaled(unsigned char* sq, const __nv_bflo
 }
 
 // One 128-key tile of the online softmax for this warpgroup's 64 rows:
-// S = Qs . K^T, the mask of keys past Lk, the running max and denominators,
-// p rounded to bf16, O += P . V. Returns once both products have completed,
-// so the tile's stage is free.
-template <int D>
+// S = Qs . K^T, the mask of keys past Lk, the running max and denominators
+// (in the no-max mode none: p = exp2(s)), p rounded to bf16, O += P . V.
+// Returns once both products have completed, so the tile's stage is free.
+template <int D, bool NOMAX>
 __device__ __forceinline__ void online_tile(float (&acc)[D / 2], float& m_lo, float& m_hi, float& l_lo, float& l_hi,
                                             uint64_t desc_q, uint64_t dk, uint64_t dv, int key0, int Lk,
                                             int tig) {
-  using C = OnlineCfg<D>;
+  using C = OnlineCfg<D, NOMAX>;
   constexpr int NT = BLOCK_N / 8;   // 8-column blocks of S
   constexpr int PK = BLOCK_N / 16;  // k16 steps of P.V
   constexpr int QK = C::DP / 16;    // k16 steps of Q.K^T: two 16-byte chunks of q and k each
@@ -154,38 +176,43 @@ __device__ __forceinline__ void online_tile(float (&acc)[D / 2], float& m_lo, fl
         if (key0 + nt * 8 + tig * 2 + (e & 1) >= Lk) s[nt * 4 + e] = NEG_INF;
   }
 
-  // the tile's row max, over the quad that holds the row
-  float mx_lo = m_lo, mx_hi = m_hi;
+  if constexpr (NOMAX) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    mx_lo = fmaxf(mx_lo, fmaxf(s[nt * 4], s[nt * 4 + 1]));
-    mx_hi = fmaxf(mx_hi, fmaxf(s[nt * 4 + 2], s[nt * 4 + 3]));
-  }
-  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-  mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-  mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-  const float alpha_lo = ex2_ftz(m_lo - mx_lo);
-  const float alpha_hi = ex2_ftz(m_hi - mx_hi);
-  m_lo = mx_lo;
-  m_hi = mx_hi;
+    for (int i = 0; i < BLOCK_N / 2; ++i) s[i] = ex2_ftz(s[i]);
+  } else {
+    // the tile's row max, over the quad that holds the row
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nt * 4], s[nt * 4 + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nt * 4 + 2], s[nt * 4 + 3]));
+    }
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+    const float alpha_lo = ex2_ftz(m_lo - mx_lo);
+    const float alpha_hi = ex2_ftz(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
 
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    s[nt * 4] = ex2_ftz(s[nt * 4] - m_lo);
-    s[nt * 4 + 1] = ex2_ftz(s[nt * 4 + 1] - m_lo);
-    s[nt * 4 + 2] = ex2_ftz(s[nt * 4 + 2] - m_hi);
-    s[nt * 4 + 3] = ex2_ftz(s[nt * 4 + 3] - m_hi);
-  }
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt * 4] = ex2_ftz(s[nt * 4] - m_lo);
+      s[nt * 4 + 1] = ex2_ftz(s[nt * 4 + 1] - m_lo);
+      s[nt * 4 + 2] = ex2_ftz(s[nt * 4 + 2] - m_hi);
+      s[nt * 4 + 3] = ex2_ftz(s[nt * 4 + 3] - m_hi);
+    }
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    acc[dt * 4] *= alpha_lo;
-    acc[dt * 4 + 1] *= alpha_lo;
-    acc[dt * 4 + 2] *= alpha_hi;
-    acc[dt * 4 + 3] *= alpha_hi;
+    for (int dt = 0; dt < D / 8; ++dt) {
+      acc[dt * 4] *= alpha_lo;
+      acc[dt * 4 + 1] *= alpha_lo;
+      acc[dt * 4 + 2] *= alpha_hi;
+      acc[dt * 4 + 3] *= alpha_hi;
+    }
+    l_lo *= alpha_lo;
+    l_hi *= alpha_hi;
   }
-  l_lo *= alpha_lo;
-  l_hi *= alpha_hi;
 
   // p rounded to bf16 as P.V's A operand; l sums the ROUNDED p, as the
   // ones column of the TPU kernel's PV product does
@@ -242,17 +269,19 @@ __device__ __forceinline__ void online_store(const float (&acc)[D / 2], float m_
   }
 }
 
-// One block: two warpgroups, 128 q rows of one (batch, head); the key loop
-// inside. The last of the 8 warps done with a stage (counted in shared
-// memory) has the TMA unit refill it, so a warpgroup waits only for its
-// data, never for the other warpgroup.
-template <int D, bool WRITE_LSE>
-__global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
-    flash_fwd_online_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
-                            const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
-                            float* __restrict__ lse, int H, int Lq, int Lk, long long q_sb, long long q_sh,
-                            long long q_sl, long long o_sb, long long o_sh, long long o_sl, float q_scale) {
-  using C = OnlineCfg<D>;
+// One block: WARPGROUPS warpgroups, 64 q rows each, of one (batch, head);
+// the key loop inside. The last of the block's warps done with a stage
+// (counted in shared memory) has the TMA unit refill it, so a warpgroup
+// waits only for its data, never for another warpgroup. The kernels below
+// are this body under their own names (K3/K4's and K1/K2's), so a trace
+// tells them apart.
+template <int D, bool WRITE_LSE, bool NOMAX>
+__device__ __forceinline__ void flash_fwd_block(const CUtensorMap& map_k, const CUtensorMap& map_v,
+                                                const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+                                                float* __restrict__ lse, int H, int Lq, int Lk, long long q_sb,
+                                                long long q_sh, long long q_sl, long long o_sb, long long o_sh,
+                                                long long o_sl, float q_scale) {
+  using C = OnlineCfg<D, NOMAX>;
   constexpr int NS = C::NSTAGE;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* sQ = smem;
@@ -267,7 +296,7 @@ __global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int m0 = blockIdx.x * BLOCK_M;
+  const int m0 = blockIdx.x * C::BLOCK_M;
   const int n_tiles = (Lk + BLOCK_N - 1) / BLOCK_N;
 
   auto fetch = [&](int t) {  // by one thread: tile t into stage t % NS
@@ -285,14 +314,14 @@ __global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
   }
   if constexpr (C::DPC > C::CH) {  // k's zero pad chunks, [CH, DPC) of every stage
     constexpr int PAD = (C::DPC - C::CH) * BLOCK_N;
-    for (int i = tid; i < NS * PAD; i += NUM_THREADS)
+    for (int i = tid; i < NS * PAD; i += C::THREADS)
       *reinterpret_cast<uint4*>(sK + (i / PAD) * C::K_BYTES + C::CH * C::K_LBO + (i % PAD) * 16) =
           make_uint4(0, 0, 0, 0);
   }
   __syncthreads();  // the barriers are initialised
   if (tid == 0)
     for (int t = 0; t < NS && t < n_tiles; ++t) fetch(t);
-  load_q_scaled<D>(sQ, q + b * q_sb + h * q_sh, q_sl, m0, Lq, q_scale, tid);
+  load_q_scaled<D, NOMAX>(sQ, q + b * q_sb + h * q_sh, q_sl, m0, Lq, q_scale, tid);
   fence_proxy_async();  // q and the pad, visible to wgmma
   __syncthreads();
 
@@ -303,19 +332,20 @@ __global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  // running max (base 2; equal across the quad) and partial denominators
-  // (this thread's columns) of rows lane/4 and lane/4 + 8 of the warp's 16
+  // running max (base 2; equal across the quad; unused without the max) and
+  // partial denominators (this thread's columns) of rows lane/4 and
+  // lane/4 + 8 of the warp's 16
   float m_lo = NEG_INF, m_hi = NEG_INF;
   float l_lo = 0.f, l_hi = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
     const int stage = j % NS;
     mbar_wait(&full[stage], (j / NS) & 1);
-    online_tile<D>(acc, m_lo, m_hi, l_lo, l_hi, desc_q, desc_add(desc_k, stage * C::K_BYTES),
-                   desc_add(desc_v, stage * C::V_BYTES), j * BLOCK_N, Lk, lane & 3);
+    online_tile<D, NOMAX>(acc, m_lo, m_hi, l_lo, l_hi, desc_q, desc_add(desc_k, stage * C::K_BYTES),
+                          desc_add(desc_v, stage * C::V_BYTES), j * BLOCK_N, Lk, lane & 3);
     if (lane == 0) {  // this warp's reads of the stage are done
       __threadfence_block();
-      if (atomicAdd(&done[stage], 1) == NUM_THREADS / 32 - 1) {
+      if (atomicAdd(&done[stage], 1) == C::THREADS / 32 - 1) {
         done[stage] = 0;
         __threadfence_block();
         if (j + NS < n_tiles) fetch(j + NS);
@@ -327,30 +357,55 @@ __global__ void __launch_bounds__(NUM_THREADS, OnlineCfg<D>::MIN_BLOCKS)
 }
 
 template <int D, bool WRITE_LSE>
+__global__ void __launch_bounds__(OnlineCfg<D, false>::THREADS, OnlineCfg<D, false>::MIN_BLOCKS)
+    flash_fwd_online_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                            const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int H, int Lq, int Lk, long long q_sb, long long q_sh,
+                            long long q_sl, long long o_sb, long long o_sh, long long o_sl, float q_scale) {
+  flash_fwd_block<D, WRITE_LSE, false>(map_k, map_v, q, o, lse, H, Lq, Lk, q_sb, q_sh, q_sl, o_sb, o_sh, o_sl,
+                                       q_scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(OnlineCfg<D, true>::THREADS, OnlineCfg<D, true>::MIN_BLOCKS)
+    flash_fwd_nomax_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                           const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int H, int Lq, int Lk, long long q_sb, long long q_sh,
+                           long long q_sl, long long o_sb, long long o_sh, long long o_sl, float q_scale) {
+  flash_fwd_block<D, false, true>(map_k, map_v, q, o, lse, H, Lq, Lk, q_sb, q_sh, q_sl, o_sb, o_sh, o_sl, q_scale);
+}
+
+template <int D, bool WRITE_LSE, bool NOMAX>
 cudaError_t launch_online(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Lq,
                           int Lk, const long long* st, float q_scale, cudaStream_t stream) {
-  using C = OnlineCfg<D>;
+  using C = OnlineCfg<D, NOMAX>;
+  const auto kernel = [] {  // only the mode's own kernel is instantiated
+    if constexpr (NOMAX)
+      return flash_fwd_nomax_kernel<D>;
+    else
+      return flash_fwd_online_kernel<D, WRITE_LSE>;
+  }();
   static bool ready[MAX_DEVICES];
-  cudaError_t err = prepare(flash_fwd_online_kernel<D, WRITE_LSE>, C::SMEM, ready);
+  cudaError_t err = prepare(kernel, C::SMEM, ready);
   CUtensorMap mk, mv;
   if (err == cudaSuccess) err = bhld_map<D>(&mk, k, B, H, Lk, st[3], st[4], st[5], BLOCK_N);
   if (err == cudaSuccess) err = bhld_map<D>(&mv, v, B, H, Lk, st[6], st[7], st[8], BLOCK_N);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + BLOCK_M - 1) / BLOCK_M, B * H);
-  flash_fwd_online_kernel<D, WRITE_LSE><<<grid, NUM_THREADS, C::SMEM, stream>>>(
+  const dim3 grid((Lq + C::BLOCK_M - 1) / C::BLOCK_M, B * H);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       mk, mv, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), lse, H, Lq, Lk, st[0], st[1],
       st[2], st[9], st[10], st[11], q_scale);
   return cudaGetLastError();
 }
 
 // D -> its instantiation; cudaErrorInvalidValue for another D.
-template <bool WRITE_LSE>
+template <bool WRITE_LSE, bool NOMAX = false>
 int launch_online_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Lq, int Lk,
                     int D, const long long* st, float q_scale, cudaStream_t s) {
   switch (D) {
-    case 40: return (int)launch_online<40, WRITE_LSE>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
-    case 80: return (int)launch_online<80, WRITE_LSE>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
-    case 160: return (int)launch_online<160, WRITE_LSE>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 40: return (int)launch_online<40, WRITE_LSE, NOMAX>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 80: return (int)launch_online<80, WRITE_LSE, NOMAX>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 160: return (int)launch_online<160, WRITE_LSE, NOMAX>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
