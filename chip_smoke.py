@@ -91,7 +91,8 @@ SM_COUNT = 0
 SM_MAX_MHZ = 0.0
 TRACE_CALLS = 20  # calls device_split reads from a trace
 TRACE_PAD = 5  # calls it traces but does not read, before and after those
-TRACE_ATTEMPTS = 3  # traces it takes before it gives up
+TRACE_ATTEMPTS = 5  # traces it takes before it gives up
+TRACE_SETTLE_S = 0.2  # host wait between starting a trace and the first call it traces
 # kernel vs plain, elementwise: |got - want| <= RTOL |want| + ATOL_RMS rms(want).
 # Both round the same fp32 result to bf16, so they differ by at most one bf16
 # ulp of the element (<= 2^-7 relative) where summation order or ex2.approx
@@ -197,11 +198,14 @@ def device_split(fn, name_part, launches=1):
     kernel (torch.cuda._sleep) on each side of those, and reads the kernels
     between the two spins in the device's own order. A trace can lose the
     records of the first kernels it sees (two calls' in a trace taken after
-    the train phase, every call's in the first trace of a process), and its
-    device clock can sit over 1 ms off its host clock, so a host-side range
-    cannot mark the calls. A trace that does not hold both spins, one
-    launch of the named kernel a call read per launch a call and a kernel
-    count that is a multiple of TRACE_CALLS is logged and taken again."""
+    the train phase, every call's in the first trace of a process, and at
+    times the first spin and all the calls read after the train phase), so
+    each trace waits TRACE_SETTLE_S after it starts before the first call;
+    and its device clock can sit over 1 ms off its host clock, so a
+    host-side range cannot mark the calls. A trace that does not hold both
+    spins, one launch of the named kernel a call read per launch a call and
+    a kernel count that is a multiple of TRACE_CALLS is logged and taken
+    again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -209,6 +213,8 @@ def device_split(fn, name_part, launches=1):
     torch.cuda.synchronize()
     for _ in range(TRACE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(TRACE_SETTLE_S)
             for _ in range(TRACE_PAD):
                 fn()
             torch.cuda._sleep(1000)
@@ -225,8 +231,9 @@ def device_split(fn, name_part, launches=1):
         named = [e.device_time_total for e in read if name_part in e.name]
         if read and len(read) % TRACE_CALLS == 0 and (not name_part or len(named) == launches * TRACE_CALLS):
             return sum(e.device_time_total for e in read) / TRACE_CALLS / 1e3, sum(named) / len(named) / 1e3
-        log(f"  (a trace holds {len(spins)} of 2 spins and {len(named)} launches of {name_part or 'any kernel'} "
-            f"between them for {TRACE_CALLS} calls of {launches}; tracing again)")
+        log(f"  (a trace holds {len(spins)} of 2 spins (at records {spins} of {len(kernels)}) and {len(named)} "
+            f"launches of {name_part or 'any kernel'} between them for {TRACE_CALLS} calls of {launches}; "
+            "tracing again)")
     raise AssertionError(f"{TRACE_ATTEMPTS} traces miss launches of {name_part or 'any kernel'} in the calls read")
 
 
