@@ -9,7 +9,7 @@ back to the CPU):
      the float32 references;
   2. build: compile every kernel source in this checkout, one nvcc each, all
      started together; ptxas registers and spills of each instantiation;
-     the HGMMA (wgmma) instructions in the SASS of K1-K6's libraries;
+     the HGMMA (wgmma) instructions in the SASS of every library;
   3. kernels: the no-max forward (typicality) against its plain PyTorch
      version at the sweep's shapes, masked key tails and the underflow
      edge; CUDA-event times of the kernel, the plain version and one PyTorch
@@ -47,14 +47,16 @@ back to the CPU):
   7. inference-mode kernels: K3 (online-softmax forward, no lse) at B8 H8
      L4096 D40, B8 H8 L1024 D80 and a masked tail at D160, and on the
      underflow edge, where it stays the softmax; K7 (fused GroupNorm ->
-     proj_in) at the four SpatialTransformer entry shapes of a 512px UNet
-     pass at batch 8, an odd pixel count, the SiLU variant and a
-     channels-last input (the layout after a transformer); each against
-     its plain version, with times, the bound and the library yardsticks
-     (scaled_dot_product_attention's forward for K3; F.group_norm plus a
-     1x1 F.conv2d, two calls, for K7); K3 at its own 128-key tiles and also
-     by device time; for K7 the device's busy time in a call and the
-     kernel's own share of it (torch.profiler);
+     proj_in: the statistics kernel, then the normalise + projection
+     kernel) at the four SpatialTransformer entry shapes of a 512px UNet
+     pass at batch 8 in NCHW and channels-last input (the layout after a
+     transformer), odd pixel counts in both layouts, the SiLU variant and
+     data whose mean is large against its spread, its statistics held to
+     group_stats_plain; each against its plain version, with times, the
+     bound and the library yardsticks (scaled_dot_product_attention's
+     forward for K3; F.group_norm plus a 1x1 F.conv2d, two calls, for K7)
+     by events and device time; K3 at its own 128-key tiles; for K7 the
+     device time of each of its two kernels (torch.profiler);
   8. mining: 2 labels x 64 synthetic 512x512 PNGs swept at N=4 through the
      sweep's own decoding, then Cluster.clustering("dift-161") with the CLI
      defaults twice: under the default modes (K1) and, on a freshly built
@@ -135,6 +137,12 @@ DELTA_RTOL = 2.0**-15
 # 2^-6 |want| bound read 1.02x where the bias cancelled (silu N1024 C640,
 # an H100). A kernel that skips one 32-channel chunk of the input is far
 # outside it (tests/test_torch_port_fused_norm.py).
+# K7's statistics against group_stats_plain, which repeats the statistics
+# kernel's order: |mean - plain| <= 2^-21 max|x| and |rsig / plain - 1| <=
+# 2^-17, the bounds the CPU tests hold the plain version to against JAX (the
+# kernel reads 0 and 0 on an H100: the same sums in the same order).
+GN_MEAN_TOL = 2.0**-21
+GN_RSIG_RTOL = 2.0**-17
 # the DIFT feature map of one image under the K3/K7 modes against the same
 # map under the default modes (K1, module-path GroupNorm), both bf16 with
 # the same weights and draws: they differ by bf16 rounding at other places
@@ -188,10 +196,12 @@ def attention_bound(b, h, lq, lk, d):
     return bound, ("bytes" if bound == t_bytes else "operations"), exp2_ms(logits)
 
 
-def device_split(fn, name_part, launches=1):
+def device_split(fn, name_part, launches=1, other=None):
     """Device time of ``fn`` from a torch.profiler trace: (all its kernels a
     call, one launch of the kernel whose name holds ``name_part``) in ms;
-    ``launches`` is how many times a call launches that kernel.
+    ``launches`` is how many times a call launches that kernel. With
+    ``other``, a third value: a call's time in the kernels whose name holds
+    ``other``.
     Beside the CUDA-event time it shows how much of a call the device is
     busy, and how much of that is the named kernel. The trace runs
     TRACE_PAD calls before and after the TRACE_CALLS it reads, with a spin
@@ -230,7 +240,10 @@ def device_split(fn, name_part, launches=1):
         read = kernels[spins[0] + 1:spins[1]] if len(spins) == 2 else []
         named = [e.device_time_total for e in read if name_part in e.name]
         if read and len(read) % TRACE_CALLS == 0 and (not name_part or len(named) == launches * TRACE_CALLS):
-            return sum(e.device_time_total for e in read) / TRACE_CALLS / 1e3, sum(named) / len(named) / 1e3
+            times = sum(e.device_time_total for e in read) / TRACE_CALLS / 1e3, sum(named) / len(named) / 1e3
+            if other is None:
+                return times
+            return (*times, sum(e.device_time_total for e in read if other in e.name) / TRACE_CALLS / 1e3)
         log(f"  (a trace holds {len(spins)} of 2 spins (at records {spins} of {len(kernels)}) and {len(named)} "
             f"launches of {name_part or 'any kernel'} between them for {TRACE_CALLS} calls of {launches}; "
             "tracing again)")
@@ -333,10 +346,9 @@ def phase_build():
         log(f"  ptxas {name}: registers per thread of the instantiations: {', '.join(regs)}; "
             f"spills: {spills or 'none'}" + (f"; warnings: {warnings}" if warnings else ""))
         fa._library(name)
-    # the forwards (K1-K4) and the backward (K5, K6) issue wgmma: the SASS
-    # shows HGMMA
+    # every kernel issues wgmma: the SASS shows HGMMA
     cuobjdump = os.path.join(os.path.dirname(fa._nvcc()), "cuobjdump")
-    for name in ("flash_fwd_nomax", "flash_fwd_online", "flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in fa.SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", str(fa._library_path(name))], capture_output=True, text=True,
                               check=True).stdout
         hgmma = [line.strip() for line in sass.splitlines() if "HGMMA" in line]
@@ -844,14 +856,13 @@ def phase_train(smi):
                 remat_launches=remat_launches, grad_rel_l2=rel, export_s=export_s, profile=profile, card=smi)
 
 
-def phase_inference_kernels():
+def phase_inference_kernels(smi):
     """K3 and K7 against their plain versions at the mining path's shapes,
     with times and bounds. These launches are not the main path's."""
     import torch
     import torch.nn.functional as F
 
     from diffmining_tpu_torch.ops import flash_attention as fa
-    from diffmining_tpu_torch.ops import fused_norm as fn
     from diffmining_tpu_torch.ops.attention import sdpa_plain
 
     dev = torch.device("cuda")
@@ -861,7 +872,7 @@ def phase_inference_kernels():
     def k3_plain(q, k, v):
         return fa.flash_fwd_online_plain(q, k, v, block_k=fa.ONLINE_BLOCK_K)  # the kernel's key tiles
 
-    results = {"K3": {}, "K7": {}}
+    results = {"K3": {}}
     for name, (b, h, l, d) in [("L4096 D40", (8, 8, 4096, 40)), ("L1024 D80", (8, 8, 1024, 80)),
                                ("masked tail L1100 D160", (2, 8, 1100, 160))]:
         q, k, v = [torch.randn(b, l, h * d, generator=g, device=dev).to(torch.bfloat16)
@@ -906,41 +917,82 @@ def phase_inference_kernels():
     log(f"kernel K3 underflow edge (all natural logits -95): the softmax, within {soft_err:.3g} of it; "
         "the no-max kernel gives zeros there (phase 3)")
 
-    cases = [("N4096 C320", (8, 64, 64, 320, "none")), ("N1024 C640", (8, 32, 32, 640, "none")),
-             ("N256 C1280", (8, 16, 16, 1280, "none")), ("N64 C1280", (8, 8, 8, 1280, "none")),
-             ("odd N4095 C320", (8, 63, 65, 320, "none")), ("silu N1024 C640", (8, 32, 32, 640, "silu")),
-             ("channels-last N1024 C640", (8, 32, 32, 640, "none"))]
-    for name, (b, hh, ww, c, act) in cases:
-        x = (torch.randn(b, c, hh, ww, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
-        if name.startswith("channels-last"):  # as the UNet hands it after a transformer's proj_out
+    results["K7"] = phase_fused_norm(smi)
+    return results
+
+
+def phase_fused_norm(smi):
+    """K7 (the statistics kernel, then the normalise + projection kernel)
+    against its plain version at the mining path's shapes, with the
+    statistics checked, device times of both kernels, the bound and the
+    library pair by events and device time."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffmining_tpu_torch.ops import fused_norm as fn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 8)
+    results = {}
+    # the four SpatialTransformer entries of a 512px pass at batch 8 (the
+    # first of a level takes NCHW x, the ones after a transformer's proj_out
+    # channels-last x), odd pixel counts in both layouts (element loads for
+    # NCHW x), the SiLU variant, and data whose mean is large against its
+    # spread
+    cases = [("N4096 C320", (8, 64, 64, 320, "none", "nchw", 0.5)),
+             ("N1024 C640", (8, 32, 32, 640, "none", "nchw", 0.5)),
+             ("N256 C1280", (8, 16, 16, 1280, "none", "nchw", 0.5)),
+             ("N64 C1280", (8, 8, 8, 1280, "none", "nchw", 0.5)),
+             ("channels-last N4096 C320", (8, 64, 64, 320, "none", "channels_last", 0.5)),
+             ("channels-last N1024 C640", (8, 32, 32, 640, "none", "channels_last", 0.5)),
+             ("odd N4095 C320", (8, 63, 65, 320, "none", "nchw", 0.5)),
+             ("channels-last odd N4095 C320", (8, 63, 65, 320, "none", "channels_last", 0.5)),
+             ("silu N1024 C640", (8, 32, 32, 640, "silu", "nchw", 0.5)),
+             ("silu N64 C1280", (8, 8, 8, 1280, "silu", "nchw", 0.5)),
+             ("large-mean N1024 C640", (8, 32, 32, 640, "none", "nchw", 300.0))]
+    for name, (b, hh, ww, c, act, layout, mean0) in cases:
+        x = (torch.randn(b, c, hh, ww, generator=g, device=dev) * (1 if mean0 > 1 else 2) + mean0).to(torch.bfloat16)
+        if layout == "channels_last":  # as the UNet hands it after a transformer's proj_out
             x = x.contiguous(memory_format=torch.channels_last)
         gamma, beta, bias = ((torch.randn(c, generator=g, device=dev) * s + o).to(torch.bfloat16)
                              for s, o in ((0.3, 1.0), (0.3, 0.0), (0.5, 0.0)))
         weight = (torch.randn(c, c, 1, 1, generator=g, device=dev) / math.sqrt(c)).to(torch.bfloat16)
-        xv, w = x.permute(0, 2, 3, 1), weight[:, :, 0, 0].t()  # the UNet's NCHW viewed as NHWC; [C, Cout]
-        got = fn.gn_act_proj(xv, gamma, beta, w, bias, 32, act=act)
+        xv, w = x.permute(0, 2, 3, 1), weight[:, :, 0, 0].t()  # the UNet's activations viewed as NHWC; [C, Cout]
+        stats = torch.empty(b, 2, c, device=dev)
+        got = fn.gn_act_proj(xv, gamma, beta, w, bias, 32, act=act, stats=stats)
         torch.cuda.synchronize()
+        mean, rsig = fn.group_stats_plain(xv, 32, 1e-6)
+        mean_err = float((stats[:, 0] - mean).abs().max() / xv.float().abs().max())
+        rsig_err = float((stats[:, 1] / rsig - 1).abs().max())
+        if not mean_err <= GN_MEAN_TOL or not rsig_err <= GN_RSIG_RTOL:
+            raise AssertionError(f"K7 {name}: statistics off the plain version's (mean {mean_err:.3g} of max|x|, "
+                                 f"rsig {rsig_err:.3g} relative)")
         want = fn.gn_act_proj_plain(xv, gamma, beta, w, bias, 32, act=act)
         max_err, worst = kernel_error(got, want, rounded_before=want.float() - bias.float())
         if worst > 1.0 or not torch.isfinite(got).all():
             raise AssertionError(f"K7 {name}: kernel disagrees with the plain version ({worst:.3g} x the tolerance)")
-        ms = cuda_time_ms(lambda: fn.gn_act_proj(xv, gamma, beta, w, bias, 32, act=act))
+        call = lambda: fn.gn_act_proj(xv, gamma, beta, w, bias, 32, act=act)  # noqa: E731
+        ms = cuda_time_ms(call)
         plain_ms = cuda_time_ms(lambda: fn.gn_act_proj_plain(xv, gamma, beta, w, bias, 32, act=act), reps=3, warmup=1)
-        lib_ms = (cuda_time_ms(lambda: F.conv2d(F.group_norm(x, 32, gamma, beta, 1e-6), weight, bias).permute(0, 2, 3, 1))
-                  if act == "none" else None)
-        # the wrapper computes the group statistics with torch ops before the
-        # launch, as the JAX wrapper does with XLA: split the call's device time
-        busy_ms, kernel_ms = device_split(lambda: fn.gn_act_proj(xv, gamma, beta, w, bias, 32, act=act),
-                                          "gn_act_proj_kernel")
+        # the call launches the statistics kernel, then the projection kernel
+        busy_ms, proj_ms, stats_ms = device_split(call, "gn_act_proj_kernel", other="gn_stats_kernel")
+        lib_ms = lib_device = None
+        if act == "none":
+            lib = lambda: F.conv2d(F.group_norm(x, 32, gamma, beta, 1e-6), weight, bias)  # noqa: E731
+            lib_ms = cuda_time_ms(lib)
+            lib_device, _ = device_split(lib, "")
         bound, by = gn_proj_bound(b, hh * ww, c, c)
-        results["K7"][name] = dict(shape=[b, hh * ww, c, c], act=act, max_abs_err=max_err, err_over_tol=worst, ms=ms,
-                                   plain_ms=plain_ms, library_ms=lib_ms,
+        results[name] = dict(shape=[b, hh * ww, c, c], act=act, layout=layout, max_abs_err=max_err,
+                                   err_over_tol=worst, stats_mean_err=mean_err, stats_rsig_err=rsig_err, ms=ms,
+                                   plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_device,
                                    library="F.group_norm + 1x1 F.conv2d (two calls)", bound_ms=bound, bound_by=by,
-                                   device_busy_ms=busy_ms, kernel_only_ms=kernel_ms)
-        lib = f"{lib_ms:.4f}" if lib_ms is not None else "-"
-        log(f"kernel K7 {name} B{b} act={act}: max|err| {max_err:.3g} = {worst:.3g} x tolerance  ms {ms:.4f} "
-            f"(device busy {busy_ms:.4f}, the kernel alone {kernel_ms:.4f})  plain {plain_ms:.3f}  "
-            f"group_norm+conv2d {lib}  bound {bound:.4f} ({by})")
+                                   device_ms=busy_ms, stats_device_ms=stats_ms, proj_device_ms=proj_ms)
+        lib_txt = f"{lib_ms:.4f} (device {lib_device:.4f})" if lib_ms is not None else "-"
+        log(f"kernel K7 {name} B{b} act={act}: max|err| {max_err:.3g} = {worst:.3g} x tolerance, statistics "
+            f"{mean_err:.3g} / {rsig_err:.3g}; ms {ms:.4f} (device {busy_ms:.4f} = statistics {stats_ms:.4f} + "
+            f"projection {proj_ms:.4f})  plain {plain_ms:.3f}  group_norm+conv2d {lib_txt}  bound {bound:.4f} ({by}) "
+            f"on {smi}")
         del x, xv, got, want
         torch.cuda.empty_cache()
     return results
@@ -1174,7 +1226,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_kern = phase_train_kernels()
     train = phase_train(smi)
-    infer_kern = phase_inference_kernels()
+    infer_kern = phase_inference_kernels(smi)
     mining = phase_mining(smi)
 
     entries = [kernel_entry(

@@ -5,8 +5,8 @@
 // map of a strided [B, H, L, D] view, and `prepare`, which sets a kernel's
 // attributes once per card.
 //
-// Every operand tile here uses wgmma's no-swizzle ("interleave") canonical
-// layout, built from core matrices of 8 rows x 16 bytes (8 bf16) stored as
+// Every operand tile of the flash kernels uses wgmma's no-swizzle
+// ("interleave") canonical layout, built from core matrices of 8 rows x 16 bytes (8 bf16) stored as
 // 128 contiguous bytes. It takes any width that is a multiple of 8 elements,
 // which the 80-byte rows of head dim 40 need (they fit no 32/64/128-byte
 // swizzle atom). A descriptor gives two strides between core matrices:
@@ -44,6 +44,15 @@ __device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo_byt
   return static_cast<uint64_t>((smem_u32(smem) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo_bytes & 0x3FFFF) >> 4) << 16) |
          (static_cast<uint64_t>((sbo_bytes & 0x3FFFF) >> 4) << 32);
+}
+
+// The same for a 128-byte-swizzled tile (layout type 1): rows of 128 bytes
+// whose 16-byte chunks are XOR-ed with the row's index within each 8-row,
+// 1024-byte atom, as the TMA unit writes them with CU_TENSOR_MAP_SWIZZLE_128B
+// (gn_act_proj.cu). The atoms must start on 1024-byte boundaries; a k16 step
+// inside a K-major atom moves the start address by 32 bytes.
+__device__ __forceinline__ uint64_t make_desc_sw128(const void* smem, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+  return make_desc(smem, lbo_bytes, sbo_bytes) | (1ull << 62);
 }
 
 // A descriptor moved on by `bytes` (a multiple of 16) in shared memory.
@@ -89,6 +98,11 @@ __device__ __forceinline__ void fence_mbar_init() { asm volatile("fence.mbarrier
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
+// One arrival on `bar` (release at block scope: this thread's earlier
+// accesses happen before a waiter's later ones).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done = 0;
@@ -112,6 +126,22 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const void* map, uint64_t
       "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6, "
       "%7}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// 3-D and 2-D tile copies, as tma_load_5d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 

@@ -13,7 +13,9 @@ ex2.approx may flip a rounding); K3 and K4 are held to their plain
 versions at the kernel's own key tiles (``ONLINE_BLOCK_K``), where p is
 rounded relative to the same running max. The backward kernels also round p and ds to bf16
 inside their sums, so a flipped rounding there moves the fp32 sum before
-the final rounding: rtol 2^-6, two ulps. K7 rounds its product to bf16 and then adds the bias in
+the final rounding: rtol 2^-6, two ulps. The fused-QKV-view check of K1/K2
+adds what one flipped bf16 rounding of a row's largest p can move an
+output by (``_over_p_flip_bound``). K7 rounds its product to bf16 and then adds the bias in
 bf16, so a flipped rounding of the product is one ulp of the product,
 |plain - bias|, which the bias can cancel down to a smaller result: its
 bound adds 2^-7 |plain - bias|.
@@ -199,18 +201,77 @@ def test_nomax_kernel_reads_a_fused_qkv_view_on_card(d):
     """q, k and v as slices of one [B, L, 3*H*D] projection, viewed as
     [B, H, L, D] (rows 3*H*D apart, not contiguous), as a fused QKV
     projection hands them over: the kernel reads them in place and agrees
-    with the plain version on contiguous copies."""
+    with the plain version on contiguous copies, within one ulp plus what a
+    flipped rounding of a row's largest p can move (``_over_p_flip_bound``:
+    at D=80 the plain version's fp32 logits flip a p of 71 in a sum of
+    1728.2, 1.0184x the one-ulp bound)."""
     _needs_gpu()
-    b, h, l = 2, 8, 1000
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(6)
-    qkv = torch.randn(b, l, 3 * h * d, generator=gen, device="cuda").to(torch.bfloat16)
-    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d).transpose(1, 2) for i in range(3))
-    assert not q.is_contiguous() and q.stride(2) == 3 * h * d
+    q, k, v = _fused_qkv(2, 8, 1000, d, 6)
+    assert not q.is_contiguous() and q.stride(2) == 3 * 8 * d
     got = pfa.flash_fwd_nomax(q, k, v)
     assert torch.equal(got, pfa.flash_fwd_nomax(q.contiguous(), k.contiguous(), v.contiguous()))
     want = pfa.flash_attention_nomax_plain(q.contiguous(), k.contiguous(), v.contiguous())
-    assert _over_tolerance(got, want) <= 1.0, _worst_against_float64(got, want, q, k, v)
+    ratio = _over_p_flip_bound(got, want, q, k, v)
+    print(f"fused view D{d} seed 6: {_over_tolerance(got, want):.4f} x the one-ulp bound, {ratio:.4f} x the p-flip bound")
+    assert ratio <= 1.0, _worst_against_float64(got, want, q, k, v)
+
+
+def _fused_qkv(b, h, l, d, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    qkv = torch.randn(b, l, 3 * h * d, generator=gen, device="cuda").to(torch.bfloat16)
+    return [qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d).transpose(1, 2) for i in range(3)]
+
+
+def _over_p_flip_bound(got, want, q, k, v) -> float:
+    """|kernel - plain| in units of the one-ulp bound widened by what one
+    flipped bf16 rounding of a row's largest p can move an output by: either
+    side's fp32 logits may round a p = exp2(s) to the other bf16 neighbour,
+    which moves o = sum p v / l by ulp(p) (v - o) / l. Per row, the term is
+    one bf16 ulp of the row's largest p (p from the same arithmetic in
+    float64: the pre-scale in bf16, exact logits and exp2, p rounded to
+    bf16) times max |v - o| over the keys, over the row's sum l."""
+    w = want.float()
+    qs = pfa.prescaled_q(q.contiguous()).double()
+    p = torch.exp2(qs @ k.double().transpose(-1, -2)).to(torch.bfloat16).double()
+    l = p.sum(-1, keepdim=True)
+    pmax = p.amax(-1, keepdim=True)
+    ulp = torch.exp2(torch.floor(torch.log2(pmax)) - 7)
+    vd = v.double()
+    spread = torch.maximum(vd.amax(-2, keepdim=True) - w.double(), w.double() - vd.amin(-2, keepdim=True))
+    tol = 2.0**-7 * w.abs() + 2.0**-7 * w.pow(2).mean().sqrt() + (ulp * spread / l).float()
+    return float(((got.float() - w).abs() / tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_p_flip_bound_on_five_seeds_on_card(d):
+    """The fused-view check's bound on seeds 0-4: every reading at or under
+    1, printed beside the one-ulp bound's (run with -s to see them)."""
+    _needs_gpu()
+    for seed in range(5):
+        q, k, v = _fused_qkv(2, 8, 1000, d, seed)
+        got = pfa.flash_fwd_nomax(q, k, v)
+        want = pfa.flash_attention_nomax_plain(q.contiguous(), k.contiguous(), v.contiguous())
+        old, new = _over_tolerance(got, want), _over_p_flip_bound(got, want, q, k, v)
+        print(f"fused view D{d} seed {seed}: {old:.4f} x the one-ulp bound, {new:.4f} x the p-flip bound")
+        assert new <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_p_flip_bound_catches_a_dropped_key_tile_on_card(d):
+    """The control: the kernel run without keys 128-255 (one 128-key tile)
+    lands far outside the widened bound against the plain version on all
+    the keys."""
+    _needs_gpu()
+    q, k, v = _fused_qkv(2, 8, 1000, d, 6)
+    want = pfa.flash_attention_nomax_plain(q.contiguous(), k.contiguous(), v.contiguous())
+    k2, v2 = (torch.cat([t[:, :, :128], t[:, :, 256:]], dim=2) for t in (k, v))
+    dropped = pfa.flash_fwd_nomax(q, k2, v2)
+    ratio = _over_p_flip_bound(dropped, want, q, k, v)
+    print(f"fused view D{d}, keys 128-255 dropped: {ratio:.4g} x the p-flip bound")
+    assert ratio > 5.0
 
 
 def _worst_against_float64(got, want, q, k, v) -> str:
@@ -283,21 +344,50 @@ def test_online_forwards_stay_the_softmax_at_the_underflow_edge_on_card():
 @pytest.mark.parametrize("b,hh,ww,c,act,layout", [
     (4, 64, 64, 320, "none", "nchw"), (2, 63, 65, 320, "none", "nchw"), (2, 8, 8, 1280, "silu", "nchw"),
     (2, 32, 32, 640, "none", "channels_last"), (2, 33, 31, 640, "silu", "channels_last"),
+    (2, 64, 64, 320, "none", "channels_last"), (2, 63, 65, 320, "none", "channels_last"),
+    (2, 16, 16, 1280, "none", "nchw"), (2, 16, 16, 1280, "none", "channels_last"), (8, 8, 8, 1280, "silu", "nchw"),
 ])
 def test_fused_norm_kernel_matches_plain_on_card(b, hh, ww, c, act, layout):
     """K7 on the UNet's activations viewed as NHWC, in both layouts the UNet
     hands it (NCHW, and channels-last after a transformer's proj_out): the
-    512px level-0 entry, odd pixel counts (element loads) and the mid
-    block's 8x8 with the SiLU variant."""
+    512px level-0 entry (C320 in 32 groups, 10 channels a group, in both
+    layouts), odd pixel counts (N4095 in both layouts: element loads for
+    NCHW), C1280 (x streamed in chunks beside w) and the mid block's 8x8
+    with the SiLU variant."""
     _needs_gpu()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    x = (torch.randn(b, c, hh, ww, generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
-    if layout == "channels_last":
-        x = x.contiguous(memory_format=torch.channels_last)
-    x = x.permute(0, 2, 3, 1)
-    gamma, beta, bias = (torch.randn(c, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
-    w = (torch.randn(c, c, generator=gen, device="cuda") / c**0.5).to(torch.bfloat16).t()
+    x, gamma, beta, w, bias = _gn_operands(b, hh, ww, c, layout, 2.0, 0.5)
     got = pfn.gn_act_proj(x, gamma, beta, w, bias, 32, act=act)
     want = pfn.gn_act_proj_plain(x, gamma, beta, w, bias, 32, act=act)
     assert got.shape == (b, hh, ww, c) and _over_tolerance(got, want, rounded_before=want.float() - bias.float()) <= 1.0
+
+
+def _gn_operands(b, hh, ww, c, layout, scale, mean):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    x = (torch.randn(b, c, hh, ww, generator=gen, device="cuda") * scale + mean).to(torch.bfloat16)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    gamma, beta, bias = (torch.randn(c, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    w = (torch.randn(c, c, generator=gen, device="cuda") / c**0.5).to(torch.bfloat16).t()
+    return x.permute(0, 2, 3, 1), gamma, beta, w, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("hh,ww,c", [(63, 65, 320), (32, 32, 640), (16, 16, 1280)])
+def test_fused_norm_statistics_on_large_mean_data_on_card(hh, ww, c, layout):
+    """x = 300 + randn, a mean large against the spread: the statistics
+    kernel's per-channel mean and rsigma against group_stats_plain (which
+    repeats its order; the CPU tests hold it to JAX) within chip_smoke.py's
+    bounds, 2^-21 max|x| and 2^-17 relative, and the call's output within
+    K7's bound."""
+    _needs_gpu()
+    x, gamma, beta, w, bias = _gn_operands(2, hh, ww, c, layout, 1.0, 300.0)
+    stats = torch.empty(2, 2, c, device="cuda")
+    got = pfn.gn_act_proj(x, gamma, beta, w, bias, 32, stats=stats)
+    mean, rsig = pfn.group_stats_plain(x, 32, 1e-6)
+    assert float((stats[:, 0] - mean).abs().max()) <= 2.0**-21 * float(x.float().abs().max())
+    assert float((stats[:, 1] / rsig - 1).abs().max()) <= 2.0**-17
+    want = pfn.gn_act_proj_plain(x, gamma, beta, w, bias, 32)
+    assert torch.isfinite(got).all()
+    assert _over_tolerance(got, want, rounded_before=want.float() - bias.float()) <= 1.0

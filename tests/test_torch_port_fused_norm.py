@@ -94,13 +94,21 @@ def test_plain_rounds_where_jax_does_bf16(act):
 
 def test_bound_catches_a_skipped_chunk():
     """A kernel that skipped one 32-channel chunk of the input (of 320, the
-    512px level-0 width) lands far outside the bound."""
+    512px level-0 width) lands far outside the bound; so does one that left
+    a 160-wide Cout tile of every block unwritten (the kernel's tiling,
+    ``gn_act_proj_tiled``)."""
     ops = _operands(1, 16, 16, 320, 64, seed=3)
     ops = tuple(torch.from_numpy(a).to(torch.bfloat16) for a in ops)
     full = pfn.gn_act_proj_plain(*ops, 32)
     w_skip = ops[3].clone()
     w_skip[96:128] = 0
     skipped = pfn.gn_act_proj_plain(ops[0], ops[1], ops[2], w_skip, ops[4], 32)
+    assert _over_bound(skipped.float().numpy(), full.float().numpy(), ops[4].float().numpy()) > 20.0
+    ops = tuple(torch.from_numpy(a).to(torch.bfloat16) for a in _operands(1, 16, 16, 320, 320, seed=3))
+    full = pfn.gn_act_proj_plain(*ops, 32)
+    tiles = pfn.gn_act_proj_tiled(*ops, 32)
+    assert _over_bound(tiles.float().numpy(), full.float().numpy(), ops[4].float().numpy()) <= 1.0
+    skipped = pfn.gn_act_proj_tiled(*ops, 32, skip_tile=1)
     assert _over_bound(skipped.float().numpy(), full.float().numpy(), ops[4].float().numpy()) > 20.0
 
 
