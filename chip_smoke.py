@@ -1002,6 +1002,59 @@ def rel_l2(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+def modes_pass_times(sd2, x, t, ctx):
+    """A modes-on UNet pass (the DIFT pass: batch 8 with the up-block tap):
+    its CUDA-event time, its device busy time and K7's part of it (16
+    projection launches and their statistics), by torch.profiler."""
+    pass_fn = lambda: sd2.unet(x, t, ctx, up_ft_indices=(1,))  # noqa: E731
+    pass_ms = cuda_time_ms(pass_fn, reps=5, warmup=1)
+    busy_ms, proj_ms, stats_ms = device_split(pass_fn, "gn_act_proj_kernel", launches=16, other="gn_stats_kernel")
+    return dict(pass_ms=pass_ms, busy_ms=busy_ms, k7_ms=16 * proj_ms + stats_ms, k7_proj_ms=proj_ms,
+                k7_stats_ms=stats_ms)
+
+
+def phase_modes_pass(smi):
+    """The mining phase's modes-on UNet pass alone, on a fresh SD-v1.5 bundle
+    under DIFFMINING_FUSED_NORM=1, DIFFMINING_FLASH_ONESHOT=0 and
+    DIFFMINING_FLASH_NOMAX=0 (to time it against another tree in one call)."""
+    import torch
+
+    from diffmining_tpu_torch.models.clip import CLIP_VIT_L_TEXT
+    from diffmining_tpu_torch.models.unet import SD15_UNET
+    from diffmining_tpu_torch.models.vae import SD15_VAE
+    from diffmining_tpu_torch.ops import flash_attention as fa
+    from diffmining_tpu_torch.typicality.compute import SD
+
+    modes = {"DIFFMINING_FUSED_NORM": "1", "DIFFMINING_FLASH_ONESHOT": "0", "DIFFMINING_FLASH_NOMAX": "0"}
+    saved_env = {k: os.environ.get(k) for k in modes}
+    saved_gates = fa._ONESHOT, fa._NOMAX
+    os.environ.update(modes)
+    fa._ONESHOT, fa._NOMAX = "0", "0"
+    try:
+        sd2 = SD.init_random("ftt", ["1920", "1960"], SD15_UNET, SD15_VAE, CLIP_VIT_L_TEXT, seed=SEED,
+                             dtype=torch.bfloat16, device="cuda")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 7)
+        x = torch.randn(8, 4, 64, 64, generator=g, device="cuda")
+        t = torch.full((8,), 161, device="cuda", dtype=torch.long)
+        ctx = sd2.country_embeds["1920"][None].expand(8, -1, -1)
+        with torch.inference_mode():
+            times = modes_pass_times(sd2, x, t, ctx)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        fa._ONESHOT, fa._NOMAX = saved_gates
+    log(f"modes-on UNet pass (B=8, 512px, t=161, tap): {times['pass_ms']:.3f} ms, device busy {times['busy_ms']:.3f} ms, "
+        f"K7 {times['k7_ms']:.4f} ms (16 projections x {times['k7_proj_ms']:.4f} + statistics {times['k7_stats_ms']:.4f}) "
+        f"on {smi}")
+    del sd2
+    torch.cuda.empty_cache()
+    return times
+
+
 def phase_mining(smi):
     """The mining path: sweep, then Cluster.clustering("dift-161") under the
     default modes and under the K3/K7 modes, on synthetic PNGs."""
@@ -1150,7 +1203,8 @@ def phase_mining(smi):
             per_pass = [f.launches - b for f, b in zip(kernels, before)]
             if per_pass != [0, 10, 16]:
                 raise AssertionError(f"modes-on UNet pass launched {per_pass} of K1, K3, K7")
-            pass_ms = cuda_time_ms(lambda: sd2.unet(x, t, ctx, up_ft_indices=(1,)), reps=5, warmup=1)
+            pass_times = modes_pass_times(sd2, x, t, ctx)
+            pass_ms = pass_times["pass_ms"]
             # the float32 reference: the kernels are bf16 only, so this pass
             # alone takes the module path and the plain softmax
             cfg = sd2.unet.config
@@ -1167,7 +1221,8 @@ def phase_mining(smi):
         if not (torch.isfinite(out16["sample"]).all() and rel < UNET_REL_L2 and tap_rel < UNET_REL_L2):
             raise AssertionError(f"modes-on UNet pass vs float32: relative L2 {rel} (eps), {tap_rel} (tap)")
         log(f"mining: modes-on UNet pass (B=8, 512px, t=161) vs float32 + plain attention + module path: relative "
-            f"L2 {rel:.4g} (eps), {tap_rel:.4g} (up block 1 tap) (limit {UNET_REL_L2}); {pass_ms:.2f} ms a pass")
+            f"L2 {rel:.4g} (eps), {tap_rel:.4g} (up block 1 tap) (limit {UNET_REL_L2}); {pass_ms:.2f} ms a pass, "
+            f"device busy {pass_times['busy_ms']:.3f} ms, of which K7 {pass_times['k7_ms']:.3f} ms (16 calls) on {smi}")
     finally:
         for k, v in saved_env.items():
             if v is None:
@@ -1180,7 +1235,7 @@ def phase_mining(smi):
     torch.cuda.empty_cache()
     return dict(labels=len(labels), images_per_label=per_label, px=px, N=N, feature=feature, sweep_s=sweep_s,
                 runs=runs, unet_rel_l2_modes=rel, tap_rel_l2_modes=tap_rel, dift_modes_rel_l2=dift_rel,
-                unet_pass_ms_modes=pass_ms, card=smi)
+                unet_pass_ms_modes=pass_ms, unet_pass_modes=pass_times, card=smi)
 
 
 TRAIN_KERNELS = {
