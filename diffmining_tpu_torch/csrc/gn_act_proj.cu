@@ -38,40 +38,48 @@
 // runs of 8. Thread t loads runs t, t + 512, t + 1024 and t + 1536 at once
 // (16-byte loads where a run lies aligned in one row, bf16 pairs where rows
 // and strides are even, as at C320 in 32 groups, 10 channels a group, else
-// elements), takes their count, mean and sum of squared deviations from
-// that mean, and merges them into its partial by Chan's centred merge; then
-// the next four, 2048 runs on. A shuffle-down tree within each warp and one
+// elements; every load of the four issued before any is used), takes their
+// count, mean and sum of squared deviations from that mean, and merges them
+// into its partial by Chan's centred merge; then the next four, 2048 runs
+// on. A shuffle-down tree within each warp and one
 // across the 16 warps end it. ops/fused_norm.py group_stats_plain repeats
 // this order.
 //
-// The projection (gn_act_proj_kernel): one block of two warpgroups per
-// (128 or 64 pixels, a split of Cout, image):
-//   * the block's [pixels, C] slab of x comes into shared memory by TMA in
-//     boxes with 128-byte rows, 128-byte swizzled, each box reported to its
-//     own mbarrier: as K-major A ([64-channel block][pixel][64 channels])
-//     for channels-last x, as MN-major A ([64-pixel block][channel][64
+// The projection (gn_act_proj_kernel): one block per (pixel tile, split of
+// Cout, image), two consumer warpgroups and one producer warp, which issues
+// every TMA copy and waits on an empty barrier per stage before it refills
+// one (a consumer warp never stalls on issuing a copy):
+//   * x comes into shared memory by TMA in 64-channel K chunks of 128-byte
+//     rows, 128-byte swizzled, wgmma's canonical layouts: K-major A
+//     ([pixel][64 channels]) for channels-last x, MN-major A ([channel][64
 //     pixels]) for NCHW x, which bf16 wgmma reads transposed, so no
 //     transpose pass runs. Where a stride is not 16-byte aligned (N = 4095
-//     gives an NCHW channel stride of 8,190 bytes) the threads load the same
-//     cells with element loads instead;
-//   * the block normalises the slab in place to bf16 h, once, box by box as
-//     the boxes land (the per-channel mean, rsig, gamma and beta staged as
-//     float4 in the end of the w ring, ordered so that a warp's reads do
-//     not collide), and fences it for the async proxy;
-//   * it loops over its Cout tiles (160 output channels, or 64 where Cout
-//     is no multiple of 160); w [Cout, C] (K-major B) streams through a
-//     ring of [tile rows x 64 channels] 128-byte-swizzled stages that the
-//     TMA unit fills, the last warp done with a stage refilling it; the
-//     ring's last slots take w once the parameters are no longer needed;
-//     the products are wgmma m64nNk16 with fp32 accumulators: at 128 pixels
-//     each warpgroup takes 64 rows of the tile, at 64 pixels each half of
-//     its columns;
-//   * the epilogue rounds to bf16, adds the bias in bf16 and stores [B, N,
-//     Cout] contiguous;
-//   * the host (ops/fused_norm.py plan) picks the block's pixels (128 up to
-//     C=640, 64 at C=1280, where the slab takes 160 KB), the ring depth
-//     from the shared memory left, and the Cout split that fills the card:
-//     one block covers all of Cout at the large levels.
+//     gives an NCHW channel stride of 8,190 bytes) the consumers load the
+//     same cells with element loads instead;
+//   * the consumers normalise each chunk in place to bf16 h (the
+//     per-channel mean, rsig, gamma and beta staged as float4 in shared
+//     memory, read so that a warp's loads do not collide), fence it for
+//     the async proxy and sync; chunk k + 1 is normalised while the
+//     products on chunk k run;
+//   * where a [128 pixels x C] slab fits beside a ring of w stages (C=320,
+//     640: the slab mode), the block normalises the slab once, chunk by
+//     chunk under its first Cout tile's products, and keeps h for its other
+//     tiles; at C=1280 (the ring mode) x chunks stream through the ring
+//     beside w and each block covers one Cout tile, so each x element is
+//     still normalised once a block;
+//   * w [Cout, C] (K-major B) streams through the ring as [tile rows x 64
+//     channels] stages; the products are wgmma m64nNk16 with fp32
+//     accumulators, N = 160 (or 64 where Cout is no multiple of 160): at
+//     128 pixels each warpgroup takes 64 rows of the tile, at 64 pixels half
+//     of its columns. Each block starts its K loop at its own chunk (its
+//     linear index modulo C / 64), so the blocks in flight do not all read
+//     one w chunk from L2 at once;
+//   * the epilogue rounds to bf16, adds the bias in bf16, transposes each
+//     group of four 8-column blocks in the quad that holds its rows, and
+//     stores 16 bytes a thread into [B, N, Cout] contiguous;
+//   * the host (ops/fused_norm.py plan) picks the mode, the block's pixels,
+//     the ring depth from the shared memory left and the Cout split that
+//     fills the card: one block covers all of Cout at N4096.
 // Layout: x is [B, N, C] with element strides x_sb, x_sn, x_sc, of which
 // x_sn or x_sc is 1; stats [B, 2, C] fp32 (written here); gamma, beta [C]
 // bf16 or fp32; w [Cout, C] and bias [Cout] bf16 contiguous; out [B, N,
@@ -125,6 +133,15 @@ __device__ __forceinline__ float pairwise8(const float (&v)[8]) {
                    __fadd_rn(__fadd_rn(v[4], v[5]), __fadd_rn(v[6], v[7])));
 }
 
+__device__ __forceinline__ void unpack8(float (&v)[8], const uint32_t (&raw)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = unpack_bf16x2(raw[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ float sum4(const float (&v)[4]) {
   return __fadd_rn(__fadd_rn(v[0], v[1]), __fadd_rn(v[2], v[3]));
 }
@@ -134,16 +151,15 @@ __device__ __forceinline__ float sum4(const float (&v)[4]) {
 // the group's M elements; returns how many it holds. Only loads: the caller
 // converts once every run of a batch is in flight.
 template <int HOW>
-__device__ __forceinline__ int load_run(uint32_t (&raw)[4], const __nv_bfloat16* g0, long long r, long long M, int row,
-                                        long long step) {
-  const long long i0 = r * 8;
-  const int cnt = i0 >= M ? 0 : M - i0 < 8 ? (int)(M - i0) : 8;
-  const long long outer = i0 / row;
-  int inner = (int)(i0 - outer * row);
-  const __nv_bfloat16* p = g0 + outer * step + inner;
+__device__ __forceinline__ int load_run(uint32_t (&raw)[4], const __nv_bfloat16* g0, int r, int M, int row, int step) {
+  const int i0 = r * 8;
+  const int cnt = i0 >= M ? 0 : M - i0 < 8 ? M - i0 : 8;
+  const int outer = i0 / row;
+  int inner = i0 - outer * row;
+  int off = outer * step + inner;  // elements from g0 (a group spans well under 2^31 of them)
   if constexpr (HOW == VEC16) {  // the run lies in one row, 16-byte aligned
     uint4 u = make_uint4(0, 0, 0, 0);
-    if (cnt) u = __ldg(reinterpret_cast<const uint4*>(p));
+    if (cnt) u = __ldg(reinterpret_cast<const uint4*>(g0 + off));
     raw[0] = u.x;
     raw[1] = u.y;
     raw[2] = u.z;
@@ -151,32 +167,32 @@ __device__ __forceinline__ int load_run(uint32_t (&raw)[4], const __nv_bfloat16*
   } else if constexpr (HOW == PAIRS) {  // rows, strides and counts even: pairs never straddle rows
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      raw[e] = 2 * e < cnt ? __ldg(reinterpret_cast<const unsigned int*>(p)) : 0u;
-      p += 2;
+      raw[e] = 2 * e < cnt ? __ldg(reinterpret_cast<const unsigned int*>(g0 + off)) : 0u;
+      off += 2;
       if ((inner += 2) == row) {
         inner = 0;
-        p += step - row;
+        off += step - row;
       }
     }
   } else {
-    unsigned short h[8];
+    uint32_t h[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      h[e] = e < cnt ? __ldg(reinterpret_cast<const unsigned short*>(p)) : (unsigned short)0;
-      ++p;
+      h[e] = e < cnt ? __ldg(reinterpret_cast<const unsigned short*>(g0 + off)) : 0u;
+      ++off;
       if (++inner == row) {
         inner = 0;
-        p += step - row;
+        off += step - row;
       }
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) raw[e] = (uint32_t)h[2 * e] | ((uint32_t)h[2 * e + 1] << 16);
+    for (int e = 0; e < 4; ++e) raw[e] = h[2 * e] | (h[2 * e + 1] << 16);
   }
   return cnt;
 }
 
 template <int HOW>
-__global__ void __launch_bounds__(STATS_THREADS, 2)
+__global__ void __launch_bounds__(STATS_THREADS, HOW == VEC16 ? 2 : 1)
     gn_stats_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ stats, int N, int C, int G, float eps,
                     long long x_sb, long long x_sn, long long x_sc, bool cl) {
   __shared__ float part[3][STATS_THREADS / 32];
@@ -187,41 +203,37 @@ __global__ void __launch_bounds__(STATS_THREADS, 2)
   const int lane = tid % 32;
   const int warp = tid / 32;
   const int Cg = C / G;
-  const long long M = (long long)Cg * N;
-  const long long runs = (M + 7) / 8;
+  const int M = Cg * N;
+  const int runs = (M + 7) / 8;
   const int row = cl ? Cg : N;
-  const long long step = cl ? x_sn : x_sc;
+  const int step = (int)(cl ? x_sn : x_sc);
   const __nv_bfloat16* g0 = x + b * x_sb + (long long)g * Cg * (cl ? 1 : x_sc);
 
   float n = 0.f, m = 0.f, q = 0.f;
-  for (long long r0 = tid; r0 < runs; r0 += STATS_UNROLL * STATS_THREADS) {
+  for (int r0 = tid; r0 < runs; r0 += STATS_UNROLL * STATS_THREADS) {
     uint32_t raw[STATS_UNROLL][4];
-    float xv[STATS_UNROLL][8];
     float cnt[STATS_UNROLL], s[STATS_UNROLL], d2s[STATS_UNROLL];
 #pragma unroll
     for (int u = 0; u < STATS_UNROLL; ++u)
       cnt[u] = (float)load_run<HOW>(raw[u], g0, r0 + u * STATS_THREADS, M, row, step);
 #pragma unroll
     for (int u = 0; u < STATS_UNROLL; ++u) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = unpack_bf16x2(raw[u][e]);
-        xv[u][2 * e] = f.x;
-        xv[u][2 * e + 1] = f.y;
-      }
-      s[u] = pairwise8(xv[u]);
+      float v[8];
+      unpack8(v, raw[u]);
+      s[u] = pairwise8(v);
     }
     const float c4 = sum4(cnt);
     const float mu = __fdiv_rn(sum4(s), c4);
 #pragma unroll
     for (int u = 0; u < STATS_UNROLL; ++u) {
-      float d2[8];
+      float v[8];
+      unpack8(v, raw[u]);  // again: the raw words take half the registers of the floats
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        const float d = (float)e < cnt[u] ? __fsub_rn(xv[u][e], mu) : 0.f;
-        d2[e] = __fmul_rn(d, d);
+        const float d = (float)e < cnt[u] ? __fsub_rn(v[e], mu) : 0.f;
+        v[e] = __fmul_rn(d, d);
       }
-      d2s[u] = pairwise8(d2);
+      d2s[u] = pairwise8(v);
     }
     chan_merge(n, m, q, c4, mu, sum4(d2s));
   }
@@ -574,30 +586,25 @@ __global__ void __launch_bounds__(THREADS + 32, 1)
         for (int e = 0; e < 4; ++e) raw[u][e] = (uint32_t)h[2 * e] | ((uint32_t)h[2 * e + 1] << 16);
       }
     }
-    float4 pcl[CL ? 8 : 1];  // channels-last: the thread's 8 channels, the same in every cell
-    if constexpr (CL) {
+    // h in place of the raw words; channels-last, each pair of the thread's
+    // 8 channels (the same in every cell) is read once for all its cells
 #pragma unroll
-      for (int e = 0; e < 8; ++e) pcl[e] = params[param_slot(c[0] + e)];
-    }
-#pragma unroll
-    for (int u = 0; u < CELLS; ++u) {
-      uint32_t h[4];
+    for (int e = 0; e < 4; ++e) {
+      float4 pa, pb;
       if constexpr (CL) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = unpack_bf16x2(raw[u][e]);
-          h[e] = pack_bf16x2(normalise(f.x, pcl[2 * e], silu), normalise(f.y, pcl[2 * e + 1], silu));
-        }
-      } else {
-        const float4 pc = params[param_slot(c[u])];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = unpack_bf16x2(raw[u][e]);
-          h[e] = pack_bf16x2(normalise(f.x, pc, silu), normalise(f.y, pc, silu));
-        }
+        pa = params[param_slot(c[0] + 2 * e)];
+        pb = params[param_slot(c[0] + 2 * e + 1)];
       }
-      *reinterpret_cast<uint4*>(cell[u]) = make_uint4(h[0], h[1], h[2], h[3]);
+#pragma unroll
+      for (int u = 0; u < CELLS; ++u) {
+        if constexpr (!CL) pa = pb = params[param_slot(c[u])];
+        const float2 f = unpack_bf16x2(raw[u][e]);
+        raw[u][e] = pack_bf16x2(normalise(f.x, pa, silu), normalise(f.y, pb, silu));
+      }
     }
+#pragma unroll
+    for (int u = 0; u < CELLS; ++u)
+      *reinterpret_cast<uint4*>(cell[u]) = make_uint4(raw[u][0], raw[u][1], raw[u][2], raw[u][3]);
     fence_proxy_async();  // h, visible to wgmma
   };
   // stage j's chunk: wait for it, normalise it (with RING every stage's,
@@ -778,6 +785,8 @@ extern "C" int gn_act_proj(const void* x, void* stats, const void* gamma, const 
       (bm != 64 && bm != 128) || (bn != 64 && bn != 160) || Cout % bn != 0 || splits <= 0 ||
       (Cout / bn) % splits != 0 || nstage < 1 || !aligned(w, 16) || !aligned(bias, 4))
     return (int)cudaErrorInvalidValue;
+  const long long group_span = x_sc == 1 ? (N - 1) * x_sn + C / G : (C / G - 1) * x_sc + N;
+  if (group_span >= (1ll << 31)) return (int)cudaErrorInvalidValue;  // the statistics address a group in int
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool cl = x_sc == 1;
   const int Cg = C / G;
