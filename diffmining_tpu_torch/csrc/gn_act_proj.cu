@@ -68,10 +68,10 @@
 //     beside w and each block covers one Cout tile, so each x element is
 //     still normalised once a block;
 //   * w [Cout, C] (K-major B) streams through the ring as [tile rows x 64
-//     channels] stages; the products are wgmma m64nNk16 with fp32
-//     accumulators, N = 160 (or 64 where Cout is no multiple of 160): at
-//     128 pixels each warpgroup takes 64 rows of the tile, at 64 pixels half
-//     of its columns. Each block starts its K loop at its own chunk (its
+//     channels] stages; the products are wgmma with fp32 accumulators over
+//     tiles of 160 output channels: at 128 pixels each warpgroup takes 64
+//     rows of the tile (m64n160k16), at 64 pixels half of its columns
+//     (m64n80k16). Each block starts its K loop at its own chunk (its
 //     linear index modulo C / 64), so the blocks in flight do not all read
 //     one w chunk from L2 at once;
 //   * the epilogue rounds to bf16, adds the bias in bf16, transposes each
@@ -83,7 +83,7 @@
 // Layout: x is [B, N, C] with element strides x_sb, x_sn, x_sc, of which
 // x_sn or x_sc is 1; stats [B, 2, C] fp32 (written here); gamma, beta [C]
 // bf16 or fp32; w [Cout, C] and bias [Cout] bf16 contiguous; out [B, N,
-// Cout] bf16 contiguous. C must be a multiple of 64 and Cout of the tile.
+// Cout] bf16 contiguous. C must be a multiple of 64 and Cout of 160.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -100,6 +100,7 @@ using namespace hopper;
 constexpr int STATS_THREADS = 512;
 constexpr int STATS_UNROLL = 4;  // runs a thread loads at once and merges as one
 constexpr int K_TILE = 64;       // input channels a w stage: one 128-byte row
+constexpr int TILE_N = 160;      // output channels a tile (SD's widths 320, 640, 1280 are multiples)
 constexpr int SMEM_LIMIT = 232448;
 constexpr int MAX_CHUNKS = 32;  // K chunks of a slab, one barrier each
 constexpr int THREADS = 256;   // two consumer warpgroups (products and normalise); one more warp issues the copies
@@ -384,52 +385,12 @@ __device__ __forceinline__ void wgmma_m64n80k16_ss_ta(float (&d)[40], uint64_t d
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA));
 }
 
-template <int TA>
-__device__ __forceinline__ void wgmma_m64n64k16_ss_ta(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, %35, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA));
-}
-
-template <int TA>
-__device__ __forceinline__ void wgmma_m64n32k16_ss_ta(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15},"
-      " %16, %17, p, 1, 1, %19, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA));
-}
-
 template <int N, int TA>
 __device__ __forceinline__ void wgmma_ta(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   if constexpr (N == 160)
     wgmma_m64n160k16_ss_ta<TA>(d, desc_a, desc_b, scale_d);
-  else if constexpr (N == 80)
-    wgmma_m64n80k16_ss_ta<TA>(d, desc_a, desc_b, scale_d);
-  else if constexpr (N == 64)
-    wgmma_m64n64k16_ss_ta<TA>(d, desc_a, desc_b, scale_d);
   else
-    wgmma_m64n32k16_ss_ta<TA>(d, desc_a, desc_b, scale_d);
+    wgmma_m64n80k16_ss_ta<TA>(d, desc_a, desc_b, scale_d);
 }
 
 // Shared memory of a block (ops/fused_norm.py smem_bytes), from a 1024-byte
@@ -749,19 +710,13 @@ cudaError_t launch_proj(const void* x, const float* stats, const void* gamma, co
 template <bool CL, bool RING>
 cudaError_t launch_proj_tile(const void* x, const float* stats, const void* gamma, const void* beta, const void* w,
                              const void* bias, void* out, int B, int N, int C, int Cout, long long x_sb,
-                             long long x_sn, long long x_sc, int flags, int bm, int bn, int splits, int nstage,
+                             long long x_sn, long long x_sc, int flags, int bm, int splits, int nstage,
                              cudaStream_t s) {
-  if (bm == 128 && bn == 160)
-    return launch_proj<CL, 160, 128, RING>(x, stats, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc,
-                                           flags, splits, nstage, s);
   if (bm == 128)
-    return launch_proj<CL, 64, 128, RING>(x, stats, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc,
-                                          flags, splits, nstage, s);
-  if (bn == 160)
-    return launch_proj<CL, 160, 64, RING>(x, stats, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc,
-                                          flags, splits, nstage, s);
-  return launch_proj<CL, 64, 64, RING>(x, stats, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc, flags,
-                                       splits, nstage, s);
+    return launch_proj<CL, TILE_N, 128, RING>(x, stats, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc,
+                                              flags, splits, nstage, s);
+  return launch_proj<CL, TILE_N, 64, RING>(x, stats, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc, flags,
+                                           splits, nstage, s);
 }
 
 bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
@@ -774,16 +729,15 @@ bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) %
 // activations) or x_sc (channels contiguous) is 1; stats [B, 2, C] float32
 // (written: per-channel mean, then rsigma); gamma, beta [C] bf16, or
 // float32 with flag 2; w [Cout, C], bias [Cout] bf16; out [B, N, Cout] bf16.
-// flags: 1 SiLU, 2 gamma/beta float32. The tiling (bm, bn, splits, nstage)
-// is ops/fused_norm.py plan's. Returns the CUDA error of the launches (0 on
+// flags: 1 SiLU, 2 gamma/beta float32. The tiling (bm, splits, nstage,
+// ring) is ops/fused_norm.py plan's. Returns the CUDA error of the launches (0 on
 // success).
 extern "C" int gn_act_proj(const void* x, void* stats, const void* gamma, const void* beta, const void* w,
                            const void* bias, void* out, int B, int N, int C, int Cout, int G, float eps,
-                           long long x_sb, long long x_sn, long long x_sc, int flags, int bm, int bn, int splits,
+                           long long x_sb, long long x_sn, long long x_sc, int flags, int bm, int splits,
                            int nstage, int ring, void* stream) {
   if (B <= 0 || N <= 0 || C % K_TILE != 0 || G <= 0 || C % G != 0 || (x_sn != 1 && x_sc != 1) ||
-      (bm != 64 && bm != 128) || (bn != 64 && bn != 160) || Cout % bn != 0 || splits <= 0 ||
-      (Cout / bn) % splits != 0 || nstage < 1 || !aligned(w, 16) || !aligned(bias, 4))
+      (bm != 64 && bm != 128) || Cout % TILE_N != 0 || splits <= 0 || (Cout / TILE_N) % splits != 0 || nstage < 1 || !aligned(w, 16) || !aligned(bias, 4))
     return (int)cudaErrorInvalidValue;
   const long long group_span = x_sc == 1 ? (N - 1) * x_sn + C / G : (C / G - 1) * x_sc + N;
   if (group_span >= (1ll << 31)) return (int)cudaErrorInvalidValue;  // the statistics address a group in int
@@ -809,15 +763,15 @@ extern "C" int gn_act_proj(const void* x, void* stats, const void* gamma, const 
   const float* st = static_cast<const float*>(stats);
   if (cl && ring)
     err = launch_proj_tile<true, true>(x, st, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc, flags, bm,
-                                       bn, splits, nstage, s);
+                                       splits, nstage, s);
   else if (cl)
     err = launch_proj_tile<true, false>(x, st, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc, flags, bm,
-                                        bn, splits, nstage, s);
+                                        splits, nstage, s);
   else if (ring)
-    err = launch_proj_tile<false, true>(x, st, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc, flags,
-                                        bm, bn, splits, nstage, s);
+    err = launch_proj_tile<false, true>(x, st, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc, flags, bm,
+                                        splits, nstage, s);
   else
-    err = launch_proj_tile<false, false>(x, st, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc, flags,
-                                         bm, bn, splits, nstage, s);
+    err = launch_proj_tile<false, false>(x, st, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc, flags, bm,
+                                         splits, nstage, s);
   return (int)err;
 }

@@ -80,7 +80,7 @@ ARGTYPES = {
     "flash_fwd_lse": [_P] * 5 + [_I] * 5 + [_P, _F, _P],
     "flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
     "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _P],
-    "gn_act_proj": [_P] * 7 + [_I] * 5 + [_F] + [_LL] * 3 + [_I] * 6 + [_P],
+    "gn_act_proj": [_P] * 7 + [_I] * 5 + [_F] + [_LL] * 3 + [_I] * 5 + [_P],
 }
 SOURCES = tuple(ARGTYPES)
 

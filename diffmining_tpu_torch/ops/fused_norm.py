@@ -35,6 +35,7 @@ from diffmining_tpu_torch.ops.flash_attention import _launch, _requires_grad
 
 ACTS = ("none", "silu")
 K_TILE = 64  # input channels a stage of w (the projection's K chunk): one 128-byte swizzle row
+TILE_N = 160  # output channels a tile of the projection (SD's widths 320, 640 and 1280 are multiples)
 STATS_THREADS = 512  # threads of a statistics block, one block per (batch, group)
 STATS_VEC = 8  # elements in a run of the statistics kernel
 STATS_UNROLL = 4  # runs a statistics thread loads at once and merges as one
@@ -46,25 +47,24 @@ MAX_STAGES = 6  # stages in the ring at most
 class Plan(NamedTuple):
     """The projection kernel's tiling: ``bm`` pixels a block (two
     warpgroups: 64 pixel rows each at 128, each half of a Cout tile at 64),
-    ``bn`` output channels a tile, each block ``Cout / bn / splits``
-    consecutive tiles, ``stages`` stages in its ring; ``ring``: the block
-    streams x through the ring beside w, 64 channels a stage, instead of
-    keeping a normalised [bm, C] slab."""
+    each block ``Cout / TILE_N / splits`` consecutive Cout tiles, ``stages``
+    stages in its ring; ``ring``: the block streams x through the ring
+    beside w, 64 channels a stage, instead of keeping a normalised [bm, C]
+    slab."""
     bm: int
-    bn: int
     splits: int
     stages: int
     ring: bool = False
 
 
-def smem_bytes(c: int, bm: int, bn: int, stages: int, ring: bool = False) -> int:
+def smem_bytes(c: int, bm: int, stages: int, ring: bool = False) -> int:
     """Dynamic shared memory of a projection block: 1024 bytes of alignment
     slack, the slab [bm, C] bf16 (none with ``ring``), the per-channel
-    (mean, rsig, gamma, beta) fp32, the ring (a stage: w [bn, 64], and x
-    [bm, 64] with ``ring``, bf16), a barrier per slab chunk and two per
+    (mean, rsig, gamma, beta) fp32, the ring (a stage: w [TILE_N, 64], and
+    x [bm, 64] with ``ring``, bf16), a barrier per slab chunk and two per
     stage."""
     slab = 0 if ring else bm * c * 2
-    return 1024 + slab + c * 16 + stages * (bn + (bm if ring else 0)) * K_TILE * 2 + 8 * MAX_CHUNKS + 16 * stages
+    return 1024 + slab + c * 16 + stages * (TILE_N + (bm if ring else 0)) * K_TILE * 2 + 8 * MAX_CHUNKS + 16 * stages
 
 
 def plan(b: int, n: int, c: int, cout: int, sms: int = 132) -> Plan:
@@ -79,12 +79,11 @@ def plan(b: int, n: int, c: int, cout: int, sms: int = 132) -> Plan:
     Cout tile and streams x through the ring beside w, normalising each
     64-channel chunk as it lands: 128 pixels a block, 64 where an image has
     no more."""
-    bn = 160 if cout % 160 == 0 else 64
-    tiles = cout // bn
+    tiles = cout // TILE_N
 
     def stages_at(bm, ring):
-        per = (bn + (bm if ring else 0)) * K_TILE * 2 + 16
-        return min(MAX_STAGES, (SMEM_LIMIT - smem_bytes(c, bm, bn, 0, ring)) // per)
+        per = (TILE_N + (bm if ring else 0)) * K_TILE * 2 + 16
+        return min(MAX_STAGES, (SMEM_LIMIT - smem_bytes(c, bm, 0, ring)) // per)
 
     if c // K_TILE <= MAX_CHUNKS and stages_at(128, False) >= 2:
         bm, stages = 128, stages_at(128, False)
@@ -93,14 +92,14 @@ def plan(b: int, n: int, c: int, cout: int, sms: int = 132) -> Plan:
         stages = stages_at(bm, True)
         if stages < 2:
             raise ValueError(f"gn_act_proj: C={c} leaves no room for a ring of stages in shared memory")
-        return Plan(bm, bn, tiles, stages, True)
+        return Plan(bm, tiles, stages, True)
     pixel_tiles = -(-n // bm)
 
     def cost(s):
         return -(-(pixel_tiles * b * s) // sms) * (tiles // s + 1)
 
     splits = min((s for s in range(1, tiles + 1) if tiles % s == 0), key=lambda s: (cost(s), s))
-    return Plan(bm, bn, splits, stages)
+    return Plan(bm, splits, stages)
 
 
 def _channels_contiguous(x: torch.Tensor) -> bool:
@@ -230,7 +229,7 @@ def gn_act_proj_tiled(x, gamma, beta, w, bias, groups: int, eps: float = 1e-6, a
     mean, rsig = group_stats_plain(x, groups, eps)
     xf = x.reshape(b, n, c)
     out = torch.zeros(b, n, cout, dtype=x.dtype, device=x.device)
-    per_block = cout // p.bn // p.splits
+    per_block = cout // TILE_N // p.splits
     kch, pixel_tiles = c // K_TILE, -(-n // p.bm)
     for bi in range(b):
         for px in range(pixel_tiles):
@@ -241,8 +240,8 @@ def gn_act_proj_tiled(x, gamma, beta, w, bias, groups: int, eps: float = 1e-6, a
                 for t in range(split * per_block, (split + 1) * per_block):
                     if t == skip_tile:
                         continue
-                    cols = slice(t * p.bn, (t + 1) * p.bn)
-                    acc = torch.zeros(h.shape[0], p.bn, dtype=torch.float32, device=x.device)
+                    cols = slice(t * TILE_N, (t + 1) * TILE_N)
+                    acc = torch.zeros(h.shape[0], TILE_N, dtype=torch.float32, device=x.device)
                     for i in range(kch):
                         k0 = (i + rot) % kch * K_TILE
                         acc = acc + h[:, k0:k0 + K_TILE] @ w[k0:k0 + K_TILE, cols].float()
@@ -274,9 +273,9 @@ def _check(x, gamma, beta, w, bias, groups: int) -> None:
     b, hh, ww, c = x.shape
     if w.ndim != 2 or w.shape[0] != c or gamma.shape != (c,) or beta.shape != (c,) or bias.shape != (w.shape[1],):
         raise ValueError(f"gn_act_proj: x {tuple(x.shape)}, w {tuple(w.shape)}, gamma/beta/bias do not agree")
-    if c % groups or c % K_TILE or w.shape[1] % 64:
+    if c % groups or c % K_TILE or w.shape[1] % TILE_N:
         raise ValueError(f"gn_act_proj: C={c} must divide into {groups} groups and be a multiple of {K_TILE}, "
-                         f"Cout={w.shape[1]} a multiple of 64")
+                         f"Cout={w.shape[1]} a multiple of {TILE_N}")
 
 
 def kernel_strides(x: torch.Tensor) -> Tuple[int, int, int]:
@@ -339,7 +338,7 @@ def gn_act_proj(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, w: tor
     flags = int(act == "silu") | gamma_f32 << 1
     _launch("gn_act_proj", x, x.data_ptr(), stats.data_ptr(), gamma_k.data_ptr(), beta_k.data_ptr(),
             wt.data_ptr(), bias_x.data_ptr(), out.data_ptr(), b, hh * ww, c, cout, groups, ctypes.c_float(eps),
-            sb, sn, sc, flags, p.bm, p.bn, p.splits, p.stages, int(p.ring))
+            sb, sn, sc, flags, p.bm, p.splits, p.stages, int(p.ring))
     gn_act_proj.launches += 1
     return out
 

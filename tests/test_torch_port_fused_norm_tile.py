@@ -117,12 +117,12 @@ def _over_bound(got, want, bias):
 
 
 @pytest.mark.parametrize("shape,tiling", [
-    # N 600 (a ragged 128-pixel tile), Cout 192 in 64-wide tiles, the plan's split, then three splits
-    ((2, 20, 30, 128, 192), None),
-    ((2, 20, 30, 128, 192), pfn.Plan(128, 64, 3, 2)),
-    # C 320 = Cout: 160-wide tiles, two splits, 64 pixels a block; then the ring's one tile a block
-    ((1, 10, 10, 320, 320), pfn.Plan(64, 160, 2, 2)),
-    ((1, 10, 10, 320, 320), pfn.Plan(128, 160, 2, 3, True)),
+    # N 600 (a ragged 128-pixel tile), Cout 320 in two 160-wide tiles: the plan's split, then two splits
+    ((2, 20, 30, 128, 320), None),
+    ((2, 20, 30, 128, 320), pfn.Plan(128, 2, 2)),
+    # C 320 = Cout, 64 pixels a block (each warpgroup half of a tile); then the ring's one tile a block
+    ((1, 10, 10, 320, 320), pfn.Plan(64, 1, 2)),
+    ((1, 10, 10, 320, 320), pfn.Plan(128, 2, 3, True)),
 ])
 @pytest.mark.parametrize("act", ["none", "silu"])
 def test_tiled_model_matches_plain(shape, tiling, act):
@@ -144,9 +144,9 @@ def test_plan_at_the_unet_entries():
     for n, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
         p = pfn.plan(8, n, c, c)
         assert 2 <= p.stages <= pfn.MAX_STAGES
-        assert pfn.smem_bytes(c, p.bm, p.bn, p.stages, p.ring) <= pfn.SMEM_LIMIT
-        assert pfn.smem_bytes(c, p.bm, p.bn, p.stages + 1, p.ring) > pfn.SMEM_LIMIT or p.stages == pfn.MAX_STAGES
-        assert (c // p.bn) % p.splits == 0
+        assert pfn.smem_bytes(c, p.bm, p.stages, p.ring) <= pfn.SMEM_LIMIT
+        assert pfn.smem_bytes(c, p.bm, p.stages + 1, p.ring) > pfn.SMEM_LIMIT or p.stages == pfn.MAX_STAGES
+        assert (c // pfn.TILE_N) % p.splits == 0
         got[n] = (p.bm, p.ring, p.splits, -(-n // p.bm) * 8 * p.splits)
     assert got == {4096: (128, False, 1, 256), 1024: (128, False, 2, 128), 256: (128, True, 8, 128),
                    64: (64, True, 8, 64)}
@@ -158,6 +158,7 @@ def test_constants_match_the_kernel_source():
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    assert const("K_TILE") == pfn.K_TILE and const("STATS_THREADS") == pfn.STATS_THREADS
+    assert const("K_TILE") == pfn.K_TILE and const("TILE_N") == pfn.TILE_N
+    assert const("STATS_THREADS") == pfn.STATS_THREADS
     assert const("SMEM_LIMIT") == pfn.SMEM_LIMIT and const("MAX_CHUNKS") == pfn.MAX_CHUNKS
     assert const("STATS_UNROLL") == pfn.STATS_UNROLL
