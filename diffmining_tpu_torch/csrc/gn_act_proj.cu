@@ -395,10 +395,10 @@ __device__ __forceinline__ void wgmma_ta(float (&d)[N / 2], uint64_t desc_a, uin
 
 // Shared memory of a block (ops/fused_norm.py smem_bytes), from a 1024-byte
 // boundary: the slab [BM x C] bf16 (x, then h; none with RING), the
-// per-channel (mean, rsig, gamma, beta), the ring of stages (w [BN x 64
+// per-channel (mean, rsig, gamma, beta), the ring of stages (w [160 x 64
 // channels], and with RING x [BM x 64 channels]), a barrier per slab chunk,
 // a full and an empty barrier per stage.
-template <bool CL, int BN, int BM, bool RING>
+template <bool CL, int BM, bool RING>
 __global__ void __launch_bounds__(THREADS + 32, 1)
     gn_act_proj_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
                        const __nv_bfloat16* __restrict__ x, const float* __restrict__ stats,
@@ -407,8 +407,8 @@ __global__ void __launch_bounds__(THREADS + 32, 1)
                        int Cout, long long x_sb, long long x_sn, long long x_sc, int flags, int tiles_per_block,
                        int nstage) {
   constexpr bool COLS = BM == 64;         // each warpgroup takes half of a tile's columns, not 64 of its rows
-  constexpr int WN = COLS ? BN / 2 : BN;  // output channels a warpgroup
-  constexpr int W_BYTES = BN * K_TILE * 2;
+  constexpr int WN = COLS ? TILE_N / 2 : TILE_N;  // output channels a warpgroup
+  constexpr int W_BYTES = TILE_N * K_TILE * 2;
   constexpr int X_BYTES = BM * K_TILE * 2;  // a K chunk of x
   constexpr int STAGE_BYTES = W_BYTES + (RING ? X_BYTES : 0);
   constexpr int PIECES = BM / 64;          // 64-pixel pieces of a chunk, 512 cells each
@@ -466,7 +466,7 @@ __global__ void __launch_bounds__(THREADS + 32, 1)
     const int st = j % nstage;
     const int kc = chunk_of(j);
     mbar_expect_tx(&full[st], W_BYTES + (RING && tma ? X_BYTES : 0));
-    tma_load_2d(ring + (size_t)st * STAGE_BYTES, &map_w, &full[st], kc * K_TILE, (tile0 + j / kch) * BN);
+    tma_load_2d(ring + (size_t)st * STAGE_BYTES, &map_w, &full[st], kc * K_TILE, (tile0 + j / kch) * TILE_N);
     if (RING && tma) fetch_x(kc, chunk_at(kc, st), &full[st]);
   };
   if (tid == 0) {
@@ -620,7 +620,7 @@ __global__ void __launch_bounds__(THREADS + 32, 1)
     // four 8-column blocks is transposed in the quad that holds its rows, so
     // each thread stores 16 bytes of a row, and a warp 64 contiguous bytes of
     // each of its 8 rows
-    const int co0 = (tile0 + tl) * BN + (COLS ? wg * WN : 0);
+    const int co0 = (tile0 + tl) * TILE_N + (COLS ? wg * WN : 0);
     auto out_pair = [&](int jb, int half) {  // bf16(bf16(acc) + bias) of two adjacent columns
       const float2 bv = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(bias + co0 + jb * 8 + tig * 2));
       const float2 o = unpack_bf16x2(pack_bf16x2(acc[4 * jb + 2 * half], acc[4 * jb + 2 * half + 1]));
@@ -666,15 +666,15 @@ cudaError_t sw128_map(CUtensorMap* map, const void* base, int rank, const cuuint
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <bool CL, int BN, int BM, bool RING>
+template <bool CL, int BM, bool RING>
 cudaError_t launch_proj(const void* x, const float* stats, const void* gamma, const void* beta, const void* w,
                         const void* bias, void* out, int B, int N, int C, int Cout, long long x_sb, long long x_sn,
                         long long x_sc, int flags, int splits, int nstage, cudaStream_t s) {
-  const auto kernel = gn_act_proj_kernel<CL, BN, BM, RING>;
+  const auto kernel = gn_act_proj_kernel<CL, BM, RING>;
   static bool ready[MAX_DEVICES];
   cudaError_t err = prepare(kernel, SMEM_LIMIT, ready);
   if (err != cudaSuccess) return err;
-  const int smem = 1024 + (RING ? 0 : BM * C * 2) + C * 16 + nstage * (BN + (RING ? BM : 0)) * K_TILE * 2 +
+  const int smem = 1024 + (RING ? 0 : BM * C * 2) + C * 16 + nstage * (TILE_N + (RING ? BM : 0)) * K_TILE * 2 +
                    8 * MAX_CHUNKS + 16 * nstage;
   if (smem > SMEM_LIMIT || (!RING && C / K_TILE > MAX_CHUNKS)) return cudaErrorInvalidValue;
   CUtensorMap mx, mw;
@@ -693,17 +693,17 @@ cudaError_t launch_proj(const void* x, const float* stats, const void* gamma, co
     }
     if (err != cudaSuccess) return err;
   }
-  {  // w [Cout, C], boxes of (64 channels, BN output channels)
+  {  // w [Cout, C], boxes of (64 channels, TILE_N output channels)
     const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)Cout};
     const cuuint64_t strides[1] = {(cuuint64_t)C * 2};
-    const cuuint32_t box[2] = {K_TILE, BN};
+    const cuuint32_t box[2] = {K_TILE, TILE_N};
     err = sw128_map(&mw, w, 2, dims, strides, box);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((N + BM - 1) / BM, splits, B);
   kernel<<<grid, THREADS + 32, smem, s>>>(mx, mw, static_cast<const __nv_bfloat16*>(x), stats, gamma, beta,
                                      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out), N, C,
-                                     Cout, x_sb, x_sn, x_sc, flags, Cout / BN / splits, nstage);
+                                     Cout, x_sb, x_sn, x_sc, flags, Cout / TILE_N / splits, nstage);
   return cudaGetLastError();
 }
 
@@ -713,9 +713,9 @@ cudaError_t launch_proj_tile(const void* x, const float* stats, const void* gamm
                              long long x_sn, long long x_sc, int flags, int bm, int splits, int nstage,
                              cudaStream_t s) {
   if (bm == 128)
-    return launch_proj<CL, TILE_N, 128, RING>(x, stats, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc,
+    return launch_proj<CL, 128, RING>(x, stats, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc,
                                               flags, splits, nstage, s);
-  return launch_proj<CL, TILE_N, 64, RING>(x, stats, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc, flags,
+  return launch_proj<CL, 64, RING>(x, stats, gamma, beta, w, bias, out, B, N, C, Cout, x_sb, x_sn, x_sc, flags,
                                            splits, nstage, s);
 }
 
@@ -737,7 +737,8 @@ extern "C" int gn_act_proj(const void* x, void* stats, const void* gamma, const 
                            long long x_sb, long long x_sn, long long x_sc, int flags, int bm, int splits,
                            int nstage, int ring, void* stream) {
   if (B <= 0 || N <= 0 || C % K_TILE != 0 || G <= 0 || C % G != 0 || (x_sn != 1 && x_sc != 1) ||
-      (bm != 64 && bm != 128) || Cout % TILE_N != 0 || splits <= 0 || (Cout / TILE_N) % splits != 0 || nstage < 1 || !aligned(w, 16) || !aligned(bias, 4))
+      (bm != 64 && bm != 128) || Cout % TILE_N != 0 || splits <= 0 || (Cout / TILE_N) % splits != 0 || nstage < 1 ||
+      !aligned(w, 16) || !aligned(bias, 4))
     return (int)cudaErrorInvalidValue;
   const long long group_span = x_sc == 1 ? (N - 1) * x_sn + C / G : (C / G - 1) * x_sc + N;
   if (group_span >= (1ll << 31)) return (int)cudaErrorInvalidValue;  // the statistics address a group in int
