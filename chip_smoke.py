@@ -62,8 +62,9 @@ back to the CPU):
      defaults twice: under the default modes (K1) and, on a freshly built
      bundle, under DIFFMINING_FUSED_NORM=1, DIFFMINING_FLASH_ONESHOT=0 and
      DIFFMINING_FLASH_NOMAX=0 (16 launches of K7 and 10 of K3 per UNet
-     pass); one modes-on UNet pass against float32, the DIFT feature maps of
-     the two modes against each other; every top patch in exactly one
+     pass); one modes-on UNet pass against float32, with its device busy
+     time and K7's part of it, the DIFT feature maps of the two modes
+     against each other; every top patch in exactly one
      cluster, clusters sorted by median D, member crops written.
 Then one JSON line each for the slice, the training run and the mining
 runs, one of per-kernel numbers, and as the last line {"ok": true,

@@ -8,9 +8,9 @@ mean of squared deviations) in both layouts the UNet hands the kernel and at
 a ragged pixel count, on data of unit scale and on data whose mean is large
 against its spread (300 + randn). The tolerances: |mean - jax| <= 2^-21
 max|x| (four fp32 ulps of the largest element: the same sums in another
-order) and |rsig / jax - 1| <= 2^-17. Measured 6.1e-5 (2^-22.3 of 304) and
-1.3e-6 on the large-mean data. A one-pass E[x^2] - E[x]^2 in fp32 is off by
-7e-3 in rsig there, and fails the same bound.
+order) and |rsig / jax - 1| <= 2^-17. A one-pass E[x^2] - E[x]^2 in fp32
+loses the variance's digits on the large-mean data and lands over 20x
+outside the rsig bound.
 
 ``gn_act_proj_tiled`` is the projection kernel's tiling (``plan``: pixel
 tiles x Cout splits x B, h normalised once a block, Cout tiles summed over
