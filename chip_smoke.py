@@ -10,9 +10,11 @@ back to the CPU):
   2. build: compile every kernel source in this checkout, one nvcc each, all
      started together; ptxas registers and spills of each instantiation;
      the HGMMA (wgmma) instructions in the SASS of every library;
-  3. kernels: the no-max forward (typicality) against its plain PyTorch
-     version at the sweep's shapes, masked key tails and the underflow
-     edge; CUDA-event times of the kernel, the plain version and one PyTorch
+  3. kernels: the no-max forward (K1/K2) against its plain PyTorch
+     version at the sweep's shapes, X-ray's (phase 9: K2 at B24 H8 L16384
+     D40, K1 at L4096 D80 and L1024 D160), PnP's injected q/k layout (phase
+     11: one source row broadcast and materialised), masked key tails and
+     the underflow edge; CUDA-event times of the kernel, the plain version and one PyTorch
      library call (a yardstick only), the kernel's and the library call's
      device times (torch.profiler), the least time the card could take,
      and beside it the exp2 work alone on the special-function units;
@@ -43,7 +45,9 @@ back to the CPU):
      time a step, its idle share and the busy time by kernel category); two
      steps under full gradient checkpointing (20 of K4 each); loss finite,
      parameters and EMA moved; the export through end_training() read
-     back; warm step ms, images/s and peak memory;
+     back; warm step ms, images/s and peak memory; then the trainer's
+     --log_previews path, sample() + save_logs(): one category's grid of 2
+     samples at 50 DDIM steps on the EMA weights (500 launches of K1);
   7. inference-mode kernels: K3 (online-softmax forward, no lse) at B8 H8
      L4096 D40, B8 H8 L1024 D80 and a masked tail at D160, and on the
      underflow edge, where it stays the softmax; K7 (fused GroupNorm ->
@@ -65,10 +69,26 @@ back to the CPU):
      pass); one modes-on UNet pass against float32, with its device busy
      time and K7's part of it, the DIFT feature maps of the two modes
      against each other; every top patch in exactly one
-     cluster, clusters sorted by median D, member crops written.
-Then one JSON line each for the slice, the training run and the mining
-runs, one of per-kernel numbers, and as the last line {"ok": true,
-"device": {...}}.
+     cluster, clusters sorted by median D, member crops written;
+  9. xray (one SD-v1.5 bundle, random weights, bf16, for phases 9-11):
+     XRayTypicality.main over 2 diseases x 4 synthetic 1024x1024 grayscale
+     PNGs with synthetic metadata and bbox tables, N=6 (cut from 100 for
+     time), chunk 3, groups of 4 (UNet batch 24): 5 launches of K2 (L=16384)
+     and 10 of K1 (L=4096 D80, L=1024 D160) per UNet pass; pixel maps of the
+     image's shape, finite, report.json and auc.json one finite value per
+     image; one 1024px UNet pass (one cond/null pair) against float32
+     through a query-chunked plain attention; imgs/hr at N=100 on one warm
+     group of 4;
+ 10. sampling: sample_ddim at 512px (2 prompts, 50 steps, CFG 7.5; 500
+     launches of K1), the VAE decode, one latent's decode against float32;
+ 11. pnp: Generator over 2 synthetic 512px sources: one inversion of the
+     stack over 999 steps, the reconstruction, 2 target prompts a source at
+     50 steps through the file protocol; launches of K1 and those on
+     injected q/k counted; injection on against off; seconds per source
+     image; K1 held on the injected q/k the path gave it.
+Then one JSON line each for the slice, the training run, the mining runs,
+X-ray, sampling and PnP, one of per-kernel numbers, and as the last line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -95,7 +115,7 @@ SM_MAX_MHZ = 0.0
 TRACE_CALLS = 20  # calls device_split reads from a trace
 TRACE_PAD = 5  # calls it traces but does not read, before and after those
 TRACE_ATTEMPTS = 5  # traces it takes before it gives up
-TRACE_SETTLE_S = 0.2  # host wait between starting a trace and the first call it traces
+TRACE_SETTLE_S = 0.2  # host wait between starting a trace and its first call; doubled at each retry
 # kernel vs plain, elementwise: |got - want| <= RTOL |want| + ATOL_RMS rms(want).
 # Both round the same fp32 result to bf16, so they differ by at most one bf16
 # ulp of the element (<= 2^-7 relative) where summation order or ex2.approx
@@ -210,22 +230,30 @@ def device_split(fn, name_part, launches=1, other=None):
     between the two spins in the device's own order. A trace can lose the
     records of the first kernels it sees (two calls' in a trace taken after
     the train phase, every call's in the first trace of a process, and at
-    times the first spin and all the calls read after the train phase), so
-    each trace waits TRACE_SETTLE_S after it starts before the first call;
-    and its device clock can sit over 1 ms off its host clock, so a
+    times the first spin and all the calls read after the train phase; the
+    first ~250 ms of device work in every trace of long calls after phases
+    1-8 ran, whatever the number of records), so each trace waits after it
+    starts before the first call, TRACE_SETTLE_S and twice as long at each
+    retry; and its device clock can sit over 1 ms off its host clock, so a
     host-side range cannot mark the calls. A trace that does not hold both
     spins, one launch of the named kernel a call read per launch a call and
     a kernel count that is a multiple of TRACE_CALLS is logged and taken
-    again."""
+    again. Where TRACE_ATTEMPTS traces lose records (they did late in a
+    run, after phase 6, with the same loss at every settle), a call's device
+    time comes from CUDA events around TRACE_CALLS calls queued behind a
+    spin kernel (``queued_device_ms``); that cannot split a call by kernel,
+    so the named and ``other`` parts are then None ("not measured"), except
+    for a call of one launch of one kernel, whose part is the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(TRACE_ATTEMPTS):
+    for attempt in range(TRACE_ATTEMPTS):
+        settle = TRACE_SETTLE_S * 2**attempt
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
-            time.sleep(TRACE_SETTLE_S)
+            time.sleep(settle)
             for _ in range(TRACE_PAD):
                 fn()
             torch.cuda._sleep(1000)
@@ -242,13 +270,44 @@ def device_split(fn, name_part, launches=1, other=None):
         named = [e.device_time_total for e in read if name_part in e.name]
         if read and len(read) % TRACE_CALLS == 0 and (not name_part or len(named) == launches * TRACE_CALLS):
             times = sum(e.device_time_total for e in read) / TRACE_CALLS / 1e3, sum(named) / len(named) / 1e3
+            if attempt:
+                log(f"  (the trace with a {settle:.1f} s settle holds them)")
             if other is None:
                 return times
             return (*times, sum(e.device_time_total for e in read if other in e.name) / TRACE_CALLS / 1e3)
-        log(f"  (a trace holds {len(spins)} of 2 spins (at records {spins} of {len(kernels)}) and {len(named)} "
-            f"launches of {name_part or 'any kernel'} between them for {TRACE_CALLS} calls of {launches}; "
+        log(f"  (a trace with a {settle:.1f} s settle holds {len(spins)} of 2 spins (at records {spins} of "
+            f"{len(kernels)}) and {len(named)} launches of {name_part or 'any kernel'} between them for {TRACE_CALLS} calls of {launches}; "
             "tracing again)")
-    raise AssertionError(f"{TRACE_ATTEMPTS} traces miss launches of {name_part or 'any kernel'} in the calls read")
+    busy = queued_device_ms(fn)
+    named = busy if launches == 1 and other is None and name_part else None
+    split = "" if named is not None else "; its split by kernel not measured"
+    log(f"  ({TRACE_ATTEMPTS} traces lost records: a call's device time by CUDA events around {TRACE_CALLS} calls "
+        f"queued behind a spin kernel instead, {busy:.4f} ms{split})")
+    return (busy, named) if other is None else (busy, named, None)
+
+
+def queued_device_ms(fn) -> float:
+    """Device time of one call of ``fn``: CUDA events around TRACE_CALLS
+    calls enqueued behind a spin kernel long enough that the host queues
+    them all before the device reaches the first, so the device never waits
+    for the host between them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(0.2 * SM_MAX_MHZ * 1e6))  # ~0.2 s of spinning
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(TRACE_CALLS):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / TRACE_CALLS
+
+
+def fmt(x, spec=".4f") -> str:
+    """A measured number, or "not measured"."""
+    return "not measured" if x is None else format(x, spec)
 
 
 def plain_chunked(plain, *ts):
@@ -358,21 +417,102 @@ def phase_build():
         log(f"  cuobjdump -sass {name}: {len(hgmma)} HGMMA, e.g. {hgmma[0]}")
 
 
-def phase_kernels():
+def p_flip_ratio(got, want, q, k, v) -> float:
+    """|kernel - plain| in units of the one-ulp bound widened by what one
+    flipped bf16 rounding of a row's largest p can move an output by
+    (tests/test_torch_port_cuda.py ``_over_p_flip_bound``, the card test's
+    bound for the fused-QKV view): either side's fp32 logits may round a
+    p = exp2(s) to the other bf16 neighbour, which moves o = sum p v / l by
+    ulp(p) (v - o) / l; per row, one bf16 ulp of the row's largest p (p in
+    float64 from the bf16 pre-scaled q, rounded to bf16) times max |v - o|
+    over the keys, over l. Over B*H slices whose float64 logits stay near
+    2 GiB."""
+    import torch
+
+    from diffmining_tpu_torch.ops.flash_attention import prescaled_q
+
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    per = max(1, (1 << 28) // (lq * lk))
+    qs = prescaled_q(q).reshape(b * h, lq, d)
+    kk, vv = k.reshape(b * h, lk, d), v.reshape(b * h, lk, d)
+    w = want.float().reshape(b * h, lq, d)
+    err = (got.float() - want.float()).reshape(b * h, lq, d).abs()
+    rms = float(w.pow(2).mean().sqrt())
+    worst = 0.0
+    for i in range(0, b * h, per):
+        sl = slice(i, i + per)
+        p = torch.exp2(qs[sl].double() @ kk[sl].double().transpose(-1, -2)).to(torch.bfloat16).double()
+        l_sum, pmax = p.sum(-1, keepdim=True), p.amax(-1, keepdim=True)
+        del p
+        ulp = torch.exp2(torch.floor(torch.log2(pmax)) - 7)
+        vd, wd = vv[sl].double(), w[sl].double()
+        spread = torch.maximum(vd.amax(-2, keepdim=True) - wd, wd - vd.amin(-2, keepdim=True))
+        tol = KERNEL_RTOL * w[sl].abs() + KERNEL_ATOL_RMS * rms + (ulp * spread / l_sum).float()
+        worst = max(worst, float((err[sl] / tol).max()))
+    return worst
+
+
+def nomax_case(name, q, k, v, flip_bound=False):
+    """The no-max forward (K1/K2) on q, k, v against its plain version, with
+    CUDA-event and device times of the kernel, the plain version and sdpa's
+    forward, and the bound. Returns (the numbers, a failure message or
+    None): a kernel that disagrees is timed all the same. The check is the
+    one-ulp bound, or with ``flip_bound`` the bound widened by one flipped
+    rounding of a row's largest p (``p_flip_ratio``); the one-ulp ratio is
+    recorded either way."""
     import torch
     import torch.nn.functional as F
+
+    from diffmining_tpu_torch.ops.flash_attention import flash_attention_nomax_plain, flash_fwd_nomax
+
+    b, h, l, d = q.shape
+    got = flash_fwd_nomax(q, k, v)
+    torch.cuda.synchronize()
+    want = plain_chunked(flash_attention_nomax_plain, q, k, v)
+    max_err, worst = kernel_error(got, want)
+    flip = p_flip_ratio(got, want, q, k, v) if flip_bound else None
+    failed = None
+    if (worst if flip is None else flip) > 1.0 or not torch.isfinite(got).all():
+        failed = (f"{name}: kernel disagrees with the plain version (max abs err {max_err}, {worst:.3g} x the "
+                  f"one-ulp tolerance, {flip} x the p-flip one)")
+    del got, want
+    ms = cuda_time_ms(lambda: flash_fwd_nomax(q, k, v))
+    plain_ms = cuda_time_ms(lambda: plain_chunked(flash_attention_nomax_plain, q, k, v), reps=3, warmup=1)
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    _, device_ms = device_split(lambda: flash_fwd_nomax(q, k, v), "flash_fwd_nomax_kernel")
+    lib_device, _ = device_split(lambda: F.scaled_dot_product_attention(q, k, v), "")
+    bound, by, exp2 = attention_bound(b, h, l, l, d)
+    flip_txt = "" if flip is None else f" ({flip:.3g} x the p-flip tolerance)"
+    log(f"kernel {name} B{b} H{h} L{l} D{d}: max|err| {max_err:.3g} = {worst:.3g} x tolerance{flip_txt} "
+        f"ms {ms:.4f}  device {device_ms:.4f}  plain {plain_ms:.3f}  sdpa {lib_ms:.4f} (device {lib_device:.4f})  "
+        f"bound {bound:.4f} ({by})  exp2 {exp2:.4f}")
+    torch.cuda.empty_cache()
+    out = dict(shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_device, library="sdpa forward",
+               bound_ms=bound, bound_by=by)
+    if flip is not None:
+        out["err_over_p_flip_tol"] = flip
+    return out, failed
+
+
+def projections(g, b, h, l, d):
+    """q, k, v as the UNet hands them over: [B, L, H*D] bf16 projections
+    viewed as [B, H, L, D]."""
+    import torch
+
+    return [torch.randn(b, l, h * d, generator=g, device=g.device).to(torch.bfloat16)
+            .view(b, l, h, d).transpose(1, 2) for _ in range(3)]
+
+
+def phase_kernels():
+    import torch
 
     from diffmining_tpu_torch.ops.flash_attention import flash_attention_nomax_plain, flash_fwd_nomax
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
-
-    def qkv(b, h, l, d):
-        # [B, L, H*D] projections viewed as [B, H, L, D], as the UNet hands them over
-        return [torch.randn(b, l, h * d, generator=g, device=dev).to(torch.bfloat16)
-                .view(b, l, h, d).transpose(1, 2) for _ in range(3)]
-
     cases = [
         ("K1 L4096 D40", (16, 8, 4096, 40)),
         ("K1 L1024 D80", (16, 8, 1024, 80)),
@@ -380,30 +520,33 @@ def phase_kernels():
         ("masked tail L1000 D40", (2, 8, 1000, 40)),
         ("masked tail L1100 D160", (2, 8, 1100, 160)),
     ]
+    # X-ray at 1024px: the sweep's self-attention batch, 4 images x 3 x 2
+    # (phase 9's path), at its three gated levels. These, and PnP's layout
+    # below, are held to the bound that allows one flipped bf16 rounding of
+    # a row's largest p (the card test's bound): on an H100, K1 at L1024
+    # D160 read 1.53x the one-ulp bound on this data (0.91x on another draw)
+    new_cases = [
+        ("K2 X-ray L16384 D40", (24, 8, 16384, 40)),
+        ("K1 X-ray L4096 D80", (24, 8, 4096, 80)),
+        ("K1 X-ray L1024 D160", (24, 8, 1024, 160)),
+    ]
     results, failed = {}, []
-    for name, (b, h, l, d) in cases:
-        q, k, v = qkv(b, h, l, d)
-        got = flash_fwd_nomax(q, k, v)
-        torch.cuda.synchronize()
-        want = plain_chunked(flash_attention_nomax_plain, q, k, v)
-        max_err, worst = kernel_error(got, want)
-        if worst > 1.0 or not torch.isfinite(got).all():  # timed all the same; the phase fails at its end
-            failed.append(f"{name}: kernel disagrees with the plain version (max abs err {max_err}, "
-                          f"{worst:.3g} x the tolerance)")
-        ms = cuda_time_ms(lambda: flash_fwd_nomax(q, k, v))
-        plain_ms = cuda_time_ms(lambda: plain_chunked(flash_attention_nomax_plain, q, k, v), reps=3, warmup=1)
-        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        _, device_ms = device_split(lambda: flash_fwd_nomax(q, k, v), "flash_fwd_nomax_kernel")
-        lib_device, _ = device_split(lambda: F.scaled_dot_product_attention(q, k, v), "")
-        bound, by, exp2 = attention_bound(b, h, l, l, d)
-        results[name] = dict(shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms,
-                             device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             library_device_ms=lib_device, library="sdpa forward", bound_ms=bound, bound_by=by)
-        log(f"kernel {name} B{b} H{h} L{l} D{d}: max|err| {max_err:.3g} = {worst:.3g} x tolerance "
-            f"ms {ms:.4f}  device {device_ms:.4f}  plain {plain_ms:.3f}  sdpa {lib_ms:.4f} (device {lib_device:.4f})  "
-            f"bound {bound:.4f} ({by})  exp2 {exp2:.4f}")
-        del q, k, v, got, want
-        torch.cuda.empty_cache()
+    for name, shape in cases + new_cases:
+        results[name], fail = nomax_case(name, *projections(g, *shape), flip_bound=(name, shape) in new_cases)
+        failed += [fail] if fail else []
+    # PnP's injected q/k (phase 11's path, up block 3 at 512px, 2 targets):
+    # one source row broadcast over the CFG batch of 4 and materialised, as
+    # the UNet's _apply_injection hands it over; v is the batch's own
+    # projection. Timed here, early: torch.profiler traces taken late in the
+    # process lose records (phase 11 holds the path's own q/k to the plain
+    # version)
+    q1, k1, v = projections(g, 4, 8, 4096, 40)
+    q, k = (t[:1].expand(4, -1, -1, -1).contiguous() for t in (q1, k1))
+    name = "K1 PnP injected q/k L4096 D40"
+    results[name], fail = nomax_case(name, q, k, v, flip_bound=True)
+    results[name].update(q_strides=list(q.stride()), v_strides=list(v.stride()))
+    failed += [fail] if fail else []
+    del q1, k1, q, k, v
     if failed:
         raise AssertionError("; ".join(failed))
 
@@ -513,7 +656,8 @@ def phase_slice(smi):
     log(f"slice: UNet pass (B={batch_images}x2, 512px) bf16+kernel vs float32+plain attention: "
         f"relative L2 error {rel:.4g} (limit {UNET_REL_L2}: bf16 rounding through the whole UNet)")
     log(f"slice: one UNet pass (batch {batch_images * 2}, dedup) {pass_ms:.2f} ms; device busy {busy_ms:.2f} ms, "
-        f"of which flash_fwd_nomax {10 * k1_ms:.2f} ms ({10 * k1_ms / busy_ms:.1%}; 10 launches)")
+        f"of which flash_fwd_nomax "
+        + ("not measured" if k1_ms is None else f"{10 * k1_ms:.2f} ms ({10 * k1_ms / busy_ms:.1%}; 10 launches)"))
 
     # the product setting, N=100, on one warm group of 8 images
     d100 = D(sd, os.path.join(work, "n100"), "ftt", N=100, t_min=0.1, t_max=0.9,
@@ -530,7 +674,7 @@ def phase_slice(smi):
     log(f"slice: N=100 sweep of {batch_images} images in {dt100:.2f} s = {imgs_hr_100:.1f} imgs/hr on {smi}")
     shutil.rmtree(work, ignore_errors=True)
     return launches, imgs_hr, imgs_hr_100, dict(unet_pass_ms=pass_ms, unet_pass_busy_ms=busy_ms,
-                                                 unet_pass_k1_ms=10 * k1_ms)
+                                                 unet_pass_k1_ms=None if k1_ms is None else 10 * k1_ms)
 
 
 def phase_train_kernels():
@@ -848,13 +992,34 @@ def phase_train(smi):
         raise AssertionError("train: the exported VAE or text encoder does not match the trainer's")
     log(f"train: end_training() exported the pipeline in {export_s:.1f} s; load_pipeline_dir reads it back, "
         "the UNet equal to the EMA weights")
+
+    # --log_previews: one category's preview grid of 2 samples (50 DDIM
+    # steps, CFG 7.5 against the domain's negative prompt, EMA weights)
+    fa.flash_fwd_nomax.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.save_logs(tr.sample(categories=["abbey"], num_samples=2))
+    torch.cuda.synchronize()
+    preview_s = time.perf_counter() - t0
+    preview_launches = fa.flash_fwd_nomax.launches
+    grid = os.path.join(args.output_dir, "plots", str(tr.global_step), "abbey.png")
+    from PIL import Image
+
+    with Image.open(grid) as im:
+        grid_size = im.size
+    if preview_launches != 10 * args.num_inference_steps or grid_size != (2 * px, px):
+        raise AssertionError(f"train preview: {preview_launches} launches of K1 (expected 10 a step, "
+                             f"{args.num_inference_steps} steps), grid {grid_size}")
+    log(f"train: sample() + save_logs(): {args.num_inference_steps}-step preview of 2 samples in {preview_s:.2f} s "
+        f"(EMA weights, bf16 autocast), K1 launched {preview_launches} times, grid {grid_size} written")
     del tr, batches, p
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return dict(steps=n_steps, batch=batch, px=px, losses=losses, step_ms=[x * 1e3 for x in step_s],
                 warm_step_ms=warm_ms, images_per_s=batch / warm_ms * 1e3, peak_gib=peak_gib,
                 remat_step_ms=remat_ms[1], remat_peak_gib=remat_peak_gib, launches=launches,
-                remat_launches=remat_launches, grad_rel_l2=rel, export_s=export_s, profile=profile, card=smi)
+                remat_launches=remat_launches, grad_rel_l2=rel, export_s=export_s, profile=profile,
+                preview_s=preview_s, preview_launches=preview_launches, card=smi)
 
 
 def phase_inference_kernels(smi):
@@ -991,8 +1156,8 @@ def phase_fused_norm(smi):
                                    device_ms=busy_ms, stats_device_ms=stats_ms, proj_device_ms=proj_ms)
         lib_txt = f"{lib_ms:.4f} (device {lib_device:.4f})" if lib_ms is not None else "-"
         log(f"kernel K7 {name} B{b} act={act}: max|err| {max_err:.3g} = {worst:.3g} x tolerance, statistics "
-            f"{mean_err:.3g} / {rsig_err:.3g}; ms {ms:.4f} (device {busy_ms:.4f} = statistics {stats_ms:.4f} + "
-            f"projection {proj_ms:.4f})  plain {plain_ms:.3f}  group_norm+conv2d {lib_txt}  bound {bound:.4f} ({by}) "
+            f"{mean_err:.3g} / {rsig_err:.3g}; ms {ms:.4f} (device {busy_ms:.4f} = statistics {fmt(stats_ms)} + "
+            f"projection {fmt(proj_ms)})  plain {plain_ms:.3f}  group_norm+conv2d {lib_txt}  bound {bound:.4f} ({by}) "
             f"on {smi}")
         del x, xv, got, want
         torch.cuda.empty_cache()
@@ -1010,8 +1175,8 @@ def modes_pass_times(sd2, x, t, ctx):
     pass_fn = lambda: sd2.unet(x, t, ctx, up_ft_indices=(1,))  # noqa: E731
     pass_ms = cuda_time_ms(pass_fn, reps=5, warmup=1)
     busy_ms, proj_ms, stats_ms = device_split(pass_fn, "gn_act_proj_kernel", launches=16, other="gn_stats_kernel")
-    return dict(pass_ms=pass_ms, busy_ms=busy_ms, k7_ms=16 * proj_ms + stats_ms, k7_proj_ms=proj_ms,
-                k7_stats_ms=stats_ms)
+    k7_ms = None if proj_ms is None else 16 * proj_ms + stats_ms
+    return dict(pass_ms=pass_ms, busy_ms=busy_ms, k7_ms=k7_ms, k7_proj_ms=proj_ms, k7_stats_ms=stats_ms)
 
 
 def phase_modes_pass(smi):
@@ -1049,7 +1214,8 @@ def phase_modes_pass(smi):
                 os.environ[k] = v
         fa._ONESHOT, fa._NOMAX = saved_gates
     log(f"modes-on UNet pass (B=8, 512px, t=161, tap): {times['pass_ms']:.3f} ms, device busy {times['busy_ms']:.3f} ms, "
-        f"K7 {times['k7_ms']:.4f} ms (16 projections x {times['k7_proj_ms']:.4f} + statistics {times['k7_stats_ms']:.4f}) "
+        f"K7 {fmt(times['k7_ms'])} ms (16 projections x {fmt(times['k7_proj_ms'])} + statistics "
+        f"{fmt(times['k7_stats_ms'])}) "
         f"on {smi}")
     del sd2
     torch.cuda.empty_cache()
@@ -1223,7 +1389,8 @@ def phase_mining(smi):
             raise AssertionError(f"modes-on UNet pass vs float32: relative L2 {rel} (eps), {tap_rel} (tap)")
         log(f"mining: modes-on UNet pass (B=8, 512px, t=161) vs float32 + plain attention + module path: relative "
             f"L2 {rel:.4g} (eps), {tap_rel:.4g} (up block 1 tap) (limit {UNET_REL_L2}); {pass_ms:.2f} ms a pass, "
-            f"device busy {pass_times['busy_ms']:.3f} ms, of which K7 {pass_times['k7_ms']:.3f} ms (16 calls) on {smi}")
+            f"device busy {pass_times['busy_ms']:.3f} ms, of which K7 {fmt(pass_times['k7_ms'], '.3f')} ms (16 calls) "
+            f"on {smi}")
     finally:
         for k, v in saved_env.items():
             if v is None:
@@ -1237,6 +1404,374 @@ def phase_mining(smi):
     return dict(labels=len(labels), images_per_label=per_label, px=px, N=N, feature=feature, sweep_s=sweep_s,
                 runs=runs, unet_rel_l2_modes=rel, tap_rel_l2_modes=tap_rel, dift_modes_rel_l2=dift_rel,
                 unet_pass_ms_modes=pass_ms, unet_pass_modes=pass_times, card=smi)
+
+
+def sdpa_query_chunked(q, k, v, mask=None, scale=None):
+    """sdpa_plain over query blocks whose float32 logits stay near 1 GiB: the
+    float32 reference at 1024px, where one L=16384 self-attention's logits
+    for all its rows would take 17 GB."""
+    import torch
+
+    from diffmining_tpu_torch.ops.attention import sdpa_plain
+
+    rows = max(1, (1 << 28) // (q.shape[0] * q.shape[1] * k.shape[2]))
+    return torch.cat([sdpa_plain(q[:, :, i:i + rows], k, v, mask, scale) for i in range(0, q.shape[2], rows)], dim=2)
+
+
+class RouteCounts:
+    """Counts the gated forwards by the TPU kernel they replace (K1, K2) and
+    the shapes each saw, by wrapping ``ops.attention.FORWARD``'s entries;
+    ``flash_fwd_nomax.launches`` counts the launches themselves. With
+    ``injected``, a K1 call whose q was made by the UNet's injection is
+    counted apart and its first (q, k, v) at ``keep_len`` kept."""
+
+    def __init__(self, injected=False, keep_len=4096):
+        from diffmining_tpu_torch.models import unet as unet_mod
+        from diffmining_tpu_torch.ops import attention
+
+        self.attention, self.unet_mod = attention, unet_mod
+        self.saved = dict(attention.FORWARD)
+        self.apply = unet_mod._apply_injection
+        self.counts = {"K1": 0, "K2": 0, "K1 injected": 0}
+        self.shapes = {"K1": set(), "K2": set()}
+        self.kept = None
+        for kind in ("K1", "K2"):
+            attention.FORWARD[kind] = self._counting(kind, self.saved[kind], keep_len)
+        if injected:
+            def marking(current, value):
+                out = self.apply(current, value)
+                if out is not current:
+                    out._injected = True  # a tensor attribute: the activation was replaced
+                return out
+
+            unet_mod._apply_injection = marking
+
+    def _counting(self, kind, fn, keep_len):
+        def call(q, k, v, scale=None):
+            self.counts[kind] += 1
+            self.shapes[kind].add(tuple(q.shape))
+            if getattr(q, "_injected", False):
+                self.counts[kind + " injected"] += 1
+                if self.kept is None and q.shape[2] == keep_len:
+                    self.kept = (q, k, v)
+            return fn(q, k, v, scale)
+        return call
+
+    def close(self):
+        self.attention.FORWARD.update(self.saved)
+        self.unet_mod._apply_injection = self.apply
+
+
+def xray_data(root, diseases, per_disease, px, seed):
+    """Synthetic grayscale PNGs with a findings table and a bbox table in
+    the CSV's coordinates, twice the image's: the loader halves them, and
+    every halved box lies inside the image."""
+    import csv
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "images"))
+    meta, boxes = [("Image Index", "Finding Labels")], [("Image Index", "Finding Label", "Bbox [x", "y", "w", "h]")]
+    for d in diseases:
+        for i in range(per_disease):
+            name = f"{d}_{i:03d}.png"  # unique across diseases: the draws key on the file name
+            Image.fromarray(rng.randint(0, 256, (px, px), dtype=np.uint8), mode="L").save(
+                os.path.join(root, "images", name), compress_level=1)
+            meta.append((name, d))
+            x, y = rng.uniform(0, 1.2 * px, 2)
+            w, h = rng.uniform(0.2 * px, 0.6 * px, 2)
+            boxes.append((name, d, f"{x:.2f}", f"{y:.2f}", f"{w:.2f}", f"{h:.2f}"))
+    for name, rows in (("metadata.csv", meta), ("BBox_List_2017.csv", boxes)):
+        with open(os.path.join(root, name), "w", newline="") as f:
+            csv.writer(f).writerows(rows)
+
+
+def phase_xray(smi, sd):
+    """X-ray localization at 1024px through XRayTypicality.main: 2 diseases x
+    4 synthetic images, N=6 (cut from 100 for time), chunk 3, groups of 4
+    (UNet batch 24); level 0 self-attends at L=16384 (K2). Phase 3 holds the
+    kernels at this path's shapes."""
+    import numpy as np
+    import torch
+
+    from diffmining_tpu_torch.applications.xray import XRayTypicality
+    from diffmining_tpu_torch.models import unet as unet_mod
+    from diffmining_tpu_torch.ops import flash_attention as fa
+    from diffmining_tpu_torch.ops.attention import sdpa
+
+    diseases, per, px, N, chunk, batch_images = ["Cardiomegaly", "Effusion"], 4, 1024, 6, 3, 4
+    work = os.path.join(ROOT, "build", "chip_smoke_xray")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "CXR8")
+    t0 = time.perf_counter()
+    xray_data(data, diseases, per, px, SEED + 10)
+    log(f"xray: {len(diseases)} diseases x {per} synthetic {px}x{px} grayscale PNGs with metadata.csv and "
+        f"BBox_List_2017.csv (numpy, seeded) written in {time.perf_counter() - t0:.1f} s")
+
+    xr = XRayTypicality(sd, data, os.path.join(work, "out"), diseases, N=N, chunk=chunk)
+    routes = RouteCounts()
+    fa.flash_fwd_nomax.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        report, auc = xr.main(batch_images=batch_images)
+        torch.cuda.synchronize()
+    finally:
+        routes.close()
+    main_s = time.perf_counter() - t0
+    launches = fa.flash_fwd_nomax.launches
+    passes = len(diseases) * math.ceil(per / batch_images) * (N // chunk)
+    if launches != 15 * passes or routes.counts["K2"] != 5 * passes or routes.counts["K1"] != 10 * passes:
+        raise AssertionError(f"xray: {launches} launches of flash_fwd_nomax, routes {routes.counts}; expected 5 of K2 "
+                             f"and 10 of K1 per UNet pass, {passes} passes")
+    log(f"xray: main() in {main_s:.1f} s (first run); flash_fwd_nomax launched {launches} times = 5 K2 + 10 K1 per "
+        f"UNet pass x {passes} passes; shapes K2 {sorted(routes.shapes['K2'])}, K1 {sorted(routes.shapes['K1'])}")
+    for d in diseases:
+        for fpath, _ in xr.parent[d]:
+            name = os.path.splitext(os.path.basename(fpath))[0]
+            dm = np.load(os.path.join(work, "out", d, "typicality", f"{name}_loss_pixel.npy"))
+            if dm.shape != (px, px) or not np.isfinite(dm).all():
+                raise AssertionError(f"xray: pixel map {name}: {dm.shape}, finite {np.isfinite(dm).all()}")
+        for table in (report, auc):
+            vals = table[d]
+            if len(vals) != per or not all(math.isfinite(x) for x in vals.values()):
+                raise AssertionError(f"xray: {d}: {vals}")
+    for name in ("report.json", "auc.json"):
+        if json.load(open(os.path.join(work, "out", name))) != (report if name == "report.json" else auc):
+            raise AssertionError(f"xray: {name} does not hold what main() returned")
+    log(f"xray: {len(diseases) * per} pixel maps [{px}, {px}] float32, all finite; report.json and auc.json hold "
+        f"one finite value per image; mean AUC-PR {np.mean([x for d in auc.values() for x in d.values()]):.4g}")
+
+    # one bf16 UNet pass at 1024px (one image: its cond/null pair) against
+    # float32 through a query-chunked plain attention
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 11)
+    x = torch.randn(1, 4, px // 8, px // 8, generator=g, device="cuda")
+    t = torch.randint(0, 1000, (1,), generator=g, device="cuda")
+    ctx = torch.stack([xr.embeds[diseases[0]], xr.embeds[""]])
+    with torch.inference_mode():
+        before = fa.flash_fwd_nomax.launches
+        eps16 = sd.unet(x, t, ctx, ctx_tile=2).float()
+        if fa.flash_fwd_nomax.launches - before != 15:
+            raise AssertionError("xray: the 1024px bf16 UNet pass did not launch the kernel 15 times")
+        unet_mod.sdpa = sdpa_query_chunked  # the kernels are bf16 only: this pass alone takes the plain softmax
+        try:
+            eps32 = sd.unet.float()(x, t, ctx, ctx_tile=2)
+        finally:
+            unet_mod.sdpa = sdpa
+            sd.unet.to(torch.bfloat16)
+    rel = rel_l2(eps16, eps32)
+    if not (torch.isfinite(eps16).all() and rel < UNET_REL_L2):
+        raise AssertionError(f"xray: 1024px UNet pass, bf16+kernels vs float32 plain: relative L2 error {rel}")
+    log(f"xray: UNet pass (1 image x cond/null, 1024px, t={int(t)}) bf16+kernels vs float32+plain attention: "
+        f"relative L2 error {rel:.4g} (limit {UNET_REL_L2})")
+    del eps16, eps32
+    torch.cuda.empty_cache()
+
+    # the product setting, N=100 (chunk snaps to 2: UNet batch 16), on one
+    # group of 4 after a warm-up pass of the same shapes
+    group = [p for p, _ in xr.parent[diseases[0]]][:batch_images]
+    XRayTypicality(sd, data, os.path.join(work, "warm"), diseases[:1], N=2, chunk=chunk).pixel_maps(diseases[0], group)
+    x100 = XRayTypicality(sd, data, os.path.join(work, "n100"), diseases[:1], N=100, chunk=chunk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = x100.pixel_maps(diseases[0], group)
+    torch.cuda.synchronize()
+    dt100 = time.perf_counter() - t0
+    if not all(m.shape == (px, px) and np.isfinite(m).all() for m in maps):
+        raise AssertionError("xray: an N=100 pixel map is not finite or not the image's shape")
+    imgs_hr_100 = batch_images / dt100 * 3600.0
+    log(f"xray: N=100 (chunk {x100.engine.chunk}, {100 // x100.engine.chunk} passes of UNet batch "
+        f"{batch_images * x100.engine.chunk * 2}) on one warm group of {batch_images} {px}px images in {dt100:.2f} s = "
+        f"{imgs_hr_100:.1f} imgs/hr on {smi}")
+
+    # one UNet pass of that grouping (8 unique rows, tiled to 16): its time,
+    # its device busy time and the no-max kernel's part (5 K2 + 10 K1)
+    rows = batch_images * x100.engine.chunk
+    x = torch.randn(rows, 4, px // 8, px // 8, generator=g, device="cuda")
+    t = torch.randint(0, 1000, (rows,), generator=g, device="cuda")
+    ctx = torch.stack([xr.embeds[diseases[0]], xr.embeds[""]]).repeat(rows, 1, 1)
+    with torch.inference_mode():
+        pass_fn = lambda: sd.unet(x, t, ctx, ctx_tile=2)  # noqa: E731
+        pass_ms = cuda_time_ms(pass_fn, reps=5, warmup=1)
+        busy_ms, nomax_ms = device_split(pass_fn, "flash_fwd_nomax_kernel", launches=15)
+    nomax_txt = "not measured" if nomax_ms is None else f"{15 * nomax_ms:.2f} ms ({15 * nomax_ms / busy_ms:.1%})"
+    log(f"xray: one 1024px UNet pass (batch {2 * rows}, dedup) {pass_ms:.2f} ms; device busy {busy_ms:.2f} ms, of "
+        f"which flash_fwd_nomax (5 K2 + 10 K1) {nomax_txt} on {smi}")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(diseases=len(diseases), images_per_disease=per, px=px, N=N, chunk=chunk, batch_images=batch_images,
+                main_s=main_s, launches=launches, routes={k: routes.counts[k] for k in ("K1", "K2")}, passes=passes,
+                unet_rel_l2=rel, imgs_per_hr_n100=imgs_hr_100, n100_s=dt100, unet_pass_ms=pass_ms,
+                unet_pass_busy_ms=busy_ms, unet_pass_nomax_ms=None if nomax_ms is None else 15 * nomax_ms, card=smi)
+
+
+DECODE_REL_L2 = 5e-2  # bf16 rounding through the decoder's ~30 convolutions, as UNET_REL_L2 for the UNet
+
+
+def phase_sampling(smi, sd):
+    """sample_ddim at 512px: 2 prompts, 50 steps, CFG 7.5, then the VAE
+    decode; one latent's decode against float32."""
+    import torch
+
+    from diffmining_tpu_torch.diffusion.sampling import sample_ddim
+    from diffmining_tpu_torch.ops import flash_attention as fa
+
+    px, steps, prompts = 512, 50, ["Chest X-Ray with Cardiomegaly.", "Chest X-Ray with Effusion."]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 13)
+    lat = torch.randn(len(prompts), 4, px // 8, px // 8, generator=g, device="cuda")
+    with torch.inference_mode():
+        cond = sd.clip(torch.from_numpy(sd.tokenizer(prompts)).long().cuda())
+        uncond = sd.clip(torch.from_numpy(sd.tokenizer([""] * len(prompts))).long().cuda())
+
+    def eps_fn(x, t, c):
+        return sd.unet(x.to(sd.dtype), t, c)
+
+    routes = RouteCounts()
+    fa.flash_fwd_nomax.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with torch.inference_mode():
+            z = sample_ddim(eps_fn, sd.schedule, lat, cond, uncond, num_inference_steps=steps, guidance_scale=7.5)
+            images = sd.vae.decode(z)
+        torch.cuda.synchronize()
+    finally:
+        routes.close()
+    sample_s = time.perf_counter() - t0
+    launches = fa.flash_fwd_nomax.launches
+    if launches != 10 * steps or routes.counts["K1"] != 10 * steps or routes.counts["K2"] != 0:
+        raise AssertionError(f"sampling: {launches} launches, routes {routes.counts}; expected 10 of K1 a step")
+    if tuple(images.shape) != (len(prompts), 3, px, px) or not torch.isfinite(images).all():
+        raise AssertionError(f"sampling: decoded images {tuple(images.shape)}, "
+                             f"finite {bool(torch.isfinite(images).all())}")
+    with torch.inference_mode():
+        sd.vae.float()
+        try:
+            ref = sd.vae.decode(z[:1].float())
+        finally:
+            sd.vae.to(sd.dtype)
+    rel = rel_l2(images[:1], ref)
+    if not rel < DECODE_REL_L2:
+        raise AssertionError(f"sampling: bf16 decode vs float32: relative L2 error {rel}")
+    log(f"sampling: sample_ddim ({len(prompts)} prompts, {steps} steps, CFG 7.5, {px}px) + decode in {sample_s:.2f} s; "
+        f"K1 launched {launches} times (10 a step); images finite; one latent's bf16 decode vs float32: relative L2 "
+        f"{rel:.4g} (limit {DECODE_REL_L2}) on {smi}")
+    return dict(prompts=len(prompts), steps=steps, px=px, sample_s=sample_s, launches=launches, decode_rel_l2=rel,
+                card=smi)
+
+
+def phase_pnp(smi, sd):
+    """PnP through Generator's file protocol: 2 synthetic 512px sources
+    inverted as one stack over 999 steps, reconstructed, and translated to 2
+    target prompts each at 50 steps; then K1 held on the injected q/k it
+    received."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diffmining_tpu_torch.applications.pnp import PNP, Generator
+    from diffmining_tpu_torch.ops import flash_attention as fa
+
+    px, n_src, targets = 512, 2, ["France", "Japan"]
+    work = os.path.join(ROOT, "build", "chip_smoke_pnp")
+    shutil.rmtree(work, ignore_errors=True)
+    src_dir, out = os.path.join(work, "base", "France"), os.path.join(work, "parallel", "France")
+    os.makedirs(src_dir)
+    rng = np.random.RandomState(SEED + 14)
+    paths = []
+    for i in range(n_src):
+        paths.append(os.path.join(src_dir, f"id_{i:03d}_0.png"))
+        Image.fromarray(rng.randint(0, 256, (px, px, 3), dtype=np.uint8)).save(paths[-1], compress_level=1)
+
+    routes = RouteCounts(injected=True)
+    fa.flash_fwd_nomax.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        gen = Generator(sd, paths)  # 999 inversion steps, 50 translation steps
+        torch.cuda.synchronize()
+        invert_s = time.perf_counter() - t0
+        gen.plotum(out, targets, batch_size=len(targets))
+        torch.cuda.synchronize()
+    finally:
+        routes.close()
+    total_s = time.perf_counter() - t0
+    launches, pnp = fa.flash_fwd_nomax.launches, gen.pnp
+    n, inv = pnp.n_timesteps, pnp.inversion_steps
+    passes = 2 * inv + n_src * (n + int(n * pnp.pnp_f_t))  # inversion, reconstruction, CFG + source passes
+    injected = n_src * int(n * pnp.pnp_attn_t) * 6  # q/k injected at up.2 (L1024) and up.3 (L4096), 3 blocks each
+    if launches != 10 * passes or routes.counts["K1"] != 10 * passes or routes.counts["K1 injected"] != injected:
+        raise AssertionError(f"pnp: {launches} launches, routes {routes.counts}; expected 10 of K1 per UNet pass x "
+                             f"{passes} passes, {injected} of them on injected q/k")
+    files = set(os.listdir(out))
+    for i in range(n_src):
+        want = {f"gt--France_{i:03d}_0.png", f"inverted--France_{i:03d}_0.png", f"projected--France_{i:03d}_0.png",
+                f"Japan_{i:03d}_0.png"}
+        if not want <= files:
+            raise AssertionError(f"pnp: missing {sorted(want - files)}")
+    if not (torch.isfinite(pnp._trajectory).all() and torch.isfinite(pnp._source_latent).all()):
+        raise AssertionError("pnp: the inversion is not finite")
+    log(f"pnp: Generator over {n_src} sources ({px}px): inversion ({inv} steps, batch {n_src}) {invert_s:.1f} s; "
+        f"plotum (reconstruction, {len(targets)} targets a source at {n} steps) done at {total_s:.1f} s = "
+        f"{total_s / n_src:.1f} s per source image on {smi}; K1 launched {launches} times over {passes} UNet passes, "
+        f"{routes.counts['K1 injected']} of them on injected q/k; files {sorted(files)}")
+
+    # injection on against off (pnp_f_t = pnp_attn_t = 0), same trajectory
+    with torch.inference_mode():
+        on = pnp.translate(["Japan"], source=0)
+        off_pnp = PNP(sd, pnp_f_t=0.0, pnp_attn_t=0.0)
+        off_pnp._trajectory, off_pnp._source_latent = pnp._trajectory, pnp._source_latent
+        off = off_pnp.translate(["Japan"], source=0)
+    moved = rel_l2(on, off)
+    if not (torch.isfinite(on).all() and torch.isfinite(off).all() and moved > 1e-3):
+        raise AssertionError(f"pnp: injection on vs off: relative L2 difference {moved}")
+    log(f"pnp: translation with injection against pnp_f_t = pnp_attn_t = 0: relative L2 difference {moved:.4g}; "
+        "both finite")
+
+    # one inversion step's UNet pass (batch 2): its time and device busy time
+    xs = pnp._source_latent
+    ts = torch.full((n_src,), 500, device="cuda", dtype=torch.long)
+    with torch.inference_mode():
+        ctx = pnp.embed([""]).expand(n_src, -1, -1).to(sd.dtype)
+        inv_fn = lambda: sd.unet(xs, ts, ctx)  # noqa: E731
+        inv_pass_ms = cuda_time_ms(inv_fn, reps=10, warmup=2)
+        inv_busy_ms, _ = device_split(inv_fn, "flash_fwd_nomax_kernel", launches=10)
+    log(f"pnp: one inversion UNet pass (batch {n_src}, 512px) {inv_pass_ms:.2f} ms by events, device busy "
+        f"{inv_busy_ms:.2f} ms: idle share {max(0.0, 1 - inv_busy_ms / inv_pass_ms):.3f}; the path took "
+        f"{invert_s / inv * 1e3:.1f} ms a step of its inversion")
+
+    # K1 on the first injected q/k the path gave it at L=4096 (the broadcast
+    # source q/k, materialised), against its plain version; phase 3 times
+    # the same layout
+    from diffmining_tpu_torch.ops.flash_attention import flash_attention_nomax_plain
+
+    q, k, v = routes.kept
+    if 0 in q.stride() or 0 in k.stride():
+        raise AssertionError(f"pnp: injected q/k reach the kernel with a zero stride: {q.stride()}, {k.stride()}")
+    got = fa.flash_fwd_nomax(q, k, v)
+    want = plain_chunked(flash_attention_nomax_plain, q, k, v)
+    max_err, worst = kernel_error(got, want)
+    flip = p_flip_ratio(got, want, q, k, v)
+    if flip > 1.0 or not torch.isfinite(got).all():
+        raise AssertionError(f"pnp: K1 on the injected q/k disagrees with the plain version ({worst:.3g} x the "
+                             f"one-ulp tolerance, {flip:.3g} x the p-flip one)")
+    injected_check = dict(shape=list(q.shape), q_strides=list(q.stride()), k_strides=list(k.stride()),
+                          v_strides=list(v.stride()), max_abs_err=max_err, err_over_tol=worst,
+                          err_over_p_flip_tol=flip)
+    log(f"pnp: K1 on the path's injected q/k {tuple(q.shape)} (q strides {q.stride()}, v strides {v.stride()}) "
+        f"against its plain version: max|err| {max_err:.3g} = {worst:.3g} x the one-ulp tolerance, {flip:.3g} x "
+        "the p-flip one")
+    del routes, q, k, v, got, want
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(sources=n_src, px=px, targets=len(targets), inversion_steps=inv, steps=n, invert_s=invert_s,
+                total_s=total_s, s_per_source=total_s / n_src, launches=launches, passes=passes,
+                injected_launches=injected, injection_rel_l2=moved, injected_check=injected_check,
+                inversion_pass_ms=inv_pass_ms, inversion_pass_busy_ms=inv_busy_ms, card=smi)
 
 
 TRAIN_KERNELS = {
@@ -1254,6 +1789,24 @@ INFERENCE_KERNELS = {  # kind: (wrapper, source, the TPU kernel, the main shape)
     "K7": ("gn_act_proj", "diffmining_tpu_torch/csrc/gn_act_proj.cu",
            "diffmining_tpu/ops/fused_norm.py:27 (_gn_act_matmul_kernel, via gn_act_proj :44)", "N4096 C320"),
 }
+
+
+def apps_bundle():
+    """The SD-v1.5 bundle of phases 9-11: random weights from SEED, bf16."""
+    import torch
+
+    from diffmining_tpu_torch.models.clip import CLIP_VIT_L_TEXT
+    from diffmining_tpu_torch.models.unet import SD15_UNET
+    from diffmining_tpu_torch.models.vae import SD15_VAE
+    from diffmining_tpu_torch.typicality.compute import SD
+
+    t0 = time.perf_counter()
+    sd = SD.init_random("xray", [], SD15_UNET, SD15_VAE, CLIP_VIT_L_TEXT, seed=SEED, dtype=torch.bfloat16,
+                        device="cuda")
+    torch.cuda.synchronize()
+    log(f"apps: SD-v1.5 widths (UNet, VAE with its decoder, CLIP ViT-L text), random weights (seed {SEED}), bf16, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    return sd
 
 
 def kernel_entry(name, source, replaces, launches, cases, main_case):
@@ -1284,11 +1837,21 @@ def main() -> int:
     train = phase_train(smi)
     infer_kern = phase_inference_kernels(smi)
     mining = phase_mining(smi)
+    sd = apps_bundle()
+    xray = phase_xray(smi, sd)
+    sampling = phase_sampling(smi, sd)
+    pnp = phase_pnp(smi, sd)
+    del sd
 
-    entries = [kernel_entry(
+    by_path = {"sweep": launches, "xray": xray["launches"], "sampling": sampling["launches"],
+               "train preview": train["preview_launches"], "pnp": pnp["launches"]}
+    nomax = kernel_entry(
         "flash_fwd_nomax", "diffmining_tpu_torch/csrc/flash_fwd_nomax.cu",
         "diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot); "
-        "diffmining_tpu/ops/flash_attention.py:250 (_flash_kernel_t_nomax)", launches, kern, "K1 L4096 D40")]
+        "diffmining_tpu/ops/flash_attention.py:250 (_flash_kernel_t_nomax)", sum(by_path.values()),
+        kern, "K1 L4096 D40")
+    nomax["launches_by_path"] = by_path
+    entries = [nomax]
     for kind, (name, source, replaces) in TRAIN_KERNELS.items():
         entries.append(kernel_entry(name, source, replaces, train["launches"][name], train_kern[kind], "L4096 D40"))
     for kind, (name, source, replaces, main_case) in INFERENCE_KERNELS.items():
@@ -1298,6 +1861,9 @@ def main() -> int:
                                 "card": smi}}))
     print(json.dumps({"train": train}))
     print(json.dumps({"mining": mining}))
+    print(json.dumps({"xray": xray}))
+    print(json.dumps({"sampling": sampling}))
+    print(json.dumps({"pnp": pnp}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -4,10 +4,15 @@
     typicality  typicality sweep (typicality/compute.py CLI)
     cluster     mining: patch tables, DIFT features, k-means, ranked
                 clusters and figures (typicality/cluster.py CLI)
+    xray        X-ray localization eval (applications/xray.py CLI)
+    pnp         PnP translation (applications/pnp.py CLI)
+    html        figure-tree HTML report: html FIGURES_DIR [OUTPUT_DIR] [NC]
+    fidelity    compare typicality artifact trees: --ours A --theirs B
 
-Each runs on the GPU unless given --device cpu. The JAX package's other
-commands (pnp, parallel, xray, doersch, clipmining, html, fidelity,
-verify_checkpoint) come with later slices of the port.
+finetune, typicality, cluster, xray and pnp run on the GPU unless given
+--device cpu; html and fidelity are file and numpy work on the host. The
+JAX package's other commands (parallel, doersch, clipmining,
+verify_checkpoint) are not ported yet (ROADMAP.md section A).
 """
 from __future__ import annotations
 
@@ -43,8 +48,25 @@ def main(argv=None) -> None:
         from diffmining_tpu_torch.typicality.cluster import main as m
 
         m(rest)
+    elif cmd == "xray":
+        from diffmining_tpu_torch.applications.xray import main as m
+
+        m(rest)
+    elif cmd == "pnp":
+        from diffmining_tpu_torch.applications.pnp import main as m
+
+        m(rest)
+    elif cmd == "html":
+        from diffmining_tpu_torch.typicality.make_html import main as m
+
+        m(rest)
+    elif cmd == "fidelity":
+        from diffmining_tpu_torch.utils.fidelity import main as m
+
+        m(rest)
     else:
-        raise SystemExit(f"unknown command {cmd!r}; this port has: finetune, typicality, cluster")
+        raise SystemExit(f"unknown command {cmd!r}; this port has: finetune, typicality, cluster, xray, pnp, "
+                         "html, fidelity")
 
 
 if __name__ == "__main__":

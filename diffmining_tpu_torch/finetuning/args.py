@@ -100,7 +100,8 @@ def parser_base() -> argparse.ArgumentParser:
     # misc parity flags
     p.add_argument("--random_subset", type=int, default=None)
     p.add_argument("--num_samples_log", type=int, default=5)
-    p.add_argument("--log_previews", action="store_true", help="not ported yet (ROADMAP A10)")
+    p.add_argument("--log_previews", action="store_true",
+                   help="DDIM preview grids of the domain's prompts at each logging step and at the end")
     p.add_argument("--guidance_scale", type=float, default=7.5)
     p.add_argument("--num_inference_steps", type=int, default=50)
     return p
@@ -115,8 +116,6 @@ def check_supported(args) -> None:
         missing.append("--lora: ROADMAP A11a")
     if args.use_8bit_adam:
         missing.append("--use_8bit_adam: ROADMAP A11b")
-    if args.log_previews:
-        missing.append("--log_previews (needs the DDIM sampler and the VAE decoder): ROADMAP A10")
     if missing:
         raise NotImplementedError("not ported to the PyTorch package yet: " + "; ".join(missing))
 

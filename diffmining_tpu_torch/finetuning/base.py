@@ -3,9 +3,12 @@ diffmining_tpu/finetuning/base.py; reference finetuning/base.py and the
 per-domain trainers cars.py/ftt.py/geo.py/places.py, xray/finetune.py).
 
 One trainer covers every domain; the per-domain deltas (dataset, prompts,
-crop) live in datasets.py and ``RESOLUTIONS``; the sampling prompts of the
-reference's previews come with them (ROADMAP A10). Two
-checkpoint tiers, as in the reference (SURVEY.md §5.4):
+crop) live in datasets.py and ``DOMAINS`` (the crop size and the preview
+prompts). ``--log_previews`` samples each preview category with DDIM and
+classifier-free guidance (``sample``) at every logging step and at the
+end, and ``save_logs`` writes one grid a category under
+``{output_dir}/plots/{step}/``. Two checkpoint tiers, as in the reference
+(SURVEY.md §5.4):
 
   * training checkpoints ``checkpoint-{N}/state.pt`` (``torch.save`` of the
     UNet parameters, optimizer state and EMA; N counts optimizer steps),
@@ -36,6 +39,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from diffmining_tpu_torch.diffusion.sampling import sample_ddim
 from diffmining_tpu_torch.finetuning.args import check_supported
 from diffmining_tpu_torch.finetuning.datasets import DATASETS, BatchIterator, Loader
 from diffmining_tpu_torch.finetuning.train import (
@@ -48,9 +52,11 @@ from diffmining_tpu_torch.finetuning.train import (
 from diffmining_tpu_torch.models.clip import CLIPTextModel
 from diffmining_tpu_torch.models.tokenizer import CLIPTokenizer, tiny_tokenizer
 from diffmining_tpu_torch.models.unet import UNet2DCondition
-from diffmining_tpu_torch.models.vae import DECODER_PREFIXES, AutoencoderKL
+from diffmining_tpu_torch.models.vae import AutoencoderKL
 from diffmining_tpu_torch.utils.device import resolve_device
 from diffmining_tpu_torch.utils.export import save_pipeline_dir
+from diffmining_tpu_torch.utils.figures import hcat
+from diffmining_tpu_torch.utils.images import tensor_to_images
 from diffmining_tpu_torch.utils.observability import MetricsLogger, StepTimer
 from diffmining_tpu_torch.utils.weights import (
     _read_json,
@@ -66,17 +72,42 @@ CKPT = re.compile(r"checkpoint-(\d+)$")
 CKPT_TMP = re.compile(r"checkpoint-\d+\.tmp-\d+$")  # save_checkpoint's temporary names
 
 
-# each domain's crop size when --resolution is not given (reference
-# cars.py, ftt.py: 256; geo.py, places.py, xray/finetune.py: 512)
-RESOLUTIONS: Dict[str, int] = {"cars": 256, "ftt": 256, "geo": 512, "places": 512, "xray": 512}
+@dataclasses.dataclass(frozen=True)
+class DomainSpec:
+    """A domain's preview prompts and its crop size when --resolution is not
+    given (the JAX package's DomainSpec, finetuning/base.py:48)."""
+
+    sample_categories: tuple
+    sample_prompt: str  # .format(c=category)
+    negative_prompt: str
+    resolution: int
+
+
+DOMAINS: Dict[str, DomainSpec] = {
+    # reference cars.py:107,246
+    "cars": DomainSpec(("1880", "1940", "1980", "2000", "2010"), "A car at the {c}s.", "A car", 256),
+    # ftt.py:97,242
+    "ftt": DomainSpec(("1880", "1920", "1940", "1960", "1980", "2000"),
+                      "A face portrait from the {c}s.", "A face portrait", 256),
+    # geo.py:111,255
+    "geo": DomainSpec(("France", "Japan", "United States", "Brazil", "India", "Italy", "Nigeria", "Russia",
+                       "Thailand", "United Kingdom"),
+                      "A google street view image in {c}", "A google street view image", 512),
+    # places.py:254
+    "places": DomainSpec((), "An image of {c}.", "", 512),
+    # xray/finetune.py
+    "xray": DomainSpec(("no finding", "Cardiomegaly", "Effusion", "Pneumonia"),
+                       "Chest X-Ray with {c}.", "Chest X-Ray.", 512),
+}
 
 
 class BaseTrainer:
     def __init__(self, which: str, args, sd=None, load: Optional[Loader] = None):
         check_supported(args)
-        if which not in RESOLUTIONS:
-            raise ValueError(f"unknown domain {which!r}; expected one of {sorted(RESOLUTIONS)}")
+        if which not in DOMAINS:
+            raise ValueError(f"unknown domain {which!r}; expected one of {sorted(DOMAINS)}")
         self.which = which
+        self.spec = DOMAINS[which]
         self.args = args
         self.device = resolve_device(args.device)
         self.load = load
@@ -86,7 +117,6 @@ class BaseTrainer:
 
     def _init_models(self, sd=None):
         args = self.args
-        self.vae_decoder: Dict[str, torch.Tensor] = {}  # the base's decoder tensors, exported as they are
         self.base_dir = None
         if sd is not None:
             self.unet, self.vae, self.clip = sd.unet, sd.vae, sd.clip
@@ -100,8 +130,7 @@ class BaseTrainer:
             self.unet = UNet2DCondition(p["unet"]["config"])
             load_state(self.unet, p["unet"]["state_dict"])
             self.vae = AutoencoderKL(p["vae"]["config"])
-            load_state(self.vae, p["vae"]["state_dict"], ignore_prefixes=DECODER_PREFIXES)
-            self.vae_decoder = {k: v for k, v in p["vae"]["state_dict"].items() if k.startswith(DECODER_PREFIXES)}
+            load_state(self.vae, p["vae"]["state_dict"])
             self.clip = CLIPTextModel(p["text_encoder"]["config"])
             load_state(self.clip, p["text_encoder"]["state_dict"])
             self.schedule = p["schedule"]
@@ -137,7 +166,7 @@ class BaseTrainer:
 
             ids = random.Random(42).sample(range(len(ds)), args.random_subset)
             ds.items = [ds.items[i] for i in ids]
-        ds.resolution = args.resolution or RESOLUTIONS[self.which]
+        ds.resolution = args.resolution or self.spec.resolution
         self.train_dataset = ds
         self.loader = BatchIterator(ds, args.train_batch_size, seed=args.seed)
 
@@ -289,6 +318,55 @@ class BaseTrainer:
         logger.info("Resumed from %s at optimizer step %d", path, self.global_step)
 
     # ------------------------------------------------------------------
+    # previews (reference cars.py:235-255)
+    # ------------------------------------------------------------------
+
+    def _embed(self, prompts: List[str]) -> torch.Tensor:
+        return self.clip(torch.from_numpy(self.tokenizer(prompts)).long().to(self.device))
+
+    @torch.no_grad()
+    def sample(self, categories=None, num_samples=None, steps=None, seed=42, guidance_scale=None,
+               latents: Optional[torch.Tensor] = None) -> Dict[str, list]:
+        """{category: PIL images}: ``num_samples`` DDIM samples (``steps``,
+        classifier-free guidance against the domain's negative prompt) of
+        the domain's preview prompt, on the EMA weights under --use_ema.
+        The starting latents come from a generator seeded with ``seed``
+        (one draw shared by every category), or ``latents``."""
+        args = self.args
+        categories = categories or self.spec.sample_categories
+        num_samples = num_samples or args.num_samples_log
+        steps = steps or args.num_inference_steps
+        guidance_scale = guidance_scale if guidance_scale is not None else args.guidance_scale
+        params = self.builder.dense_params(self.state, use_ema=args.use_ema)
+        if latents is None:
+            res = (args.resolution or self.spec.resolution) // 8
+            g = torch.Generator(device=self.device)
+            g.manual_seed(seed)
+            latents = torch.randn((num_samples, self.unet.config.in_channels, res, res), generator=g,
+                                  device=self.device)
+
+        def eps_fn(x, t, ctx):
+            return torch.func.functional_call(self.unet, params, (x, t, ctx))
+
+        logs = {}
+        with self.builder._autocast(self.device):
+            for c in categories:
+                ctx = self._embed([self.spec.sample_prompt.format(c=c)] * num_samples)
+                nctx = self._embed([self.spec.negative_prompt] * num_samples)
+                z = sample_ddim(eps_fn, self.schedule, latents.to(self.device), ctx, nctx,
+                                num_inference_steps=steps, guidance_scale=guidance_scale)
+                logs[c] = tensor_to_images(self.vae.decode(z))
+        return logs
+
+    def save_logs(self, logs: Dict[str, list]) -> None:
+        """One grid a category, the samples side by side, under
+        ``{output_dir}/plots/{global_step}/``."""
+        plot_dir = join(self.args.output_dir, "plots", str(self.global_step))
+        os.makedirs(plot_dir, exist_ok=True)
+        for k, v in logs.items():
+            hcat([p.convert("RGB") for p in v]).save(join(plot_dir, f"{k}.png"))
+
+    # ------------------------------------------------------------------
 
     def end_training(self) -> str:
         args = self.args
@@ -296,7 +374,7 @@ class BaseTrainer:
         save_pipeline_dir(
             export_dir,
             self.unet.config, self.builder.dense_params(self.state, use_ema=args.use_ema),
-            self.vae.config, {**self.vae.state_dict(), **self.vae_decoder},
+            self.vae.config, self.vae.state_dict(),
             self.clip.config, self.clip.state_dict(),
             self.schedule,
             tokenizer_src_dir=join(self.base_dir, "tokenizer") if self.base_dir else None,
@@ -348,10 +426,14 @@ class BaseTrainer:
                         logger.info("step %d loss %.4f", self.global_step, mean_loss)
                         metrics.log(self.global_step, train_loss=mean_loss, epoch=epoch,
                                     steps_per_sec=timer.steps_per_sec())
+                        if args.log_previews:
+                            self.save_logs(self.sample())
                     if self.global_step >= args.max_train_steps:
                         done = True
                         break
                 if done:
                     break
+        if args.log_previews:
+            self.save_logs(self.sample())
         self.save_checkpoint(self.global_step)
         return self.end_training()

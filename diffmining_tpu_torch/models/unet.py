@@ -21,14 +21,32 @@ upsampler, as the JAX dict (unet.py:687-703). ``UNetConfig.fused_norm``
 (set by the SD bundle on CUDA under ``DIFFMINING_FUSED_NORM=1``) sends
 every SpatialTransformer entry, GroupNorm → proj_in, through
 ``ops.fused_norm.gn_act_proj`` with the same state-dict keys; it is
-forward only. The PnP injection comes with the PnP slice.
+forward only.
+
+PnP's injection and collection contract (JAX unet.py:14-28, 48-54):
+``forward(..., collect_injection=True)`` returns the taps under "taps", and
+``forward(..., injection={...})`` replaces them. Keys:
+
+  "up.{i}.res.{j}"      resnet j of up block i: its residual branch (after
+                        conv2, before the shortcut add), [B, C, H, W];
+  "{path}.attn1.q/.k"   a transformer block's self-attention q and k after
+                        the head split, canonical [B, H, L, D], where
+                        {path} is "down.{i}.tf.{j}.{k}", "mid.tf.{k}" or
+                        "up.{i}.tf.{j}.{k}" (k the block in the transformer).
+
+A value broadcasts over the batch (a batch-1 source tap feeds every row)
+and is cast to the activation's dtype; a ``(value, gate)`` tuple replaces
+the activation only where the scalar boolean ``gate`` (a Python bool or a
+0-d tensor) is true. Injection composes with ``ctx_tile`` for batch-1
+values; collection needs ``ctx_tile=1``. The channel-major transformer world
+(``DIFFMINING_TF_CMAJOR``) is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -38,6 +56,32 @@ from diffmining_tpu_torch.ops.attention import sdpa
 from diffmining_tpu_torch.ops.fused_norm import gn_act_proj
 
 REMAT_POLICIES = ("full", "attn", "dots")
+
+Injection = Dict[str, Any]  # key -> value, or (value, scalar bool gate)
+
+
+def _apply_injection(current: torch.Tensor, injected) -> torch.Tensor:
+    """``current`` replaced by the injected value broadcast to its shape, in
+    its dtype; a ``(value, gate)`` tuple replaces it only where the gate is
+    true. The broadcast is materialised (a dense tensor, never a stride-0
+    batch view), so injected q/k reach the attention kernels in a layout
+    they are tested on."""
+    gate = True
+    if isinstance(injected, tuple):
+        injected, gate = injected
+    value = injected.to(current.dtype).expand(current.shape)
+    if isinstance(gate, torch.Tensor):
+        return torch.where(gate.to(current.device), value, current)
+    return value.contiguous() if gate else current
+
+
+def _tap(h: torch.Tensor, tap: str, injection: Optional[Injection], collect: Optional[Dict[str, torch.Tensor]]):
+    """Inject into and collect the activation named ``tap``."""
+    if injection is not None and tap in injection:
+        h = _apply_injection(h, injection[tap])
+    if collect is not None:
+        collect[tap] = h
+    return h
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,11 +158,14 @@ class ResnetBlock2D(nn.Module):
         self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
         self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
-    def forward(self, x, temb=None):
+    def forward(self, x, temb=None, tap: str = "", injection: Optional[Injection] = None, collect=None):
         h = self.conv1(F.silu(self.norm1(x)))
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
         h = self.conv2(F.silu(self.norm2(h)))
+        if tap:
+            # PnP's residual-branch tap: each row then adds its own shortcut
+            h = _tap(h, tap, injection, collect)
         sc = x if self.conv_shortcut is None else self.conv_shortcut(x)
         return sc + h
 
@@ -135,7 +182,7 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(cross_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, tap: str = "", injection: Optional[Injection] = None, collect=None):
         ctx = x if context is None else context
         b, lq, _ = x.shape
         lk = ctx.shape[1]
@@ -144,6 +191,9 @@ class Attention(nn.Module):
         q = self.to_q(x).view(b, lq, self.heads, self.dim_head).transpose(1, 2)
         k = self.to_k(ctx).view(b, lk, self.heads, self.dim_head).transpose(1, 2)
         v = self.to_v(ctx).view(b, lk, self.heads, self.dim_head).transpose(1, 2)
+        if tap:
+            q = _tap(q, f"{tap}.q", injection, collect)
+            k = _tap(k, f"{tap}.k", injection, collect)
         out = sdpa(q, k, v).transpose(1, 2).reshape(b, lq, self.heads * self.dim_head)
         return self.to_out[0](out)
 
@@ -178,8 +228,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context, ctx_tile: int = 1):
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x, context, ctx_tile: int = 1, tap: str = "", injection: Optional[Injection] = None,
+                collect=None):
+        x = x + self.attn1(self.norm1(x), tap=f"{tap}.attn1" if tap else "", injection=injection, collect=collect)
         if ctx_tile > 1:
             # sweep prefix dedup: conditions first matter at the cross-
             # attention, so tile the batch here — entry i -> rows
@@ -201,7 +252,8 @@ class Transformer2DModel(nn.Module):
         )
         self.proj_out = nn.Conv2d(ch, ch, 1)
 
-    def forward(self, x, context, ctx_tile: int = 1, fused_norm: bool = False):
+    def forward(self, x, context, ctx_tile: int = 1, fused_norm: bool = False, tap: str = "",
+                injection: Optional[Injection] = None, collect=None):
         b, c, h, w = x.shape
         res = x
         if fused_norm:
@@ -214,7 +266,8 @@ class Transformer2DModel(nn.Module):
         else:
             y = self.proj_in(self.norm(x)).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for i, blk in enumerate(self.transformer_blocks):
-            y = blk(y, context, ctx_tile=ctx_tile if i == 0 else 1)
+            y = blk(y, context, ctx_tile=ctx_tile if i == 0 else 1, tap=f"{tap}.{i}" if tap else "",
+                    injection=injection, collect=collect)
         if ctx_tile > 1:
             # the first block tiled the batch; tile the entry residual to match
             b = b * ctx_tile
@@ -337,9 +390,13 @@ class UNet2DCondition(nn.Module):
         encoder_hidden_states: torch.Tensor,  # [B*ctx_tile, L, cross_dim]
         ctx_tile: int = 1,
         up_ft_indices: Tuple[int, ...] = (),
+        injection: Optional[Injection] = None,
+        collect_injection: bool = False,
     ):
-        """eps prediction [B*ctx_tile, C, H, W]; with ``up_ft_indices`` the
-        dict {"sample": eps, "up_ft": {i: up block i's output}}.
+        """eps prediction [B*ctx_tile, C, H, W]; with ``up_ft_indices`` or
+        ``collect_injection`` the dict {"sample": eps}, plus "up_ft": {i: up
+        block i's output} and "taps": {key: activation} (the PnP contract,
+        module docstring).
 
         ctx_tile > 1 (sweep prefix dedup): ``sample``/``timesteps`` carry the
         B unique (image, sample) rows and ``encoder_hidden_states`` the
@@ -348,6 +405,17 @@ class UNet2DCondition(nn.Module):
         tiled at the first cross-attention."""
         cfg = self.config
         dtype = self.conv_in.weight.dtype
+        collect: Optional[Dict[str, torch.Tensor]] = {} if collect_injection else None
+        if ctx_tile > 1:
+            if collect_injection:
+                raise ValueError("tap collection sees the pre-tile batch layout; collect with ctx_tile=1")
+            for key, val in (injection or {}).items():
+                val = val[0] if isinstance(val, tuple) else val
+                if val.shape[0] != 1:
+                    # a batch-1 value is layout-independent: injecting before
+                    # the tile equals injecting after it; a wider one is not
+                    raise ValueError(f"injection[{key!r}] has batch {val.shape[0]}; with ctx_tile > 1 only "
+                                     "batch-1 values compose")
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(sample.shape[0])
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift)
@@ -359,15 +427,19 @@ class UNet2DCondition(nn.Module):
         def tile_carry(temb, skips):
             return temb.repeat_interleave(pending, 0), [s.repeat_interleave(pending, 0) for s in skips]
 
-        res_call, tf_call = _remat_calls(self.remat_policy if torch.is_grad_enabled() and ctx_tile == 1 else None)
+        # remat applies to the plain eps path only, as in JAX
+        plain = ctx_tile == 1 and injection is None and not collect_injection
+        res_call, tf_call = _remat_calls(self.remat_policy if torch.is_grad_enabled() and plain else None)
         fused = cfg.fused_norm
+        taps = dict(injection=injection, collect=collect)
 
         skips: List[torch.Tensor] = [x]
-        for blk in self.down_blocks:
+        for i, blk in enumerate(self.down_blocks):
             for j, res in enumerate(blk.resnets):
                 x = res_call(res, x, temb)
                 if blk.attentions is not None:
-                    x = tf_call(blk.attentions[j], x, context, ctx_tile=pending or 1, fused_norm=fused)
+                    x = tf_call(blk.attentions[j], x, context, ctx_tile=pending or 1, fused_norm=fused,
+                                tap=f"down.{i}.tf.{j}", **taps)
                     if pending:
                         # the first transformer tiled the batch inside; bring
                         # temb and the collected skips along
@@ -380,7 +452,7 @@ class UNet2DCondition(nn.Module):
 
         mid = self.mid_block
         x = res_call(mid.resnets[0], x, temb)
-        x = tf_call(mid.attentions[0], x, context, ctx_tile=pending or 1, fused_norm=fused)
+        x = tf_call(mid.attentions[0], x, context, ctx_tile=pending or 1, fused_norm=fused, tap="mid.tf", **taps)
         if pending:  # no down block carried attention: tile at mid
             temb, skips = tile_carry(temb, skips)
             pending = 0
@@ -389,9 +461,9 @@ class UNet2DCondition(nn.Module):
         up_ft = {}
         for i, blk in enumerate(self.up_blocks):
             for j, res in enumerate(blk.resnets):
-                x = res_call(res, torch.cat([x, skips.pop()], dim=1), temb)
+                x = res_call(res, torch.cat([x, skips.pop()], dim=1), temb, tap=f"up.{i}.res.{j}", **taps)
                 if blk.attentions is not None:
-                    x = tf_call(blk.attentions[j], x, context, fused_norm=fused)
+                    x = tf_call(blk.attentions[j], x, context, fused_norm=fused, tap=f"up.{i}.tf.{j}", **taps)
             if blk.upsamplers is not None:
                 x = blk.upsamplers[0](x, skips[-1].shape[2:])
             # DIFT taps the whole up block's output, after its upsampler
@@ -400,7 +472,14 @@ class UNet2DCondition(nn.Module):
                 up_ft[i] = x
 
         eps = self.conv_out(F.silu(self.conv_norm_out(x)))
-        return {"sample": eps, "up_ft": up_ft} if up_ft_indices else eps
+        if not (up_ft_indices or collect_injection):
+            return eps
+        out = {"sample": eps}
+        if up_ft_indices:
+            out["up_ft"] = up_ft
+        if collect_injection:
+            out["taps"] = collect
+        return out
 
 
 def _call(mod, *args, **kwargs):

@@ -1,11 +1,13 @@
-"""SD-v1.5 AutoencoderKL encoder and posterior draw in PyTorch (counterpart of
-diffmining_tpu/models/vae.py).
+"""SD-v1.5 AutoencoderKL in PyTorch (counterpart of
+diffmining_tpu/models/vae.py): the encoder, the posterior draw and the
+decoder.
 
 diffusers state-dict keys, NCHW. ``encode`` returns the posterior (mean,
 clamped logvar); ``sample_latent`` draws from it with the noise passed in, so
-the caller owns the random stream. The decoder comes with the sampling slice:
-a checkpoint's ``decoder.*`` and ``post_quant_conv.*`` tensors are set aside
-by the loader (``DECODER_PREFIXES``).
+the caller owns the random stream. ``decode`` maps scaled latents back to
+images in [-1, 1] (post_quant_conv, then the decoder: a mid block, up blocks
+with nearest x2 upsampling). The mid blocks' single-head attention (D = 512)
+is off the flash kernels' gate, so ``sdpa`` runs ``sdpa_plain`` for it.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import torch.nn.functional as F
 from diffmining_tpu_torch.models.unet import ResnetBlock2D
 from diffmining_tpu_torch.ops.attention import sdpa
 
+# the decoder's state-dict prefixes: load_state(..., ignore_prefixes=...)
+# with these loads an encoder-only checkpoint
 DECODER_PREFIXES = ("decoder.", "post_quant_conv.")
 
 
@@ -120,12 +124,67 @@ class Encoder(nn.Module):
         return self.conv_out(F.silu(self.conv_norm_out(x)))
 
 
+class _Upsample(nn.Module):
+    """Nearest x2, then a 3x3 conv (diffusers Upsample2D in the VAE)."""
+
+    def __init__(self, ch):
+        super().__init__()
+        self.conv = nn.Conv2d(ch, ch, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class _UpBlock(nn.Module):
+    def __init__(self, in_ch, out_ch, layers, groups, add_upsample):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D(in_ch if j == 0 else out_ch, out_ch, None, groups, 1e-6) for j in range(layers)]
+        )
+        self.upsamplers = nn.ModuleList([_Upsample(out_ch)]) if add_upsample else None
+
+    def forward(self, x):
+        for res in self.resnets:
+            x = res(x)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0](x)
+        return x
+
+
+class Decoder(nn.Module):
+    """conv_in -> mid block -> up blocks (reversed widths, layers_per_block
+    + 1 resnets each, x2 between levels) -> GN -> SiLU -> conv_out."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        rev = tuple(reversed(cfg.block_out_channels))
+        self.conv_in = nn.Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
+        self.mid_block = _Mid(rev[0], cfg.norm_num_groups)
+        self.up_blocks = nn.ModuleList()
+        ch = rev[0]
+        for i, out_ch in enumerate(rev):
+            self.up_blocks.append(
+                _UpBlock(ch, out_ch, cfg.layers_per_block + 1, cfg.norm_num_groups, add_upsample=i < len(rev) - 1)
+            )
+            ch = out_ch
+        self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, rev[-1], eps=1e-6)
+        self.conv_out = nn.Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
+
+    def forward(self, z):
+        x = self.mid_block(self.conv_in(z))
+        for blk in self.up_blocks:
+            x = blk(x)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+
 class AutoencoderKL(nn.Module):
     def __init__(self, config: VAEConfig = SD15_VAE):
         super().__init__()
         self.config = config
         self.encoder = Encoder(config)
         self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
+        self.decoder = Decoder(config)
+        self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1)
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B, 3, H, W] in [-1, 1] -> posterior (mean, logvar clamped to
@@ -133,6 +192,12 @@ class AutoencoderKL(nn.Module):
         moments = self.quant_conv(self.encoder(x.to(self.quant_conv.weight.dtype)))
         mean, logvar = moments.chunk(2, dim=1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Scaled latents [B, latent, h, w] -> images [B, 3, 8h, 8w] in the
+        module's dtype (about [-1, 1])."""
+        z = (z.float() / self.config.scaling_factor).to(self.post_quant_conv.weight.dtype)
+        return self.decoder(self.post_quant_conv(z))
 
     forward = encode
 

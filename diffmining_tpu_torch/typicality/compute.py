@@ -34,7 +34,7 @@ from diffmining_tpu_torch.diffusion.schedule import Schedule, make_schedule
 from diffmining_tpu_torch.models.clip import CLIP_VIT_L_TEXT, CLIPTextConfig, CLIPTextModel
 from diffmining_tpu_torch.models.tokenizer import CLIPTokenizer, tiny_tokenizer
 from diffmining_tpu_torch.models.unet import SD15_UNET, UNet2DCondition, UNetConfig
-from diffmining_tpu_torch.models.vae import DECODER_PREFIXES, SD15_VAE, AutoencoderKL, VAEConfig, sample_latent
+from diffmining_tpu_torch.models.vae import SD15_VAE, AutoencoderKL, VAEConfig, sample_latent
 from diffmining_tpu_torch.typicality.engine import SeededDraws, TypicalityEngine, losses_to_reference_layout
 from diffmining_tpu_torch.typicality.templates import get_decade, typicality_prompts
 from diffmining_tpu_torch.utils.artifacts import atomic_save_npy
@@ -131,7 +131,7 @@ class SD:
         unet = UNet2DCondition(p["unet"]["config"])
         load_state(unet, p["unet"]["state_dict"])
         vae = AutoencoderKL(p["vae"]["config"])
-        load_state(vae, p["vae"]["state_dict"], ignore_prefixes=DECODER_PREFIXES)
+        load_state(vae, p["vae"]["state_dict"])
         clip = CLIPTextModel(p["text_encoder"]["config"])
         load_state(clip, p["text_encoder"]["state_dict"])
         return cls(which, unet, vae, clip, tokenizer, p["schedule"], list(categories), dtype, device)
@@ -167,6 +167,20 @@ class SD:
 
 
 Loader = Callable[[str], np.ndarray]
+
+
+def sweep_images(sd: SD, engine: TypicalityEngine, draws: Callable, images: torch.Tensor, uids: Sequence[int],
+                 ctx: torch.Tensor) -> torch.Tensor:
+    """One same-shape group through the sweep: encode ``images`` [B, 3, H,
+    W] in [-1, 1], draw each image's posterior eps and (eps, t) pairs with
+    ``draws(uid, latent_shape)``, sample the latents and sweep them against
+    ``ctx`` ([B, n_cond, L, D] or [n_cond, L, D]): losses [B, N, n_cond, C,
+    h, w] fp16 on the device."""
+    mean, logvar = sd.encode_moments(images)
+    drawn = [draws(u, tuple(mean.shape[1:])) for u in uids]
+    posterior, noises, ts = (torch.stack([d[i] for d in drawn]).to(sd.device) for i in range(3))
+    latents = sample_latent(mean, logvar, posterior, sd.vae.config.scaling_factor)
+    return engine.compute(latents, ctx, noises, ts)
 
 
 class D:
@@ -314,11 +328,7 @@ class D:
         uids = [image_uid(p) for p in paths]
         images = torch.from_numpy(np.stack([g[2] for g in group])).permute(0, 3, 1, 2)
         ctx = torch.stack([self._ctx_pair(g[1]) for g in group])
-        mean, logvar = sd.encode_moments(images)
-        drawn = [self.draws(u, tuple(mean.shape[1:])) for u in uids]
-        posterior, noises, ts = (torch.stack([d[i] for d in drawn]).to(sd.device) for i in range(3))
-        latents = sample_latent(mean, logvar, posterior, sd.vae.config.scaling_factor)
-        losses = self.engine.compute(latents, ctx, noises, ts)  # [B,N,2,C,h,w]
+        losses = sweep_images(sd, self.engine, self.draws, images, uids, ctx)  # [B,N,2,C,h,w]
         host = losses[:n_real].to("cpu", non_blocking=True)
         done = None
         if losses.is_cuda:

@@ -33,3 +33,7 @@ def atomic_save_npy(path: str, arr: np.ndarray) -> None:
 
 def atomic_save_pickle(path: str, obj: Any) -> None:
     _atomic_write(path, lambda f: pickle.dump(obj, f))
+
+
+def atomic_save_npz(path: str, **arrays: np.ndarray) -> None:
+    _atomic_write(path, lambda f: np.savez(f, **arrays))

@@ -66,3 +66,18 @@ def image_uid(path: str) -> int:
     """Stable per-image RNG uid from the basename (so recomputation and
     sharded workers agree); equal to diffmining_tpu's for every path."""
     return binascii.crc32(os.path.basename(path).encode("utf-8"))
+
+
+def array_to_image(arr: np.ndarray):
+    """[H, W, 3] in [-1, 1] -> PIL RGB (values clipped, rounded)."""
+    from PIL import Image
+
+    arr = np.clip((np.asarray(arr, dtype=np.float32) + 1.0) / 2.0, 0.0, 1.0)
+    return Image.fromarray((arr * 255.0).round().astype(np.uint8))
+
+
+def tensor_to_images(images) -> list:
+    """A [B, 3, H, W] tensor in [-1, 1] (any device, any dtype) -> B PIL RGB
+    images."""
+    arr = images.detach().float().permute(0, 2, 3, 1).cpu().numpy()
+    return [array_to_image(a) for a in arr]

@@ -104,12 +104,14 @@ def to_state_dict(arrays: Dict[str, np.ndarray]) -> StateDict:
 
 def load_state(module: torch.nn.Module, state: StateDict, ignore_prefixes: Iterable[str] = ()) -> None:
     """load_state_dict that raises on any missing or unexpected key, except
-    tensors under ``ignore_prefixes`` (parts a later slice ports)."""
+    keys under ``ignore_prefixes``, which are neither loaded nor required
+    (an encoder-only load of the VAE passes ``DECODER_PREFIXES``)."""
     ignore = tuple(ignore_prefixes)
     state = {k: v for k, v in state.items() if not k.startswith(ignore)}
     # transformers checkpoints may carry the position_ids buffer; it is derived
     state.pop("text_model.embeddings.position_ids", None)
     missing, unexpected = module.load_state_dict(state, strict=False)
+    missing = [k for k in missing if not k.startswith(ignore)] if ignore else missing
     if missing or unexpected:
         raise KeyError(f"state dict does not fit {type(module).__name__}: missing={missing} unexpected={unexpected}")
 
