@@ -81,14 +81,38 @@ back to the CPU):
      group of 4;
  10. sampling: sample_ddim at 512px (2 prompts, 50 steps, CFG 7.5; 500
      launches of K1), the VAE decode, one latent's decode against float32;
- 11. pnp: Generator over 2 synthetic 512px sources: one inversion of the
-     stack over 999 steps, the reconstruction, 2 target prompts a source at
-     50 steps through the file protocol; launches of K1 and those on
-     injected q/k counted; injection on against off; seconds per source
-     image; K1 held on the injected q/k the path gave it.
+ 11. pnp: Generator over 2 synthetic 512px sources (one in France, one in
+     Japan): one inversion of the stack over 999 steps, the reconstruction,
+     2 target prompts a source at 50 steps through the file protocol;
+     launches of K1 and those on injected q/k counted; injection on against
+     off; seconds per source image; K1 held on the injected q/k the path
+     gave it. Its files stay for phase 13;
+ 12. train_lora_8bit (after phase 11): phase 6's trainer with
+     --use_8bit_adam on the dense UNet (a cold and a warm step: int8
+     moments, step ms, peak allocated beside phase 6's, the optimizer
+     state's bytes), then with --lora --lora_rank 4 --use_8bit_adam: the
+     level-0 attn1 factor gradients (b drawn nonzero) of the bf16+kernels
+     pass against float32 through the plain attention; 2 steps, then 2
+     under full gradient checkpointing, each launching 10 of K4 (20 under
+     checkpointing), K5 and K6; only the factors and their EMA move, the
+     base UNet bit for bit unchanged; the export equal to merge_lora of the
+     EMA factors;
+ 13. parallel (a geo SD-v1.5 bundle, random weights, bf16, for phases
+     13-14): phase 11's files as a parallel dataset (each source under its
+     country), ParallelTypicality at N=4 (cut from 100 for time) over every
+     ground-truth and translated file, then df_PD and
+     ParallelCluster.clustering("dift-161"): rows from every source group,
+     finite country-major embeddings, clusters ranked by median D, K1
+     launches against the UNet and DIFT passes, the wall time;
+ 14. clip: CLIPRankCluster at ViT-L/14-336 widths with the ViT-L/14 text
+     tower (random weights) on 2 countries x 16 synthetic 512px images,
+     batch 8, the command's constants: tower images/s, the clustering wall,
+     the device scoring path against the host path; then cluster's
+     clip+dift-161 mode over phase 8's top patches with a ViT-B/32-width
+     tower; no attention of a tower reaches a kernel (K1 only for DIFT).
 Then one JSON line each for the slice, the training run, the mining runs,
-X-ray, sampling and PnP, one of per-kernel numbers, and as the last line
-{"ok": true, "device": {...}}.
+X-ray, sampling, PnP, train_lora_8bit, parallel and clip, one of per-kernel
+numbers, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -784,12 +808,12 @@ def phase_train_kernels():
     return results
 
 
-def places_trainer(work, batch, px, n_images, max_train_steps):
+def places_trainer(work, batch, px, n_images, max_train_steps, extra=()):
     """The places trainer at SD-v1.5 widths with random weights from SEED:
     float32 master weights, bf16 autocast, EMA, batches of ``batch`` out of
     ``n_images`` synthetic px x px images (numpy, seeded) handed in through
-    BaseTrainer(load=...). Returns the trainer after training_init(), its
-    args and the epoch's batches on the card."""
+    BaseTrainer(load=...), trainer flags ``extra`` added. Returns the trainer
+    after training_init(), its args and the epoch's batches on the card."""
     import numpy as np
     import torch
 
@@ -815,7 +839,7 @@ def places_trainer(work, batch, px, n_images, max_train_steps):
                         dtype=torch.float32, device="cuda")
     argv = ["--data_path", data, "--output_dir", os.path.join(work, "run"), "--train_batch_size", str(batch),
             "--resolution", str(px), "--mixed_precision", "bf16", "--use_ema", "--seed", str(SEED),
-            "--max_train_steps", str(max_train_steps), "--device", "cuda"]
+            "--max_train_steps", str(max_train_steps), "--device", "cuda", *extra]
     args = parse_args(argv)
     tr = BaseTrainer("places", args, sd=sd, load=arrays.__getitem__)
     tr.training_init()
@@ -1399,11 +1423,13 @@ def phase_mining(smi):
                 os.environ[k] = v
         fa._ONESHOT, fa._NOMAX = saved_gates
     del sd, sd2, cl1, cl2
-    shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
+    # the data, the swept tree and the default run's patch tables stay for
+    # phase 14's clip+dift-161 run; main() removes them after it
     return dict(labels=len(labels), images_per_label=per_label, px=px, N=N, feature=feature, sweep_s=sweep_s,
                 runs=runs, unet_rel_l2_modes=rel, tap_rel_l2_modes=tap_rel, dift_modes_rel_l2=dift_rel,
-                unet_pass_ms_modes=pass_ms, unet_pass_modes=pass_times, card=smi)
+                unet_pass_ms_modes=pass_ms, unet_pass_modes=pass_times, card=smi,
+                work=dict(root=work, data=data, tree=tree, tables=os.path.join(work, "cache_default", "clusters")))
 
 
 def sdpa_query_chunked(q, k, v, mask=None, scale=None):
@@ -1679,12 +1705,15 @@ def phase_pnp(smi, sd):
     px, n_src, targets = 512, 2, ["France", "Japan"]
     work = os.path.join(ROOT, "build", "chip_smoke_pnp")
     shutil.rmtree(work, ignore_errors=True)
-    src_dir, out = os.path.join(work, "base", "France"), os.path.join(work, "parallel", "France")
-    os.makedirs(src_dir)
+    out = os.path.join(work, "translated")
     rng = np.random.RandomState(SEED + 14)
+    # one source from each country, named so that PnP's files follow the geo
+    # protocol ({country}__{id}): phase 13 mines them as a parallel dataset
     paths = []
     for i in range(n_src):
-        paths.append(os.path.join(src_dir, f"id_{i:03d}_0.png"))
+        src_dir = os.path.join(work, "base", targets[i])
+        os.makedirs(src_dir)
+        paths.append(os.path.join(src_dir, f"id__{i:03d}.png"))
         Image.fromarray(rng.randint(0, 256, (px, px, 3), dtype=np.uint8)).save(paths[-1], compress_level=1)
 
     routes = RouteCounts(injected=True)
@@ -1709,8 +1738,9 @@ def phase_pnp(smi, sd):
                              f"{passes} passes, {injected} of them on injected q/k")
     files = set(os.listdir(out))
     for i in range(n_src):
-        want = {f"gt--France_{i:03d}_0.png", f"inverted--France_{i:03d}_0.png", f"projected--France_{i:03d}_0.png",
-                f"Japan_{i:03d}_0.png"}
+        src = targets[i]
+        want = {f"gt--{src}__{i:03d}.png", f"inverted--{src}__{i:03d}.png", f"projected--{src}__{i:03d}.png"}
+        want |= {f"{c}__{i:03d}.png" for c in targets if c != src}
         if not want <= files:
             raise AssertionError(f"pnp: missing {sorted(want - files)}")
     if not (torch.isfinite(pnp._trajectory).all() and torch.isfinite(pnp._source_latent).all()):
@@ -1766,12 +1796,367 @@ def phase_pnp(smi, sd):
         f"against its plain version: max|err| {max_err:.3g} = {worst:.3g} x the one-ulp tolerance, {flip:.3g} x "
         "the p-flip one")
     del routes, q, k, v, got, want
-    shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
-    return dict(sources=n_src, px=px, targets=len(targets), inversion_steps=inv, steps=n, invert_s=invert_s,
+    # PnP's files stay for phase 13 (the parallel dataset); main() removes them
+    return dict(out=out, work=work, sources=n_src, px=px, targets=len(targets), inversion_steps=inv, steps=n,
+                invert_s=invert_s,
                 total_s=total_s, s_per_source=total_s / n_src, launches=launches, passes=passes,
                 injected_launches=injected, injection_rel_l2=moved, injected_check=injected_check,
                 inversion_pass_ms=inv_pass_ms, inversion_pass_busy_ms=inv_busy_ms, card=smi)
+
+
+LORA_SITE = "down_blocks.0.attentions.0.transformer_blocks.0.attn1"
+
+
+def phase_train_lora_8bit(smi, dense):
+    """--use_8bit_adam on the dense UNet, then --lora --use_8bit_adam on the
+    frozen UNet: the places trainer of phase 6 (SD-v1.5, batch 4 at 512px,
+    bf16 autocast, EMA). ``dense`` is phase 6's result (its peak beside
+    this phase's)."""
+    import torch
+
+    from diffmining_tpu_torch.finetuning import lora
+    from diffmining_tpu_torch.models import unet as unet_mod
+    from diffmining_tpu_torch.ops import flash_attention as fa
+    from diffmining_tpu_torch.ops.attention import sdpa, sdpa_plain
+    from diffmining_tpu_torch.ops.optim8bit import Adam8bitState
+    from diffmining_tpu_torch.utils.weights import load_pipeline_dir
+
+    batch, px, n_images = 4, 512, 8
+    work = os.path.join(ROOT, "build", "chip_smoke_lora")
+    kernels = (fa.flash_fwd_lse, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_fwd_nomax)
+
+    def steps(tr, args, batches, n, want):
+        """n train steps, each checked for its launches; -> step ms, peak GiB."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for i in range(n):
+            for f in kernels:
+                f.launches = 0
+            t0 = time.perf_counter()
+            tr.state, loss = tr.train_step(tr.state, *batches[i % len(batches)], args.seed)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = {f.__name__: f.launches for f in kernels}
+            if got != want or not math.isfinite(float(loss)):
+                raise AssertionError(f"train_lora_8bit: step launches {got}, expected {want}; loss {float(loss)}")
+        return ms, torch.cuda.max_memory_allocated() / 2**30
+
+    per_step = {"flash_fwd_lse": 10, "flash_bwd_dq": 10, "flash_bwd_dkv": 10, "flash_fwd_nomax": 0}
+    remat_step = dict(per_step, flash_fwd_lse=20)
+
+    # (a) the dense UNet under 8-bit Adam: a cold and two warm steps, as
+    # phase 6 times AdamW, then two traced
+    tr, args, batches = places_trainer(work, batch, px, n_images, max_train_steps=3, extra=["--use_8bit_adam"])
+    inner = tr.state.opt_state
+    numel = sum(p.numel() for p in tr.state.params.values())
+    if not (isinstance(inner, Adam8bitState) and all(q.dtype == torch.int8 for q in inner.mu_q + inner.nu_q)):
+        raise AssertionError("train_lora_8bit: --use_8bit_adam did not give int8 moments")
+    ms8, peak8 = steps(tr, args, batches, 3, per_step)
+    warm8 = statistics.median(ms8[1:])
+    state_bytes = inner.nbytes()
+    if not (inner.count == 3 and peak8 < dense["peak_gib"]):
+        raise AssertionError(f"train_lora_8bit: 8-bit count {inner.count}, peak {peak8:.2f} GiB against the dense "
+                             f"AdamW step's {dense['peak_gib']:.2f} GiB")
+    log(f"train_lora_8bit: dense UNet, --use_8bit_adam: steps {', '.join(f'{x:.1f}' for x in ms8)} ms; warm median "
+        f"{warm8:.1f} ms = {batch / warm8 * 1e3:.2f} images/s (phase 6's AdamW {dense['warm_step_ms']:.1f} ms); peak "
+        f"allocated {peak8:.2f} GiB against phase 6's {dense['peak_gib']:.2f} GiB; optimizer state "
+        f"{state_bytes / 1e9:.3f} GB in {len(inner.groups)} groups (float32 moments: {8 * numel / 1e9:.3f} GB for "
+        f"{numel / 1e6:.1f}M parameters); int8 moments on {smi}")
+    profile8 = profile_steps(tr, args, [batches[i % len(batches)] for i in range(3, 5)], warm8)
+    del tr, batches, inner
+    torch.cuda.empty_cache()
+
+    # (b) --lora --lora_rank 4 --use_8bit_adam on the frozen UNet
+    tr, args, batches = places_trainer(work, batch, px, n_images, max_train_steps=4,
+                                       extra=["--use_8bit_adam", "--lora", "--lora_rank", "4"])
+    st, b = tr.state, tr.builder
+    base = {k: p.detach().clone() for k, p in tr.unet.named_parameters()}
+    if any(p.requires_grad for p in tr.unet.parameters()) or not all(k.endswith((".a", ".b")) for k in st.params):
+        raise AssertionError("train_lora_8bit: the base UNet is not frozen or the state is not the factors")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 9)
+    with torch.no_grad():  # b drawn nonzero: at init b = 0 and a's gradient is zero
+        for k, v in st.params.items():
+            if k.endswith(".b"):
+                v.copy_(1e-2 * torch.randn(v.shape, generator=g, device="cuda"))
+                st.ema_params[k].copy_(v)
+    names = [f"{LORA_SITE}.to_{n}.{ab}" for n in "qkv" for ab in "ab"]
+    images, tokens = batches[0][0][:1], batches[0][1][:1]
+    draws = b.draw(SEED + 3, 0, (1, 4, px // 8, px // 8), torch.device("cuda"))
+
+    def factor_grads():
+        b.loss(images, tokens, draws=draws).backward()
+        grads = {n: st.params[n].grad.float().clone() for n in names}
+        for p in st.params.values():
+            p.grad = None
+        return grads
+
+    g16 = factor_grads()
+    b.mixed_precision = False
+    unet_mod.sdpa = sdpa_plain  # the kernels are bf16 only: this pass alone uses the plain softmax
+    try:
+        g32 = factor_grads()
+    finally:
+        unet_mod.sdpa = sdpa
+        b.mixed_precision = True
+    rel = {n[len(LORA_SITE) + 1:]: float((g16[n] - g32[n]).norm() / g32[n].norm()) for n in names}
+    if not all(float(g16[n].abs().max()) > 0 for n in names) or max(rel.values()) >= GRAD_REL_L2:
+        raise AssertionError(f"train_lora_8bit: level-0 attn1 factor gradients bf16+kernels vs float32: {rel}")
+    log(f"train_lora_8bit: level-0 attn1 factor gradients (b nonzero), bf16+kernels vs float32+plain attention "
+        f"(batch 1): relative L2 {', '.join(f'{k} {v:.4g}' for k, v in rel.items())} (limit {GRAD_REL_L2})")
+
+    before = {n: st.params[n].detach().clone() for n in names}
+    ema_before = {n: st.ema_params[n].clone() for n in names}
+    ms_plain, peak_lora = steps(tr, args, batches, 2, per_step)
+    tr.unet.set_gradient_checkpointing("full")
+    ms_remat, peak_remat = steps(tr, args, batches[2:] + batches[:2], 2, remat_step)
+    tr.unet.set_gradient_checkpointing(None)
+    moved = min(float((st.params[n].detach() - before[n]).abs().max()) for n in names)
+    ema_moved = min(float((st.ema_params[n] - ema_before[n]).abs().max()) for n in names)
+    unchanged = all(torch.equal(p.detach(), base[k]) and p.grad is None for k, p in tr.unet.named_parameters())
+    if not (moved > 0 and ema_moved > 0 and unchanged and st.opt_state.count == 4):
+        raise AssertionError(f"train_lora_8bit: factors moved {moved}, EMA {ema_moved}, base unchanged {unchanged}, "
+                             f"count {st.opt_state.count}")
+    n_factors = sum(v.numel() for v in st.params.values())
+    log(f"train_lora_8bit: --lora (rank 4, {len(st.params) // 2} sites, {n_factors / 1e6:.3f}M factor parameters) "
+        f"--use_8bit_adam: steps {ms_plain[0]:.1f}, {ms_plain[1]:.1f} ms (warm: {batch / ms_plain[1] * 1e3:.2f} "
+        f"images/s; phase 6's AdamW {dense['warm_step_ms']:.1f} ms), peak {peak_lora:.2f} GiB; under full "
+        f"checkpointing {ms_remat[0]:.1f}, {ms_remat[1]:.1f} ms, peak {peak_remat:.2f} GiB; launches a step "
+        f"{per_step} ({remat_step} under checkpointing); factors moved by >= {moved:.3g}, EMA by >= "
+        f"{ema_moved:.3g}; the base UNet bit for bit unchanged, no dense gradient")
+
+    t0 = time.perf_counter()
+    export_dir = tr.end_training()
+    export_s = time.perf_counter() - t0
+    p = load_pipeline_dir(export_dir)["unet"]["state_dict"]
+    want = lora.merge_lora({k: v.detach() for k, v in tr.unet.named_parameters()}, lora.unflatten(st.ema_params))
+    if set(p) != set(want) or not all(torch.equal(p[k], want[k].cpu()) for k in want):
+        raise AssertionError("train_lora_8bit: the exported UNet is not merge_lora of the EMA factors")
+    log(f"train_lora_8bit: end_training() exported in {export_s:.1f} s; the UNet read back equals merge_lora of the "
+        f"base and the EMA factors")
+    launches = {"flash_fwd_lse": 2 * 10 + 2 * 20, "flash_bwd_dq": 40, "flash_bwd_dkv": 40}
+    del tr, batches, base, p, want, st, b
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(batch=batch, px=px, dense_8bit=dict(step_ms=ms8, warm_step_ms=warm8, images_per_s=batch / warm8 * 1e3,
+                                                   peak_gib=peak8, optimizer_state_bytes=state_bytes,
+                                                   float32_moment_bytes=8 * numel, profile=profile8,
+                                                   adamw_peak_gib=dense["peak_gib"],
+                                                   adamw_warm_step_ms=dense["warm_step_ms"],
+                                                   adamw_busy_ms=dense["profile"]["busy_ms"]),
+                lora=dict(rank=4, factor_params=n_factors, step_ms=ms_plain, images_per_s=batch / ms_plain[1] * 1e3,
+                          peak_gib=peak_lora, remat_step_ms=ms_remat, remat_peak_gib=peak_remat,
+                          launches_per_step=per_step, remat_launches_per_step=remat_step, factor_grad_rel_l2=rel,
+                          export_s=export_s),
+                launches=launches, card=smi)
+
+
+def phase_parallel(smi, pnp_out, sd):
+    """The parallel dataset over phase 11's PnP output: ParallelTypicality at
+    N=4 over every ground-truth and translated file, then
+    ParallelCluster.clustering("dift-161")."""
+    import numpy as np
+    import torch
+
+    from diffmining_tpu_torch.applications.parallel import ParallelCluster, ParallelTypicality
+    from diffmining_tpu_torch.ops import flash_attention as fa
+    from diffmining_tpu_torch.utils.images import array_from_uint8, image_uid
+    from PIL import Image
+
+    countries, N, k_per_image = ["France", "Japan"], 4, 5
+    work = os.path.join(ROOT, "build", "chip_smoke_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    root, tree, subs, cache = (os.path.join(work, n) for n in ("parallel", "typicality", "subs", "cache"))
+    # PnP writes every source's files into one directory; the parallel
+    # dataset holds each under its source's country, as the reference's
+    # per-country PnP jobs write them
+    files = sorted(os.listdir(pnp_out))
+    source_of = {f.split("__", 1)[1]: f.split("__")[0][len("gt--"):] for f in files if f.startswith("gt--")}
+    for f in files:
+        dst = os.path.join(root, source_of[f.split("__", 1)[1]])
+        os.makedirs(dst, exist_ok=True)
+        shutil.copy(os.path.join(pnp_out, f), dst)
+
+    passes = [0]
+    hook = sd.unet.register_forward_hook(lambda *a: passes.__setitem__(0, passes[0] + 1))
+    try:
+        typ = ParallelTypicality(None, root, tree, sd=sd, N=N, batch_images=8, device="cuda")
+        groups = {c: typ.parallel[c] for c in countries}
+        if sorted(typ.parent) != countries or not all(
+                len(gs) == 1 and {c for _p, c in gs[0]} == set(countries) for gs in groups.values()):
+            raise AssertionError(f"parallel: the groups of PnP's output are not complete: {groups}")
+        typ.make_submission(root, subs, sub_split=1)
+        fa.flash_fwd_nomax.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        typ.compute_submission(os.path.join(subs, "0.txt"))
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        sweep_launches, sweep_passes = fa.flash_fwd_nomax.launches, passes[0]
+        seeds = {c: typ.get_seeds_(c) for c in countries}
+        if sum(map(len, seeds.values())) != 4 or not all(typ.D[c].exists(p) for c in countries for p in seeds[c]):
+            raise AssertionError(f"parallel: artifacts missing for {seeds}")
+        if sweep_launches != 10 * sweep_passes or sweep_passes == 0:
+            raise AssertionError(f"parallel sweep: {sweep_launches} K1 launches over {sweep_passes} UNet passes")
+
+        cl = ParallelCluster(tree, root, cache, dift_sd=sd, device="cuda")
+        fa.flash_fwd_nomax.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        df, df_random = cl.df_PD(k_per_image=k_per_image)
+        clusters = cl.clustering("dift-161", k_per_image=k_per_image, num_clusters=3, num_components=4)
+        torch.cuda.synchronize()
+        mine_s = time.perf_counter() - t0
+        mine_launches = fa.flash_fwd_nomax.launches
+    finally:
+        hook.remove()
+    dift_passes = cl.dift.n_passes
+    for origin in countries:
+        gt = groups[origin][0][0][0]
+        if (df["path_" + origin] == gt).sum() != k_per_image:
+            raise AssertionError(f"parallel: the {origin} source group gave {(df['path_' + origin] == gt).sum()} rows")
+    if mine_launches != 10 * dift_passes or dift_passes == 0:
+        raise AssertionError(f"parallel: {mine_launches} K1 launches over {dift_passes} DIFT passes")
+    scores = [s for _, s in clusters]
+    medians = [float(np.median([m[1] for m in members])) for members, _ in clusters]
+    if scores != sorted(scores, reverse=True) or not np.allclose(scores, medians) or \
+            sum(len(m) for m, _ in clusters) != len(df):
+        raise AssertionError(f"parallel: clusters not ranked by the median D: {scores}")
+    # country-major: the first block of an embedding is the box's DIFT in
+    # the first country's image (from the DIFT cache)
+    row = df.sort_values(by=["D"], ascending=False).iloc[0]
+    x0, y0, x1, y1 = (int(row[c]) for c in ["x_start", "y_start", "x_end", "y_end"])
+    idd = os.path.splitext(os.path.basename(row["path_" + row["origin"]]))[0] + f"_{x0}-{y0}-{x1}-{y1}"
+    emb = cl._cached("dift-161", idd, lambda: None)
+    first = cl.dift.patch_feature(array_from_uint8(np.asarray(Image.open(row["path_" + countries[0]]).convert("RGB"))),
+                                  countries[0], (x0, y0, x1, y1), t=161, uid=image_uid(idd + countries[0]))
+    if emb is None or emb.shape != (len(countries) * first.shape[0],) or not np.isfinite(emb).all() or \
+            not np.array_equal(emb[:first.shape[0]], first):
+        raise AssertionError("parallel: an embedding is not the country-major concatenation of finite DIFT features")
+    log(f"parallel: PnP's {len(files)} files as a parallel dataset of {len(countries)} countries x 1 source; "
+        f"ParallelTypicality at N={N} (cut from 100) over the {sum(map(len, seeds.values()))} ground-truth and "
+        f"translated files in {sweep_s:.1f} s ({sweep_launches} K1 launches over {sweep_passes} UNet passes); "
+        f"df_PD gave {len(df)} rows ({k_per_image} from every source group) and {len(df_random)} random ones; "
+        f"clustering(dift-161) into {len(clusters)} clusters ranked by median D; embeddings {emb.shape}, finite, "
+        f"country-major; df_PD + clustering wall {mine_s:.1f} s ({mine_launches} K1 launches over {dift_passes} "
+        f"DIFT passes) on {smi}")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(countries=len(countries), files=len(files), N=N, sweep_s=sweep_s, sweep_passes=sweep_passes,
+                sweep_launches=sweep_launches, rows=len(df), clusters=len(clusters), wall_s=mine_s,
+                dift_passes=dift_passes, dift_launches=mine_launches, launches=sweep_launches + mine_launches,
+                embedding_dim=int(emb.shape[0]), card=smi)
+
+
+def phase_clip(smi, mining_work, dift_sd):
+    """CLIPRankCluster at ViT-L/14-336 widths on synthetic geo images, both
+    scoring paths; then cluster's clip+dift-161 mode over phase 8's top
+    patches with a ViT-B/32-width tower."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diffmining_tpu_torch.baselines.clipmining import CLIPRankCluster, random_towers, random_vision_tower
+    from diffmining_tpu_torch.models.clip import CLIP_VIT_B32_VISION
+    from diffmining_tpu_torch.ops import flash_attention as fa
+    from diffmining_tpu_torch.ops import fused_norm as fn
+    from diffmining_tpu_torch.typicality.cluster import Cluster
+
+    countries, per_country, px, batch_images = ["France", "Japan"], 16, 512, 8
+    work = os.path.join(ROOT, "build", "chip_smoke_clip")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "geo")
+    rng = np.random.RandomState(SEED + 21)
+    for c in countries:
+        os.makedirs(os.path.join(data, c))
+        for i in range(per_country):
+            Image.fromarray(rng.randint(0, 256, (px, px, 3), dtype=np.uint8)).save(
+                os.path.join(data, c, f"gt--{c}__{i:03d}.png"), compress_level=1)
+    kernels = (fa.flash_fwd_nomax, fa.flash_fwd_online, fa.flash_fwd_lse, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+               fn.gn_act_proj)
+    t0 = time.perf_counter()
+    vision, text = random_towers(None, None, SEED)
+    log(f"clip: ViT-L/14-336 vision and ViT-L/14 text towers with projections, random weights (seed {SEED}), "
+        f"built in {time.perf_counter() - t0:.1f} s")
+
+    def ranker(cache, **kw):
+        return CLIPRankCluster(data, os.path.join(work, cache), "diff", vision=vision, text=text,
+                               batch_images=batch_images, device="cuda", **kw)
+
+    for f in kernels:
+        f.launches = 0
+    dev = ranker("cache_device")
+    imgs = [dev.load_image(p) for p in dev.get_seeds(countries[0])[:batch_images]]
+    dev._project_device(imgs)  # warm
+    torch.cuda.synchronize()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dev._project_device(imgs)
+    torch.cuda.synchronize()
+    tower_ips = reps * len(imgs) / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ranked = dev.clustering()  # the command's constants: k 5 a image, 1000, 32 clusters, 64 px boxes
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    for c in countries:
+        scores = [s for _, s in ranked[c]]
+        if scores != sorted(scores, reverse=True) or sum(len(m) for m, _ in ranked[c]) != 5 * per_country:
+            raise AssertionError(f"clip: clipmining {c}: {sum(len(m) for m, _ in ranked[c])} members, scores {scores}")
+    host = ranker("cache_host", host_scoring=True)
+    df_d, emb_d = dev.rank(countries[0])
+    df_h, emb_h = host.rank(countries[0])
+    d_err = float(np.max(np.abs(df_d["D"].to_numpy() - df_h["D"].to_numpy())))
+    e_err = float(max(np.max(np.abs(a - b_)) for a, b_ in zip(emb_d, emb_h)))
+    if not df_d.drop(columns=["D"]).equals(df_h.drop(columns=["D"])) or not np.allclose(
+            df_d["D"], df_h["D"], rtol=1e-4, atol=1e-5) or not all(
+            np.allclose(a, b_, rtol=1e-4, atol=1e-5) for a, b_ in zip(emb_d, emb_h)):
+        raise AssertionError(f"clip: the device scoring path disagrees with the host path (D {d_err}, embeds {e_err})")
+    log(f"clip: clipmining over {len(countries)} countries x {per_country} synthetic {px}px images (crop 336, "
+        f"batch {batch_images}): the ViT-L/14-336 tower {tower_ips:.1f} images/s; clustering wall {wall_s:.1f} s; "
+        f"device vs host scoring on {countries[0]}: the same {len(df_d)} boxes, max |dD| {d_err:.3g}, max |d embed| "
+        f"{e_err:.3g} (bound rtol 1e-4, atol 1e-5) on {smi}")
+    del dev, host, vision, text
+    torch.cuda.empty_cache()
+
+    # cluster's clip+dift-161 mode over phase 8's top patches
+    b32 = random_vision_tower(CLIP_VIT_B32_VISION, torch.Generator().manual_seed(SEED + 22))
+    cache = os.path.join(work, "cache_mining")
+    shutil.copytree(mining_work["tables"], os.path.join(cache, "clusters"))  # phase 8's patch tables
+    cl = Cluster("ftt", mining_work["tree"], mining_work["data"], cache, dift_sd=dift_sd, device="cuda",
+                 clip_bundle={"config": CLIP_VIT_B32_VISION, "state_dict": b32.state_dict()})
+    cl.init_dift()
+    t0 = time.perf_counter()
+    mined = cl.clustering("clip+dift-161", k=1000, num_clusters=32)
+    torch.cuda.synchronize()
+    mix_s = time.perf_counter() - t0
+    dift_passes = cl.dift.n_passes
+    launches = {f.__name__: f.launches for f in kernels}
+    want = dict.fromkeys(launches, 0)
+    want["flash_fwd_nomax"] = 10 * dift_passes
+    if launches != want:
+        raise AssertionError(f"clip: launches {launches}, expected {want}: the towers must reach no kernel")
+    embs = [np.load(os.path.join(cache, "embeddings", "clip+dift-161", n), allow_pickle=True)
+            for n in os.listdir(os.path.join(cache, "embeddings", "clip+dift-161"))]
+    if not embs or not all(np.isfinite(e).all() and abs(np.linalg.norm(e[:512]) - 1) < 1e-4 for e in embs):
+        raise AssertionError("clip: a clip+dift-161 embedding is not finite or its CLIP part not unit length")
+    n_patches = sum(len(m) for c in mined for m, _ in mined[c])
+    for c in mined:
+        scores = [s for _, s in mined[c]]
+        if scores != sorted(scores, reverse=True):
+            raise AssertionError(f"clip: clip+dift-161 clusters of {c} not ranked")
+    log(f"clip: cluster clip+dift-161 (ViT-B/32 widths, random weights) over phase 8's {n_patches} top patches: "
+        f"{sum(len(v) for v in mined.values())} clusters, embeddings {embs[0].shape} ([clip 512 | dift]), wall "
+        f"{mix_s:.1f} s; {dift_passes} DIFT passes; launches {launches} (K1 for DIFT only)")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(countries=len(countries), images_per_country=per_country, px=px, crop=336,
+                batch_images=batch_images, tower_images_per_s=tower_ips, clipmining_wall_s=wall_s,
+                device_vs_host=dict(boxes=len(df_d), max_abs_dD=d_err, max_abs_dembed=e_err, rtol=1e-4, atol=1e-5),
+                clip_dift=dict(patches=n_patches, wall_s=mix_s, dift_passes=dift_passes,
+                               embedding_dim=int(embs[0].shape[0])),
+                launches=launches, card=smi)
 
 
 TRAIN_KERNELS = {
@@ -1809,6 +2194,20 @@ def apps_bundle():
     return sd
 
 
+def geo_bundle():
+    """The SD-v1.5 bundle of phases 13-14: random weights from SEED, bf16,
+    the geo domain's France and Japan prompts."""
+    import torch
+
+    from diffmining_tpu_torch.models.clip import CLIP_VIT_L_TEXT
+    from diffmining_tpu_torch.models.unet import SD15_UNET
+    from diffmining_tpu_torch.models.vae import SD15_VAE
+    from diffmining_tpu_torch.typicality.compute import SD
+
+    return SD.init_random("geo", ["France", "Japan"], SD15_UNET, SD15_VAE, CLIP_VIT_L_TEXT, seed=SEED,
+                          dtype=torch.bfloat16, device="cuda")
+
+
 def kernel_entry(name, source, replaces, launches, cases, main_case):
     """One kernel's entry of the kernels line: the main shape's numbers and
     every shape's beside them."""
@@ -1837,14 +2236,25 @@ def main() -> int:
     train = phase_train(smi)
     infer_kern = phase_inference_kernels(smi)
     mining = phase_mining(smi)
+    mining_work = mining.pop("work")
     sd = apps_bundle()
     xray = phase_xray(smi, sd)
     sampling = phase_sampling(smi, sd)
     pnp = phase_pnp(smi, sd)
+    pnp_work, pnp_out = pnp.pop("work"), pnp.pop("out")
     del sd
+    torch.cuda.empty_cache()
+    lora = phase_train_lora_8bit(smi, train)
+    sd = geo_bundle()
+    parallel = phase_parallel(smi, pnp_out, sd)
+    clip = phase_clip(smi, mining_work, sd)
+    del sd
+    shutil.rmtree(pnp_work, ignore_errors=True)
+    shutil.rmtree(mining_work["root"], ignore_errors=True)
 
     by_path = {"sweep": launches, "xray": xray["launches"], "sampling": sampling["launches"],
-               "train preview": train["preview_launches"], "pnp": pnp["launches"]}
+               "train preview": train["preview_launches"], "pnp": pnp["launches"], "parallel": parallel["launches"],
+               "clip+dift-161": clip["launches"]["flash_fwd_nomax"]}
     nomax = kernel_entry(
         "flash_fwd_nomax", "diffmining_tpu_torch/csrc/flash_fwd_nomax.cu",
         "diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot); "
@@ -1853,7 +2263,10 @@ def main() -> int:
     nomax["launches_by_path"] = by_path
     entries = [nomax]
     for kind, (name, source, replaces) in TRAIN_KERNELS.items():
-        entries.append(kernel_entry(name, source, replaces, train["launches"][name], train_kern[kind], "L4096 D40"))
+        by_train = {"train": train["launches"][name], "train_lora_8bit": lora["launches"][name]}
+        entry = kernel_entry(name, source, replaces, sum(by_train.values()), train_kern[kind], "L4096 D40")
+        entry["launches_by_path"] = by_train
+        entries.append(entry)
     for kind, (name, source, replaces, main_case) in INFERENCE_KERNELS.items():
         entries.append(kernel_entry(name, source, replaces, mining["runs"]["modes"]["launches"][name],
                                     infer_kern[kind], main_case))
@@ -1864,6 +2277,9 @@ def main() -> int:
     print(json.dumps({"xray": xray}))
     print(json.dumps({"sampling": sampling}))
     print(json.dumps({"pnp": pnp}))
+    print(json.dumps({"train_lora_8bit": lora}))
+    print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"clip": clip}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

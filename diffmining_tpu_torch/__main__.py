@@ -6,13 +6,16 @@
                 clusters and figures (typicality/cluster.py CLI)
     xray        X-ray localization eval (applications/xray.py CLI)
     pnp         PnP translation (applications/pnp.py CLI)
+    parallel    typicality and mining over PnP's translations
+                (applications/parallel.py CLI)
+    clipmining  CLIP patch-ranking baseline (baselines/clipmining.py CLI)
     html        figure-tree HTML report: html FIGURES_DIR [OUTPUT_DIR] [NC]
     fidelity    compare typicality artifact trees: --ours A --theirs B
 
-finetune, typicality, cluster, xray and pnp run on the GPU unless given
---device cpu; html and fidelity are file and numpy work on the host. The
-JAX package's other commands (parallel, doersch, clipmining,
-verify_checkpoint) are not ported yet (ROADMAP.md section A).
+finetune, typicality, cluster, xray, pnp, parallel and clipmining run on the
+GPU unless given --device cpu; html and fidelity are file and numpy work on
+the host. These are 9 of the JAX package's 11 commands; doersch and
+verify_checkpoint are not ported yet (ROADMAP.md section A).
 """
 from __future__ import annotations
 
@@ -56,6 +59,14 @@ def main(argv=None) -> None:
         from diffmining_tpu_torch.applications.pnp import main as m
 
         m(rest)
+    elif cmd == "parallel":
+        from diffmining_tpu_torch.applications.parallel import main as m
+
+        m(rest)
+    elif cmd == "clipmining":
+        from diffmining_tpu_torch.baselines.clipmining import main as m
+
+        m(rest)
     elif cmd == "html":
         from diffmining_tpu_torch.typicality.make_html import main as m
 
@@ -66,7 +77,7 @@ def main(argv=None) -> None:
         m(rest)
     else:
         raise SystemExit(f"unknown command {cmd!r}; this port has: finetune, typicality, cluster, xray, pnp, "
-                         "html, fidelity")
+                         "parallel, clipmining, html, fidelity")
 
 
 if __name__ == "__main__":

@@ -52,7 +52,8 @@ def parser_base() -> argparse.ArgumentParser:
     p.add_argument("--adam_weight_decay", type=float, default=1e-2)
     p.add_argument("--adam_epsilon", type=float, default=1e-08)
     p.add_argument("--max_grad_norm", type=float, default=1.0)
-    p.add_argument("--use_8bit_adam", action="store_true", help="not ported yet (ROADMAP A11b)")
+    p.add_argument("--use_8bit_adam", action="store_true",
+                   help="int8 Adam moments in 256-element blocks (ops/optim8bit.py)")
     # precision / hardware
     p.add_argument("--mixed_precision", type=str, default="bf16", choices=["no", "fp16", "bf16"],
                    help="bf16/fp16: bf16 autocast over float32 master weights; no: float32 "
@@ -69,7 +70,8 @@ def parser_base() -> argparse.ArgumentParser:
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     # lora
-    p.add_argument("--lora", action="store_true", help="not ported yet (ROADMAP A11a)")
+    p.add_argument("--lora", action="store_true",
+                   help="train rank-r factors of the attention projections on a frozen UNet")
     p.add_argument("--lora_rank", type=int, default=4)
     # checkpoint / logging
     p.add_argument("--checkpointing_steps", type=int, default=None)
@@ -112,10 +114,6 @@ def check_supported(args) -> None:
     missing = []
     if args.distributed or args.coordinator_address is not None or (args.mesh_dp or 1) > 1 or args.mesh_fsdp > 1:
         missing.append("multi-GPU training (--distributed, --mesh_dp/--mesh_fsdp > 1): ROADMAP A12")
-    if args.lora:
-        missing.append("--lora: ROADMAP A11a")
-    if args.use_8bit_adam:
-        missing.append("--use_8bit_adam: ROADMAP A11b")
     if missing:
         raise NotImplementedError("not ported to the PyTorch package yet: " + "; ".join(missing))
 

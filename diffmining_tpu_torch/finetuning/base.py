@@ -11,7 +11,9 @@ end, and ``save_logs`` writes one grid a category under
 (SURVEY.md §5.4):
 
   * training checkpoints ``checkpoint-{N}/state.pt`` (``torch.save`` of the
-    UNet parameters, optimizer state and EMA; N counts optimizer steps),
+    UNet parameters or, under --lora, the factors; the optimizer state, the
+    int8 moments and their scales under --use_8bit_adam; the EMA; N counts
+    optimizer steps),
     written under a temporary name and renamed into place, so a
     ``checkpoint-N`` directory is complete by construction; resume with
     ``--resume_from_checkpoint latest``, prune with
@@ -44,7 +46,6 @@ from diffmining_tpu_torch.finetuning.args import check_supported
 from diffmining_tpu_torch.finetuning.datasets import DATASETS, BatchIterator, Loader
 from diffmining_tpu_torch.finetuning.train import (
     AccumulateState,
-    AdamWState,
     TrainStepBuilder,
     make_lr_schedule,
     make_optimizer,
@@ -53,6 +54,7 @@ from diffmining_tpu_torch.models.clip import CLIPTextModel
 from diffmining_tpu_torch.models.tokenizer import CLIPTokenizer, tiny_tokenizer
 from diffmining_tpu_torch.models.unet import UNet2DCondition
 from diffmining_tpu_torch.models.vae import AutoencoderKL
+from diffmining_tpu_torch.ops.optim8bit import Adam8bitState
 from diffmining_tpu_torch.utils.device import resolve_device
 from diffmining_tpu_torch.utils.export import save_pipeline_dir
 from diffmining_tpu_torch.utils.figures import hcat
@@ -175,6 +177,7 @@ class BaseTrainer:
         return TrainStepBuilder(
             unet=self.unet, vae=self.vae, clip=self.clip, schedule=self.schedule, optimizer=optimizer,
             use_ema=args.use_ema, ema_max_decay=args.ema_decay, mixed_precision=args.mixed_precision != "no",
+            lora_rank=args.lora_rank if args.lora else None, lora_seed=args.seed,
         )
 
     def training_init(self):
@@ -197,6 +200,7 @@ class BaseTrainer:
             args.adam_beta1, args.adam_beta2, args.adam_weight_decay, args.adam_epsilon, args.max_grad_norm,
             args.gradient_accumulation_steps,
             accum_dtype=torch.bfloat16 if args.gradient_accumulation_dtype == "bf16" else None,
+            use_8bit=args.use_8bit_adam,
         )
         self.builder = self._builder(self.optimizer)
         self.state = self.builder.init_state()
@@ -247,12 +251,12 @@ class BaseTrainer:
         st = self.state
         opt = st.opt_state
         inner = opt.inner_state if isinstance(opt, AccumulateState) else opt
-        saved = {
-            "step": st.step,
-            "params": st.params,
-            "ema_params": st.ema_params,
-            "adam": {"count": inner.count, "mu": inner.mu, "nu": inner.nu},
-        }
+        saved = {"step": st.step, "params": st.params, "ema_params": st.ema_params}
+        if isinstance(inner, Adam8bitState):
+            saved["adam8bit"] = {"count": inner.count, "mu_q": inner.mu_q, "mu_s": inner.mu_s,
+                                 "nu_q": inner.nu_q, "nu_s": inner.nu_s}
+        else:
+            saved["adam"] = {"count": inner.count, "mu": inner.mu, "nu": inner.nu}
         if isinstance(opt, AccumulateState):
             saved["accum"] = {"mini_step": opt.mini_step, "gradient_step": opt.gradient_step, "acc": opt.acc}
         return saved
@@ -297,10 +301,14 @@ class BaseTrainer:
                     st.ema_params[k].copy_(v)
             if not params_only:
                 opt = st.opt_state
-                inner: AdamWState = opt.inner_state if isinstance(opt, AccumulateState) else opt
-                inner.count = saved["adam"]["count"]
-                torch._foreach_copy_(inner.mu, saved["adam"]["mu"])
-                torch._foreach_copy_(inner.nu, saved["adam"]["nu"])
+                inner = opt.inner_state if isinstance(opt, AccumulateState) else opt
+                kind = "adam8bit" if isinstance(inner, Adam8bitState) else "adam"
+                if kind not in saved:
+                    raise ValueError(f"{path} holds no {kind} optimizer state (was it saved with another "
+                                     "--use_8bit_adam setting?)")
+                inner.count = saved[kind]["count"]
+                for name in (("mu_q", "mu_s", "nu_q", "nu_s") if kind == "adam8bit" else ("mu", "nu")):
+                    torch._foreach_copy_(getattr(inner, name), saved[kind][name])
                 if isinstance(opt, AccumulateState) and "accum" in saved:
                     opt.mini_step = saved["accum"]["mini_step"]
                     opt.gradient_step = saved["accum"]["gradient_step"]
@@ -337,7 +345,6 @@ class BaseTrainer:
         num_samples = num_samples or args.num_samples_log
         steps = steps or args.num_inference_steps
         guidance_scale = guidance_scale if guidance_scale is not None else args.guidance_scale
-        params = self.builder.dense_params(self.state, use_ema=args.use_ema)
         if latents is None:
             res = (args.resolution or self.spec.resolution) // 8
             g = torch.Generator(device=self.device)
@@ -345,11 +352,8 @@ class BaseTrainer:
             latents = torch.randn((num_samples, self.unet.config.in_channels, res, res), generator=g,
                                   device=self.device)
 
-        def eps_fn(x, t, ctx):
-            return torch.func.functional_call(self.unet, params, (x, t, ctx))
-
         logs = {}
-        with self.builder._autocast(self.device):
+        with self.builder.eval_unet(self.state, use_ema=args.use_ema) as eps_fn, self.builder._autocast(self.device):
             for c in categories:
                 ctx = self._embed([self.spec.sample_prompt.format(c=c)] * num_samples)
                 nctx = self._embed([self.spec.negative_prompt] * num_samples)

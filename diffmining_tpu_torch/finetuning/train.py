@@ -10,8 +10,16 @@ convolutions compute in bf16, so the gated self-attention reaches the flash
 kernels in bf16 (flash_fwd_lse forward, flash_bwd_dq and flash_bwd_dkv
 backward). The optimizer repeats optax's arithmetic: clip_by_global_norm,
 then adamw (scale_by_adam, add_decayed_weights, scale_by_learning_rate),
-applied in place. The schedules return numpy float32 values computed as
-optax computes them.
+applied in place; with ``use_8bit`` the Adam moments are int8 blocks
+(ops/optim8bit.py, train.py:177-183). The schedules return numpy float32
+values computed as optax computes them.
+
+With ``lora_rank`` (train.py:212-241) the state's parameters are the LoRA
+factors of the UNet's attention projections (finetuning/lora.py): the dense
+UNet is frozen, each targeted projection merges its factors inside its own
+forward, the optimizer and the EMA run over the factors, and
+``dense_params`` merges them into the base for the export and the
+previews.
 
 The random draws of a step (posterior eps, noise, t; train.py:277-283) come
 from a ``torch.Generator`` seeded from (seed, step), or the caller hands
@@ -19,6 +27,7 @@ them in (``draws=``), which is how the tests feed the port the JAX draws.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -26,9 +35,12 @@ import numpy as np
 import torch
 
 from diffmining_tpu_torch.diffusion.schedule import Schedule, add_noise, get_velocity
+from diffmining_tpu_torch.finetuning import lora
 from diffmining_tpu_torch.models.clip import CLIPTextModel
 from diffmining_tpu_torch.models.unet import UNet2DCondition
 from diffmining_tpu_torch.models.vae import AutoencoderKL, sample_latent
+from diffmining_tpu_torch.ops import optim8bit
+from diffmining_tpu_torch.ops.optim8bit import Adam8bitState
 
 LRSchedule = Callable[[int], np.float32]
 F32 = np.float32
@@ -124,14 +136,15 @@ class AccumulateState:
 
     mini_step: int
     gradient_step: int
-    inner_state: AdamWState
+    inner_state: "AdamWState | Adam8bitState"
     acc: List[torch.Tensor]
 
 
 @dataclasses.dataclass
 class Optimizer:
     """optax.chain(clip_by_global_norm(max_grad_norm), adamw(...)), wrapped
-    in accumulate_every when ``accum_steps`` > 1 (train.py:166-185)."""
+    in accumulate_every when ``accum_steps`` > 1 (train.py:166-185); with
+    ``use_8bit`` adamw is adamw_8bit (int8 moments, ops/optim8bit.py)."""
 
     lr_schedule: LRSchedule
     beta1: float = 0.9
@@ -141,9 +154,13 @@ class Optimizer:
     max_grad_norm: float = 1.0
     accum_steps: int = 1
     accum_dtype: Optional[torch.dtype] = None  # default: the gradients' dtype
+    use_8bit: bool = False
 
     def init(self, params: Sequence[torch.Tensor]):
-        inner = AdamWState(0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params])
+        if self.use_8bit:
+            inner = optim8bit.init_state(params)
+        else:
+            inner = AdamWState(0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params])
         if self.accum_steps <= 1:
             return inner
         acc = [torch.zeros_like(p, dtype=self.accum_dtype or p.dtype) for p in params]
@@ -157,12 +174,15 @@ class Optimizer:
             torch._foreach_div_(grads, norm)
             torch._foreach_mul_(grads, self.max_grad_norm)
 
-    def apply_(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamWState) -> None:
+    def apply_(self, params: List[torch.Tensor], grads: List[torch.Tensor], state) -> None:
         """One clipped AdamW update of ``params`` in place, in optax's order:
         mu, nu, bias corrections, mu_hat / (sqrt(nu_hat) + eps), + wd·p,
         × −lr(count); ``grads`` is consumed."""
         self.clip_(grads)
         lr = self.lr_schedule(state.count)
+        if isinstance(state, Adam8bitState):
+            optim8bit.adamw_8bit_(params, grads, state, lr, self.beta1, self.beta2, self.eps, self.weight_decay)
+            return
         state.count += 1
         b1, b2 = self.beta1, self.beta2
         torch._foreach_mul_(state.mu, b1)
@@ -193,8 +213,9 @@ def make_optimizer(
     max_grad_norm: float = 1.0,
     accum_steps: int = 1,
     accum_dtype: Optional[torch.dtype] = None,
+    use_8bit: bool = False,
 ) -> Optimizer:
-    return Optimizer(lr_schedule, beta1, beta2, weight_decay, eps, max_grad_norm, accum_steps, accum_dtype)
+    return Optimizer(lr_schedule, beta1, beta2, weight_decay, eps, max_grad_norm, accum_steps, accum_dtype, use_8bit)
 
 
 def ema_decay_schedule(step: int, max_decay: float = 0.9999) -> float:
@@ -211,8 +232,8 @@ def ema_decay_schedule(step: int, max_decay: float = 0.9999) -> float:
 @dataclasses.dataclass
 class TrainState:
     step: int  # train_step calls (micro-steps)
-    params: Dict[str, torch.Tensor]  # float32 master weights: the UNet's own parameters
-    opt_state: object  # AdamWState, or AccumulateState when accumulating
+    params: Dict[str, torch.Tensor]  # float32 master weights: the UNet's parameters, or the LoRA factors
+    opt_state: object  # AdamWState or Adam8bitState, or AccumulateState when accumulating
     ema_params: Optional[Dict[str, torch.Tensor]] = None
 
 
@@ -242,19 +263,53 @@ class TrainStepBuilder:
     use_ema: bool = False
     ema_max_decay: float = 0.9999
     mixed_precision: bool = False  # bf16 autocast around the towers and the UNet
+    # LoRA (train.py:212-241): the state's parameters become the rank-r
+    # factors, drawn from a generator seeded with ``lora_seed``; the dense
+    # UNet is frozen (no dense gradient is ever allocated)
+    lora_rank: Optional[int] = None
+    lora_seed: int = 0
 
     def init_state(self) -> TrainState:
-        self.unet.requires_grad_(True)
         for m in (self.vae, self.clip):
             m.requires_grad_(False)
-        params = dict(self.unet.named_parameters())
+        if self.lora_rank:
+            self.unet.requires_grad_(False)
+            g = torch.Generator()
+            g.manual_seed(self.lora_seed)
+            factors = lora.init_lora_params(self.unet, self.lora_rank, g)
+            params = lora.flatten(factors)
+            for p in params.values():
+                p.requires_grad_(True)
+            lora.attach(self.unet, factors)
+        else:
+            self.unet.requires_grad_(True)
+            params = dict(self.unet.named_parameters())
         ema = {k: p.detach().clone() for k, p in params.items()} if self.use_ema else None
         return TrainState(0, params, self.optimizer.init(list(params.values())), ema)
 
     def dense_params(self, state: TrainState, use_ema: bool = False) -> Dict[str, torch.Tensor]:
-        """The UNet state dict to export: the EMA weights if asked and kept."""
+        """The UNet state dict to export: the EMA weights if asked and kept;
+        under LoRA those factors merged into the frozen base."""
         src = state.ema_params if (use_ema and state.ema_params is not None) else state.params
-        return {k: v.detach() for k, v in src.items()}
+        src = {k: v.detach() for k, v in src.items()}
+        if not self.lora_rank:
+            return src
+        base = {k: v.detach() for k, v in self.unet.named_parameters()}
+        with torch.no_grad():
+            return lora.merge_lora(base, lora.unflatten(src))
+
+    @contextlib.contextmanager
+    def eval_unet(self, state: TrainState, use_ema: bool = False):
+        """``eps_fn(x, t, ctx)`` on the weights ``dense_params`` describes,
+        for inference (the previews): the module with the (EMA) factors
+        attached under LoRA, else a functional call on the (EMA) weights."""
+        src = state.ema_params if (use_ema and state.ema_params is not None) else state.params
+        if self.lora_rank:
+            with lora.use_factors(self.unet, lora.unflatten(src), restore=lora.unflatten(state.params)):
+                yield self.unet
+            return
+        params = {k: v.detach() for k, v in src.items()}
+        yield lambda x, t, ctx: torch.func.functional_call(self.unet, params, (x, t, ctx))
 
     def _autocast(self, device: torch.device):
         return torch.autocast(device.type, dtype=torch.bfloat16, enabled=self.mixed_precision)
@@ -287,7 +342,7 @@ class TrainStepBuilder:
             pred = self.unet(noisy, t, ctx)
         return torch.mean((pred.float() - target.float()) ** 2)
 
-    def _apply_and_ema(self, state: TrainState, grads: List[torch.Tensor], inner: AdamWState) -> None:
+    def _apply_and_ema(self, state: TrainState, grads: List[torch.Tensor], inner) -> None:
         params = list(state.params.values())
         with torch.no_grad():
             self.optimizer.apply_(params, grads, inner)

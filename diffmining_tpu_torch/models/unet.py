@@ -171,7 +171,13 @@ class ResnetBlock2D(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head attention, diffusers layout: bias-free to_q/k/v, to_out.0."""
+    """Multi-head attention, diffusers layout: bias-free to_q/k/v, to_out.0.
+
+    ``lora`` (set by finetuning/lora.py ``attach``) maps a projection's name
+    ("to_q", "to_k", "to_v", "to_out.0") to its factors (a [in, r], b [r,
+    out]): the projection then uses W + (a@b)ᵀ, merged here in the forward
+    (in float32, outside autocast), so a block that gradient checkpointing
+    recomputes merges again from the same factors."""
 
     def __init__(self, query_dim: int, cross_dim: Optional[int], heads: int, dim_head: int):
         super().__init__()
@@ -181,6 +187,16 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(cross_dim or query_dim, inner, bias=False)
         self.to_v = nn.Linear(cross_dim or query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.lora: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+
+    def _proj(self, name: str, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        factors = self.lora.get(name) if self.lora else None
+        if factors is None:
+            return lin(x)
+        a, b = factors
+        with torch.autocast(x.device.type, enabled=False):
+            w = lin.weight + (a @ b).t().to(lin.weight.dtype)
+        return F.linear(x, w, lin.bias)
 
     def forward(self, x, context=None, tap: str = "", injection: Optional[Injection] = None, collect=None):
         ctx = x if context is None else context
@@ -188,14 +204,14 @@ class Attention(nn.Module):
         lk = ctx.shape[1]
         # [B, L, H*D] -> strided [B, H, L, D] views: no copy on the way in,
         # and the kernel's output is already laid out [B, L, H, D]
-        q = self.to_q(x).view(b, lq, self.heads, self.dim_head).transpose(1, 2)
-        k = self.to_k(ctx).view(b, lk, self.heads, self.dim_head).transpose(1, 2)
-        v = self.to_v(ctx).view(b, lk, self.heads, self.dim_head).transpose(1, 2)
+        q = self._proj("to_q", self.to_q, x).view(b, lq, self.heads, self.dim_head).transpose(1, 2)
+        k = self._proj("to_k", self.to_k, ctx).view(b, lk, self.heads, self.dim_head).transpose(1, 2)
+        v = self._proj("to_v", self.to_v, ctx).view(b, lk, self.heads, self.dim_head).transpose(1, 2)
         if tap:
             q = _tap(q, f"{tap}.q", injection, collect)
             k = _tap(k, f"{tap}.k", injection, collect)
         out = sdpa(q, k, v).transpose(1, 2).reshape(b, lq, self.heads * self.dim_head)
-        return self.to_out[0](out)
+        return self._proj("to_out.0", self.to_out[0], out)
 
 
 class GEGLU(nn.Module):

@@ -11,9 +11,10 @@ per-category pickled (top, random) patch tables under
 maps, the DIFT ensembles and k-means run on ``device`` (the card unless the
 caller asks for the CPU); suppression and top-k are host numpy.
 
-Not yet: the ``clip`` and ``clip+dift-*`` feature modes (they need
-``CLIPVisionModel``, ROADMAP A14) and ``--mesh_dp`` (multi-GPU, ROADMAP
-A12) raise.
+The feature modes are ``dift-{t}``, ``clip`` (the CLIP image embedding of
+the patch crop, L2-normalised; the reference's openai/clip-vit-base-patch32
+from ``--clip_dir``) and ``clip+dift-{t}`` (their concatenation, [clip |
+dift]). Not yet: ``--mesh_dp`` (multi-GPU, ROADMAP A12) raises.
 
     python -m diffmining_tpu_torch cluster -w ftt -d DATA -t TREE -c CACHE \\
         -m PIPELINE_DIR --cluster
@@ -132,6 +133,8 @@ class Cluster(Typicality):
         device="cuda",
         dtype=torch.bfloat16,
         dift_draws: Optional[Callable] = None,
+        clip_dir: Optional[str] = None,
+        clip_bundle: Optional[dict] = None,
     ):
         if mesh is not None:
             raise NotImplementedError("--mesh_dp (DIFT over a device mesh) is not ported yet (ROADMAP A12)")
@@ -153,6 +156,12 @@ class Cluster(Typicality):
         self.cache_features = cache_features
         self._dift_sd = dift_sd
         self.dift: Optional[SDFeaturizer] = None
+        # CLIP patch features (the clip and clip+dift-* modes): a converted
+        # CLIPModel dir, or an injected {"config", "state_dict"} of the
+        # vision tower
+        self.clip_dir = clip_dir
+        self._clip_bundle = clip_bundle
+        self._clip_embed: Optional[Callable] = None
 
     # ------------------------------------------------------------------
     # score maps
@@ -299,6 +308,37 @@ class Cluster(Typicality):
                 sd = SD.from_pipeline_dir(self.which, self.model_path, [], dtype=self.dtype, device=self.device)
             self.dift = SDFeaturizer(sd, draws=self.dift_draws)
 
+    def init_clip(self):
+        """The CLIP image embedder of the clip modes (reference cluster.py:
+        216-229, CLIPModel.get_image_features of the crop through the
+        processor): the crop resized and centre-cropped to the tower's
+        image_size, CLIP-normalised, the pooled projection L2-normalised.
+        The tower runs in float32 on ``self.device``."""
+        if self._clip_embed is not None:
+            return
+        from diffmining_tpu_torch.baselines.clipmining import preprocess, resize_center_crop
+        from diffmining_tpu_torch.models.clip import CLIPVisionModel
+        from diffmining_tpu_torch.utils.weights import load_clip_dir, load_state
+
+        bundle = self._clip_bundle
+        if bundle is None:
+            if self.clip_dir is None:
+                raise ValueError("the clip feature modes need --clip_dir (a converted CLIPModel checkpoint dir, "
+                                 "e.g. clip-vit-base-patch32)")
+            bundle = load_clip_dir(self.clip_dir)["vision"]
+        model = CLIPVisionModel(bundle["config"])
+        load_state(model, bundle["state_dict"])
+        model = model.to(self.device, torch.float32).eval()
+        size = bundle["config"].image_size
+
+        @torch.no_grad()
+        def embed(pil) -> np.ndarray:
+            x = torch.from_numpy(preprocess(resize_center_crop(pil.convert("RGB"), size)))
+            v = model(x.permute(2, 0, 1)[None].to(self.device))[0][0].float().cpu().numpy()
+            return v / max(float(np.linalg.norm(v)), 1e-12)
+
+        self._clip_embed = embed
+
     @staticmethod
     def parse_feature_which(feature_which: str):
         """'dift-161' / 'clip' / 'clip+dift-161' -> (use_dift, use_clip, t)
@@ -321,15 +361,13 @@ class Cluster(Typicality):
         self, df: pd.DataFrame, c: str, to_add_border: bool = True, feature_which: str = "dift-261"
     ):
         """Per-patch features (reference cluster.py:243-310): DIFT = crop of
-        the whole-image feature map (mean, L2-norm), cached per patch. The
-        rows that need a feature are computed grouped by source image, so
-        each image's ensemble runs once however its patches rank (the
-        features, and their order in X, are the same either way)."""
+        the whole-image feature map (mean, L2-norm); CLIP = the image
+        embedding of the cropped patch; clip+dift = [clip | dift]. Cached
+        per patch. The rows that need a feature are computed grouped by
+        source image, so each image's ensemble runs once however its patches
+        rank (the features, and their order in X, are the same either
+        way)."""
         use_dift, use_clip, t = self.parse_feature_which(feature_which)
-        if use_clip:  # CLIP patch features (reference cluster.py:216-221, 243-301)
-            raise NotImplementedError(
-                "the clip and clip+dift-* feature modes need CLIPVisionModel, not ported yet (ROADMAP A14)"
-            )
         X, ids, pils, ds, orig_path = [], [], [], [], []
         todo = []
         emb_dir = join(self.cache_path, "embeddings", feature_which)
@@ -353,12 +391,19 @@ class Cluster(Typicality):
                     X.append(pickle.load(f))
             else:
                 X.append(None)
-                todo.append((row["seed"], i, (x0, y0, x1, y1), pkl_file))
-        if todo:
+                todo.append((row["seed"], i, (x0, y0, x1, y1), pkl_file, patch))
+        if todo and use_dift:
             self.init_dift()
-        for seed, i, box, pkl_file in sorted(todo, key=lambda r: r[0]):
-            arr = array_from_uint8(np.asarray(self.load_image(seed).convert("RGB")))
-            X[i] = self.dift.patch_feature(arr, dift_prompt(self.which, c), box, t=t, uid=image_uid(seed))
+        if todo and use_clip:
+            self.init_clip()
+        for seed, i, box, pkl_file, patch in sorted(todo, key=lambda r: r[0]):
+            parts = []
+            if use_clip:
+                parts.append(self._clip_embed(patch))
+            if use_dift:
+                arr = array_from_uint8(np.asarray(self.load_image(seed).convert("RGB")))
+                parts.append(self.dift.patch_feature(arr, dift_prompt(self.which, c), box, t=t, uid=image_uid(seed)))
+            X[i] = parts[0] if len(parts) == 1 else np.concatenate(parts)
             if self.cache_features:
                 atomic_save_pickle(pkl_file, X[i])
         return X, ids, pils, ds, orig_path
@@ -562,12 +607,12 @@ def main(argv=None):
     parser.add_argument("--umap", action="store_true")
     parser.add_argument(
         "--feature_which", type=str, default="dift-161",
-        help="dift-{t} (clip and clip+dift-{t}, reference cluster.py:247-253, wait for ROADMAP A14)",
+        help="dift-{t} | clip | clip+dift-{t} (reference cluster.py:247-253)",
     )
     parser.add_argument(
         "--clip_dir", type=str, default=None,
         help="converted CLIPModel dir for the clip feature modes (the reference uses "
-        "openai/clip-vit-base-patch32); accepted for CLI parity, the modes wait for ROADMAP A14",
+        "openai/clip-vit-base-patch32)",
     )
     parser.add_argument("--figure_path", type=str, default=None)
     parser.add_argument("--top_full_images", action="store_true")
@@ -608,7 +653,7 @@ def main(argv=None):
     cluster = Cluster(
         args.which, args.typicality_path, args.dataset_path, args.cache_path, args.recache,
         model_path=args.model_path, aggregate=args.aggregate, kx=args.k, ky=args.k,
-        cache_features=args.cache_features,
+        cache_features=args.cache_features, clip_dir=args.clip_dir,
         native_res=args.native_res, device=args.device, dtype=DTYPES[args.dtype],
     )
     if not args.figures_only:

@@ -12,9 +12,11 @@ JSON header, then raw little-endian tensor data), so no ``safetensors``
 package is needed.
 
 ``params_from_jax`` maps a flax parameter tree (of numpy arrays) of the JAX
-package's UNet, VAE or CLIP text encoder to the port's state dict: the
-port's own copy of ``unconvert_unet``/``unconvert_vae``/``unconvert_clip_text``
-(export.py:55/81/102). The tests carry JAX parameters across with it.
+package's UNet, VAE, CLIP towers or LoRA factors to the port's state dict:
+the port's own copy of ``unconvert_unet``/``unconvert_vae``/
+``unconvert_clip_text`` (export.py:55/81/102) and of the CLIP conversions
+(weights.py:188/219). The tests carry JAX parameters across with it.
+``load_clip_dir`` reads a transformers CLIPModel dir into both CLIP towers.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from diffmining_tpu_torch.diffusion.schedule import Schedule, make_schedule
-from diffmining_tpu_torch.models.clip import CLIPTextConfig
+from diffmining_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
 from diffmining_tpu_torch.models.unet import UNetConfig
 from diffmining_tpu_torch.models.vae import VAEConfig
 
@@ -166,6 +168,25 @@ def clip_config_from_json(cfg: Dict[str, Any]) -> CLIPTextConfig:
     )
 
 
+def clip_vision_config_from_json(cfg: Dict[str, Any]) -> CLIPVisionConfig:
+    """A CLIPVisionConfig json, or a full CLIPConfig's (its ``vision_config``
+    and top-level ``projection_dim``)."""
+    if "vision_config" in cfg:
+        proj = cfg.get("projection_dim", 768)
+        cfg = dict(cfg["vision_config"], projection_dim=cfg["vision_config"].get("projection_dim", proj))
+    return CLIPVisionConfig(
+        image_size=cfg.get("image_size", 336),
+        patch_size=cfg.get("patch_size", 14),
+        hidden_size=cfg.get("hidden_size", 1024),
+        intermediate_size=cfg.get("intermediate_size", 4096),
+        num_layers=cfg.get("num_hidden_layers", 24),
+        num_heads=cfg.get("num_attention_heads", 16),
+        projection_dim=cfg.get("projection_dim", 768),
+        hidden_act=cfg.get("hidden_act", "quick_gelu"),
+        layer_norm_eps=cfg.get("layer_norm_eps", 1e-5),
+    )
+
+
 def schedule_from_json(cfg: Dict[str, Any]) -> Schedule:
     return make_schedule(
         num_train_timesteps=cfg.get("num_train_timesteps", 1000),
@@ -199,6 +220,27 @@ def load_pipeline_dir(path: str) -> Dict[str, Any]:
     out["schedule"] = schedule_from_json(_read_json(os.path.join(path, "scheduler", "scheduler_config.json")))
     out["tokenizer_dir"] = os.path.join(path, "tokenizer")
     return out
+
+
+def load_clip_dir(path: str) -> Dict[str, Any]:
+    """A transformers CLIPModel checkpoint dir (safetensors + config.json, e.g.
+    a converted StreetCLIP or clip-vit-base-patch32) -> {"vision": {config,
+    state_dict}, "text": {config, state_dict, projection_dim},
+    "tokenizer_dir"} for ``CLIPVisionModel`` and
+    ``CLIPTextModelWithProjection`` (JAX utils/weights.py:313)."""
+    tensors = {k: v for k, v in read_safetensors_dir(path).items() if not k.endswith("position_ids")}
+    cfg = _read_json(os.path.join(path, "config.json"))
+    vision_cfg = clip_vision_config_from_json(cfg)
+    vision = {k: v for k, v in tensors.items() if k.startswith("vision_model.") or k == "visual_projection.weight"}
+    text = {k: v for k, v in tensors.items() if k.startswith("text_model.") or k == "text_projection.weight"}
+    if not vision or not text:
+        raise FileNotFoundError(f"{path} does not contain both CLIP towers (vision={bool(vision)}, text={bool(text)})")
+    return {
+        "vision": dict(config=vision_cfg, state_dict=to_state_dict(vision)),
+        "text": dict(config=clip_config_from_json(cfg.get("text_config", cfg)), state_dict=to_state_dict(text),
+                     projection_dim=cfg.get("projection_dim", vision_cfg.projection_dim)),
+        "tokenizer_dir": path,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -263,14 +305,36 @@ def _rename_clip_text(n: str) -> str:
     return "text_model." + re.sub(r"^layers_(\d+)\.", r"encoder.layers.\1.", n)
 
 
-_RENAMES = {"unet": _rename_unet, "vae": _rename_vae, "clip_text": _rename_clip_text}
+def _rename_clip_vision(n: str) -> str:
+    if n == "class_embedding":
+        return "vision_model.embeddings.class_embedding"
+    if n == "position_embedding":
+        return "vision_model.embeddings.position_embedding.embedding"
+    if n == "visual_projection":
+        return "visual_projection.kernel"
+    if n.startswith("patch_embedding."):
+        return "vision_model.embeddings." + n
+    return "vision_model." + re.sub(r"^layers_(\d+)\.", r"encoder.layers.\1.", n)
+
+
+def _rename_clip_text_projection(n: str) -> str:
+    if n == "text_projection":
+        return "text_projection.kernel"
+    return _rename_clip_text(n[len("text_model."):])
+
+
+_RENAMES = {"unet": _rename_unet, "vae": _rename_vae, "clip_text": _rename_clip_text,
+            "lora": _rename_unet, "clip_vision": _rename_clip_vision,
+            "clip_text_projection": _rename_clip_text_projection}
 
 
 def params_from_jax(tree: Dict[str, Any], model: str) -> StateDict:
     """A flax parameter tree (``{"params": ...}`` or its inside, leaves numpy)
-    of the JAX package's ``model`` ("unet", "vae" or "clip_text") -> the
-    port's float32 state dict (conv HWIO -> OIHW, dense (in,out) -> (out,in),
-    norm scale -> weight)."""
+    of the JAX package's ``model`` ("unet", "vae", "clip_text", "clip_vision"
+    or "clip_text_projection") -> the port's float32 state dict (conv HWIO -> OIHW, dense (in,out) -> (out,in),
+    norm scale -> weight). "lora" takes a LoRA factor tree
+    (finetuning/lora.py) to the trainer's flat ``{site}.a`` / ``{site}.b``
+    dict, the factors in their own [in, r] / [r, out] layout."""
     rename = _RENAMES[model]
     out = {}
     for name, w in _flatten(tree.get("params", tree)).items():

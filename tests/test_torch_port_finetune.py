@@ -291,8 +291,7 @@ def test_gradient_checkpointing_keeps_the_gradients(jax_ref, monkeypatch, policy
         torch.testing.assert_close(p.grad, plain[k], rtol=1e-5, atol=1e-7, msg=k)
 
 
-@pytest.mark.parametrize("flag", [["--lora"], ["--use_8bit_adam"], ["--mesh_fsdp", "2"], ["--distributed"],
-                                  ["--mesh_dp", "2"]])
+@pytest.mark.parametrize("flag", [["--mesh_fsdp", "2"], ["--distributed"], ["--mesh_dp", "2"]])
 def test_unported_flags_raise_with_their_roadmap_item(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         parse_args(["--device", "cpu", *flag])

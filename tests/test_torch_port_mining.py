@@ -3,8 +3,9 @@ top-k suppression, k-means, the UNet's DIFT taps, ``SDFeaturizer`` with the
 JAX draws injected, and ``Cluster`` end to end on one shared artifact tree
 (identical patch tables; the same ranked clusters when both k-means start
 from JAX's k-means++ draws, rank correlation > 0.95 as the repo's oracle in
-tests/test_torch_port_pipeline.py), and the ``cluster`` CLI with --device
-cpu.
+tests/test_torch_port_pipeline.py), the clip and clip+dift-161 feature
+modes with a tiny vision tower carried across, and the ``cluster`` CLI with
+--device cpu.
 
 Float32 throughout. Map ops agree to rtol 1e-5 (summation order); UNet
 outputs and features to rtol 1e-3, atol 2e-4, the UNet tests' framework-to-
@@ -302,12 +303,50 @@ def test_figures_equal_jax():
     assert pfig.make_grid(rows).tobytes() == jfig.make_grid(rows).tobytes()
 
 
+@pytest.mark.parametrize("feature_which", ["clip", "clip+dift-161"])
+def test_clip_modes_match_jax(tree, monkeypatch, tmp_path, feature_which):
+    """cluster's clip modes with the tiny vision tower carried across: the
+    per-patch features ([clip | dift] for clip+dift, the CLIP part
+    L2-normalised) within the UNet tests' bound, and, both k-means starting
+    from JAX's k-means++ draws, the same ranked clusters."""
+    from diffmining_tpu.models.clip import TINY_CLIP_VISION, CLIPVisionModel
+
+    from diffmining_tpu_torch.models import clip as pclip
+
+    root, typ, _, jsd, psd = tree
+    vision = CLIPVisionModel(TINY_CLIP_VISION)
+    vp = vision.init(jax.random.PRNGKey(3), jnp.zeros((1, 64, 64, 3)))
+    jcl = JCluster("ftt", typ, root, str(tmp_path / "j"), sd=jsd, dift_sd=jsd, kx=8, ky=8,
+                   clip_bundle={"config": TINY_CLIP_VISION, "params": vp})
+    pcl = Cluster("ftt", typ, root, str(tmp_path / "p"), dift_sd=psd, kx=8, ky=8, device="cpu",
+                  dtype=torch.float32, dift_draws=_jax_dift_draws,
+                  clip_bundle={"config": pclip.TINY_CLIP_VISION,
+                               "state_dict": params_from_jax(jax.tree_util.tree_map(np.asarray, vp), "clip_vision")})
+    df = pcl.patch_tables(k_per_image=3)[DECADES[0]][0]
+    got = pcl.compute_embeddings(df, c=DECADES[0], feature_which=feature_which)[0]
+    want = jcl.compute_embeddings(df, c=DECADES[0], feature_which=feature_which)[0]
+    dim = TINY_CLIP_VISION.projection_dim
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == ((dim,) if feature_which == "clip" else (dim + w.shape[0] - dim,))
+        np.testing.assert_allclose(g, w, **TOL)
+        np.testing.assert_allclose(np.linalg.norm(g[:dim]), 1.0, rtol=1e-5)
+    calls = itertools.count()
+
+    def jax_init(generator, x, k):
+        key = jax.random.fold_in(jax.random.PRNGKey(10), next(calls) % 10)
+        return _t(np.asarray(jkm.kmeanspp_init(key, jnp.asarray(x.numpy()), k)))
+
+    monkeypatch.setattr(pkm, "kmeanspp_init", jax_init)
+    want_c = jcl.clustering(feature_which, k_per_image=3, k=9, num_clusters=3)
+    got_c = pcl.clustering(feature_which, k_per_image=3, k=9, num_clusters=3)
+    for dec in DECADES:
+        assert [sorted(m[2] for m in ms) for ms, _ in got_c[dec]] == [sorted(m[2] for m in ms) for ms, _ in want_c[dec]]
+        np.testing.assert_allclose([s for _, s in got_c[dec]], [s for _, s in want_c[dec]], **MAP_TOL)
+
+
 def test_unported_modes_raise(clusters, tree, tmp_path):
     from diffmining_tpu_torch.typicality.cluster import main
 
-    _, pcl = clusters
-    with pytest.raises(NotImplementedError, match="A14"):
-        pcl.compute_embeddings(pcl.patch_tables(k_per_image=3)[DECADES[0]][0], c=DECADES[0], feature_which="clip")
     root, typ, _, _, _ = tree
     with pytest.raises(SystemExit, match="A12"):
         main(["-w", "ftt", "-d", root, "-t", typ, "-c", str(tmp_path), "--mesh_dp", "2", "--device", "cpu"])
