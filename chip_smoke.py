@@ -49,8 +49,8 @@ back to the CPU):
      --log_previews path, sample() + save_logs(): one category's grid of 2
      samples at 50 DDIM steps on the EMA weights (500 launches of K1);
   7. inference-mode kernels: K3 (online-softmax forward, no lse) at B8 H8
-     L4096 D40, B8 H8 L1024 D80 and a masked tail at D160, and on the
-     underflow edge, where it stays the softmax; K7 (fused GroupNorm ->
+     L4096 D40, B8 H8 L1024 D80, B2 H8 L4096 D160 and a masked tail at
+     D160, and on the underflow edge, where it stays the softmax; K7 (fused GroupNorm ->
      proj_in: the statistics kernel, then the normalise + projection
      kernel) at the four SpatialTransformer entry shapes of a 512px UNet
      pass at batch 8 in NCHW and channels-last input (the layout after a
@@ -61,7 +61,8 @@ back to the CPU):
      forward for K3; F.group_norm plus a 1x1 F.conv2d, two calls, for K7)
      by events and device time; K3 at its own 128-key tiles; for K7 the
      device time of each of its two kernels (torch.profiler);
-  8. mining: 2 labels x 64 synthetic 512x512 PNGs swept at N=4 through the
+  8. mining: 2 labels x 24 synthetic 512x512 PNGs (cut from 64 in PR 12
+     for the script's time) swept at N=4 through the
      sweep's own decoding, then Cluster.clustering("dift-161") with the CLI
      defaults twice: under the default modes (K1) and, on a freshly built
      bundle, under DIFFMINING_FUSED_NORM=1, DIFFMINING_FLASH_ONESHOT=0 and
@@ -104,15 +105,35 @@ back to the CPU):
      ParallelCluster.clustering("dift-161"): rows from every source group,
      finite country-major embeddings, clusters ranked by median D, K1
      launches against the UNet and DIFT passes, the wall time;
- 14. clip: CLIPRankCluster at ViT-L/14-336 widths with the ViT-L/14 text
-     tower (random weights) on 2 countries x 16 synthetic 512px images,
-     batch 8, the command's constants: tower images/s, the clustering wall,
-     the device scoring path against the host path; then cluster's
+ 14. clip: first flash_fwd_f32 (the float32 forward of the CLIP towers) in
+     both modes against its plain versions in float32, TF32 off: online
+     (K3) at B8 H16 L1025 D64, no-max (K1/K2) at B2 H16 L4097 D64, and a
+     masked key tail in each, with times, sdpa's float32 forward and the
+     bound; then CLIPRankCluster at ViT-L/14-336 widths with the ViT-L/14
+     text tower (random weights) on 2 countries x 16 synthetic 512px images,
+     batch 8, the command's constants: at crop 336 (no attention reaches a
+     kernel) tower images/s, the clustering wall, the device scoring path
+     against the host path; at crop 448 (L 1025) clipmining end to end
+     through the online mode, 24 launches a tower forward, tower images/s,
+     tokens against the plain attention; at crop 896 (L 4097) one tower
+     forward through the no-max mode, its largest logit; then cluster's
      clip+dift-161 mode over phase 8's top patches with a ViT-B/32-width
-     tower; no attention of a tower reaches a kernel (K1 only for DIFT).
+     tower (K1 only for DIFT);
+ 15. doersch: the Doersch baseline on 2 countries x 32 synthetic 512px geo
+     images (cut from a dataset), how_many 256 (cut from 25,000), 64
+     detectors (one chunk), 3 folds, the 25,000-row x 2112 negative pool and
+     400 Adam steps: HOG ms/image, dense-search ms, SVM ms a fold, the
+     total; the last fold's worst relative duality gap and objectives
+     (printed); the relative duality gap at the production shape of
+     tests/test_doersch.py (25,000 x 2112 rows, 1,250 planted positives)
+     on its random 128px images (<= 0.02) and on this run's (printed); one
+     dense search and one batched SVM against the same call on the CPU;
+ 16. verify_checkpoint on phase 12's SD-v1.5-width export: exit 0, PASS on
+     convert, structure and forward.
 Then one JSON line each for the slice, the training run, the mining runs,
-X-ray, sampling, PnP, train_lora_8bit, parallel and clip, one of per-kernel
-numbers, and as the last line {"ok": true, "device": {...}}.
+X-ray, sampling, PnP, train_lora_8bit, parallel, clip, doersch and
+verify_checkpoint, one of per-kernel numbers, and as the last line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -120,6 +141,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -156,6 +178,15 @@ TRACE_SETTLE_S = 0.2  # host wait between starting a trace and its first call; d
 KERNEL_RTOL = 2.0**-7
 BWD_RTOL = 2.0**-6
 KERNEL_ATOL_RMS = 2.0**-7
+# flash_fwd_f32 against its plain version in float32 (TF32 off): both
+# compute the same float32 logits, exp2 and sums in other orders (64-term
+# dot products, per-tile against per-row maxima, exp2f against torch's
+# exp2), so they differ by float32 roundings, a few 2^-24 of the output's
+# scale; the bound is 2^-14 of the element plus 2^-14 of the output's rms.
+# A kernel that drops one 64-key tile of 1025 is off by about 1/16.
+F32_RTOL = 2.0**-14
+F32_ATOL_RMS = 2.0**-14
+F32_SOURCES = ("flash_fwd_f32",)
 UNET_REL_L2 = 5e-2
 # bf16 mixed precision through the UNet's forward and backward against a
 # float32 pass: relative L2 error of the level-0 attention projections'
@@ -197,6 +228,21 @@ GN_RSIG_RTOL = 2.0**-17
 # CPU); the limit leaves about 3x room. Each kernel is held much tighter
 # against its plain version in phase 7.
 DIFT_MODES_REL_L2 = 1.5e-2
+# the ViT-L/14 tower's projected tokens with its self-attention through the
+# float32 flash forward against the same forward through the plain
+# attention (both float32, TF32 off): roundings of float32 sums carried
+# through 24 layers of random weights; the bound is 1e-4 relative L2.
+CLIP_F32_REL_L2 = 1e-4
+# the Doersch SVM's optimality certificate at the production shape: the bound
+# tests/test_doersch.py holds the JAX solver to at 25,000 x 2112 with 1,250
+# positives (a pipeline fold's solve has about 5, where the certificate reads
+# 1.0 in both packages: phase_doersch)
+DOERSCH_GAP = 0.02
+# the batched SVM on the card against the same call on the CPU: float32 sums
+# in other orders through 400 Adam steps; each output (W, b, the pool
+# scores) within 1e-4 of its largest magnitude (the first card run read
+# 1.1e-5 absolute on weights of order 0.1, over an elementwise atol of 1e-5)
+SVM_CARD_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -391,6 +437,23 @@ def kernel_error(got, want, rtol=KERNEL_RTOL, rounded_before=None):
     return float(err.max()), float((err / tol).max())
 
 
+def f32_error(got, want):
+    """(max |got - want|, worst ratio to F32_RTOL |want| + F32_ATOL_RMS rms(want))."""
+    err = (got - want).abs()
+    tol = F32_RTOL * want.abs() + F32_ATOL_RMS * want.pow(2).mean().sqrt()
+    return float(err.max()), float((err / tol).max())
+
+
+def f32_attention_bound(b, h, lq, lk, d):
+    """Least time of one float32 forward: q, k, v read and o written once
+    (4 bytes an element) over the memory rate, against QK^T + PV, 4 Lq Lk D
+    a head, on the float32 pipes outside the tensor cores."""
+    t_bytes = 4 * (2 * b * h * lq * d + 2 * b * h * lk * d) / (PEAK_HBM_TBS * 1e12) * 1e3
+    t_ops = 4.0 * b * h * lq * lk * d / (PEAK_FP32_TFLOPS * 1e12) * 1e3
+    bound = max(t_bytes, t_ops)
+    return bound, ("bytes" if bound == t_bytes else "operations")
+
+
 def phase_environment():
     import torch
 
@@ -430,11 +493,20 @@ def phase_build():
         log(f"  ptxas {name}: registers per thread of the instantiations: {', '.join(regs)}; "
             f"spills: {spills or 'none'}" + (f"; warnings: {warnings}" if warnings else ""))
         fa._library(name)
-    # every kernel issues wgmma: the SASS shows HGMMA
+    # every bf16 kernel issues wgmma: the SASS shows HGMMA; the float32
+    # forward is fp32 FMA only: no tensor-core instruction (no TF32, no bf16)
     cuobjdump = os.path.join(os.path.dirname(fa._nvcc()), "cuobjdump")
     for name in fa.SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", str(fa._library_path(name))], capture_output=True, text=True,
                               check=True).stdout
+        if name in F32_SOURCES:
+            mma = [line.strip() for line in sass.splitlines() if re.search(r"\b[A-Z]*G?MMA\.", line.split(";")[0])
+                   and "HFMA2.MMA" not in line]  # HFMA2.MMA: a register move issued on the FMA pipe
+            ffma = sum("FFMA" in line for line in sass.splitlines())
+            if mma or not ffma:
+                raise AssertionError(f"{name}: tensor-core instructions {mma[:2]} or no FFMA in its SASS")
+            log(f"  cuobjdump -sass {name}: no tensor-core instruction, {ffma} FFMA")
+            continue
         hgmma = [line.strip() for line in sass.splitlines() if "HGMMA" in line]
         if not hgmma:
             raise AssertionError(f"{name}: no HGMMA in the SASS of its library")
@@ -1064,7 +1136,7 @@ def phase_inference_kernels(smi):
 
     results = {"K3": {}}
     for name, (b, h, l, d) in [("L4096 D40", (8, 8, 4096, 40)), ("L1024 D80", (8, 8, 1024, 80)),
-                               ("masked tail L1100 D160", (2, 8, 1100, 160))]:
+                               ("L4096 D160", (2, 8, 4096, 160)), ("masked tail L1100 D160", (2, 8, 1100, 160))]:
         q, k, v = [torch.randn(b, l, h * d, generator=g, device=dev).to(torch.bfloat16)
                    .view(b, l, h, d).transpose(1, 2) for _ in range(3)]
         got = fa.flash_fwd_online(q, k, v)
@@ -1265,7 +1337,7 @@ def phase_mining(smi):
     from diffmining_tpu_torch.typicality.templates import dift_prompt
     from diffmining_tpu_torch.utils.images import array_from_uint8, image_uid
 
-    labels, per_label, px, N, feature = ["1920", "1960"], 64, 512, 4, "dift-161"
+    labels, per_label, px, N, feature = ["1920", "1960"], 24, 512, 4, "dift-161"  # 64 a label until PR 11
     work = os.path.join(ROOT, "build", "chip_smoke_mining")
     shutil.rmtree(work, ignore_errors=True)
     data, tree, subs = (os.path.join(work, n) for n in ("ftt", "typicality", "subs"))
@@ -1278,8 +1350,8 @@ def phase_mining(smi):
             # the DIFT draws key on the file name, as in the reference
             Image.fromarray(rng.randint(0, 256, (px, px, 3), dtype=np.uint8)).save(
                 os.path.join(data, c, f"{c}_img{i}.png"), compress_level=1)
-    log(f"mining: {len(labels)} labels x {per_label} synthetic {px}x{px} PNGs (numpy, seeded) written in "
-        f"{time.perf_counter() - t0:.1f} s; the sweep and the miner decode them")
+    log(f"mining: {len(labels)} labels x {per_label} synthetic {px}x{px} PNGs (numpy, seeded; reduced from 64 a "
+        f"label for the script's time) written in {time.perf_counter() - t0:.1f} s; the sweep and the miner decode them")
 
     def bundle():
         return SD.init_random("ftt", labels, SD15_UNET, SD15_VAE, CLIP_VIT_L_TEXT, seed=SEED, dtype=torch.bfloat16,
@@ -1938,6 +2010,9 @@ def phase_train_lora_8bit(smi, dense):
         f"base and the EMA factors")
     launches = {"flash_fwd_lse": 2 * 10 + 2 * 20, "flash_bwd_dq": 40, "flash_bwd_dkv": 40}
     del tr, batches, base, p, want, st, b
+    kept = os.path.join(ROOT, "build", "chip_smoke_export")  # phase 16 verifies it
+    shutil.rmtree(kept, ignore_errors=True)
+    shutil.move(export_dir, kept)
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return dict(batch=batch, px=px, dense_8bit=dict(step_ms=ms8, warm_step_ms=warm8, images_per_s=batch / warm8 * 1e3,
@@ -1950,7 +2025,7 @@ def phase_train_lora_8bit(smi, dense):
                           peak_gib=peak_lora, remat_step_ms=ms_remat, remat_peak_gib=peak_remat,
                           launches_per_step=per_step, remat_launches_per_step=remat_step, factor_grad_rel_l2=rel,
                           export_s=export_s),
-                launches=launches, card=smi)
+                launches=launches, export_dir=kept, card=smi)
 
 
 def phase_parallel(smi, pnp_out, sd):
@@ -2049,6 +2124,62 @@ def phase_parallel(smi, pnp_out, sd):
                 embedding_dim=int(emb.shape[0]), card=smi)
 
 
+def phase_f32_kernels():
+    """flash_fwd_f32's two modes against their plain versions in float32
+    (TF32 off) at the CLIP towers' shapes: online (K3) at ViT-L/14's crop
+    448 batch (B8 H16 L1025 D64), no-max (K1/K2) at crop 896 (B2 H16 L4097
+    D64), both on a masked key tail (L1000: 15 full 64-key tiles and 40
+    keys); with CUDA-event and device times, the plain version's, sdpa's
+    float32 forward (a yardstick only) and the bound. These launches are
+    not the main path's."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffmining_tpu_torch.ops import flash_attention as fa
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must be off for the float32 references")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 23)
+    modes = {"online": (fa.flash_fwd_online_f32, fa.flash_fwd_online_plain),
+             "nomax": (fa.flash_fwd_nomax_f32, fa.flash_attention_nomax_plain)}
+    cases = [("online", "L1025 D64", (8, 16, 1025, 64)), ("online", "masked tail L1000 D64", (2, 16, 1000, 64)),
+             ("nomax", "L4097 D64", (2, 16, 4097, 64)), ("nomax", "masked tail L1000 D64", (2, 16, 1000, 64))]
+    results, failed = {"online": {}, "nomax": {}}, []
+    for mode, name, (b, h, l, d) in cases:
+        kernel, plain = modes[mode]
+        # [B, L, H*D] float32 projections viewed as [B, H, L, D], as the tower hands them over
+        q, k, v = [torch.randn(b, l, h * d, generator=g, device=dev).view(b, l, h, d).transpose(1, 2)
+                   for _ in range(3)]
+        got = kernel(q, k, v)
+        torch.cuda.synchronize()
+        want = plain_chunked(plain, q, k, v)
+        max_err, worst = f32_error(got, want)
+        if worst > 1.0 or not torch.isfinite(got).all():
+            failed.append(f"flash_fwd_f32 {mode} {name}: {worst:.3g} x the tolerance (max abs err {max_err})")
+        lib_err = float((F.scaled_dot_product_attention(q, k, v) - want).abs().max())
+        del got, want
+        ms = cuda_time_ms(lambda: kernel(q, k, v))
+        plain_ms = cuda_time_ms(lambda: plain_chunked(plain, q, k, v), reps=3, warmup=1)
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        _, device_ms = device_split(lambda: kernel(q, k, v), "flash_fwd_f32_kernel")
+        lib_device, _ = device_split(lambda: F.scaled_dot_product_attention(q, k, v), "")
+        bound, by = f32_attention_bound(b, h, l, l, d)
+        results[mode][name] = dict(shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms,
+                                   device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                   library_device_ms=lib_device, library="sdpa forward, float32, TF32 off",
+                                   library_max_abs_err=lib_err, bound_ms=bound, bound_by=by)
+        log(f"kernel flash_fwd_f32 {mode} {name} B{b} H{h}: max|err| {max_err:.3g} = {worst:.3g} x tolerance "
+            f"(rtol 2^-14, atol 2^-14 rms)  ms {ms:.4f}  device {fmt(device_ms)}  plain {plain_ms:.3f}  "
+            f"sdpa float32 {lib_ms:.4f} (device {fmt(lib_device)}; max|err| {lib_err:.3g})  bound {bound:.4f} ({by})")
+        del q, k, v
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return results
+
+
 def phase_clip(smi, mining_work, dift_sd):
     """CLIPRankCluster at ViT-L/14-336 widths on synthetic geo images, both
     scoring paths; then cluster's clip+dift-161 mode over phase 8's top
@@ -2117,7 +2248,10 @@ def phase_clip(smi, mining_work, dift_sd):
         f"batch {batch_images}): the ViT-L/14-336 tower {tower_ips:.1f} images/s; clustering wall {wall_s:.1f} s; "
         f"device vs host scoring on {countries[0]}: the same {len(df_d)} boxes, max |dD| {d_err:.3g}, max |d embed| "
         f"{e_err:.3g} (bound rtol 1e-4, atol 1e-5) on {smi}")
-    del dev, host, vision, text
+    del dev, host
+    torch.cuda.empty_cache()
+    large = clip_large_crops(smi, ranker, vision, countries, per_country, batch_images, kernels)
+    del vision, text
     torch.cuda.empty_cache()
 
     # cluster's clip+dift-161 mode over phase 8's top patches
@@ -2152,11 +2286,376 @@ def phase_clip(smi, mining_work, dift_sd):
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return dict(countries=len(countries), images_per_country=per_country, px=px, crop=336,
-                batch_images=batch_images, tower_images_per_s=tower_ips, clipmining_wall_s=wall_s,
+                batch_images=batch_images, tower_images_per_s=tower_ips, clipmining_wall_s=wall_s, large_crops=large,
                 device_vs_host=dict(boxes=len(df_d), max_abs_dD=d_err, max_abs_dembed=e_err, rtol=1e-4, atol=1e-5),
                 clip_dift=dict(patches=n_patches, wall_s=mix_s, dift_passes=dift_passes,
                                embedding_dim=int(embs[0].shape[0])),
                 launches=launches, card=smi)
+
+
+def tower_rel_l2(vision, pixels):
+    """The tower's projected tokens through the float32 flash forward
+    against the same forward with every attention on the plain path
+    (float32, TF32 off): relative L2 error."""
+    import torch
+
+    from diffmining_tpu_torch.ops import attention as pattn
+
+    with torch.no_grad():
+        got = vision(pixels)[1]
+        gate = pattn.use_kernel
+        pattn.use_kernel = lambda *a: False
+        try:
+            want = vision(pixels)[1]
+        finally:
+            pattn.use_kernel = gate
+    return rel_l2(got, want)
+
+
+def clip_large_crops(smi, ranker, vision, countries, per_country, batch_images, kernels):
+    """The CLIP towers at crops of 448 and 896 px, where the vision tower's
+    self-attention passes the flash gate in float32: clipmining end to end at
+    crop 448 (each tower forward launches the online mode once a layer, 24
+    times), the tower at crop 896 (the no-max mode, 24 a forward; the
+    largest logit·log2e printed: exp2 overflows past 128 there, as in JAX),
+    and each crop's tokens against the same forward through the plain
+    attention."""
+    import numpy as np
+    import torch
+
+    from diffmining_tpu_torch.baselines.clipmining import preprocess
+    from diffmining_tpu_torch.ops import attention as pattn
+    from diffmining_tpu_torch.ops import flash_attention as fa
+
+    f32 = (fa.flash_fwd_online_f32, fa.flash_fwd_nomax_f32)
+    layers = vision.config.num_layers
+    forwards = [0]
+    tower_forward = vision.forward
+
+    def counted(pixels):
+        forwards[0] += 1
+        return tower_forward(pixels)
+
+    vision.forward = counted
+    out = {}
+    try:
+        # crop 448: the main path of the online mode, counts from 0
+        for f in (*kernels, *f32):
+            f.launches = 0
+        forwards[0] = 0
+        big = ranker("cache_448", crop=448)
+        imgs = [big.load_image(p) for p in big.get_seeds(countries[0])[:batch_images]]
+        big._project_device(imgs)  # warm
+        torch.cuda.synchronize()
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            big._project_device(imgs)
+        torch.cuda.synchronize()
+        ips = reps * len(imgs) / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ranked = big.clustering()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {f.__name__: f.launches for f in (*kernels, *f32)}
+        n_fw = forwards[0]
+        want = dict.fromkeys(launches, 0)
+        want["flash_fwd_online_f32"] = layers * n_fw
+        if launches != want or n_fw == 0:
+            raise AssertionError(f"clip 448: launches {launches} over {n_fw} tower forwards, expected {want}")
+        for c in countries:
+            scores = [sc for _, sc in ranked[c]]
+            if scores != sorted(scores, reverse=True) or sum(len(m) for m, _ in ranked[c]) != 5 * per_country:
+                raise AssertionError(f"clip 448: clipmining {c}: {sum(len(m) for m, _ in ranked[c])} members")
+        pixels = torch.from_numpy(np.stack([preprocess(im) for im in imgs])).permute(0, 3, 1, 2).cuda()
+        err448 = tower_rel_l2(vision, pixels)
+        if not err448 <= CLIP_F32_REL_L2:
+            raise AssertionError(f"clip 448: tokens through the kernel {err448:.3g} (rel L2) off the plain path")
+        log(f"clip: clipmining at crop 448 (L 1025, ViT-L/14 widths, float32): {n_fw} tower forwards launched "
+            f"flash_fwd_f32's online mode {launches['flash_fwd_online_f32']} times ({layers} a forward), no other "
+            f"kernel; the tower {ips:.1f} images/s at batch {batch_images}; clustering wall {wall:.1f} s; tokens "
+            f"against the plain attention: rel L2 {err448:.3g} (bound {CLIP_F32_REL_L2:g}) on {smi}")
+        out["crop448"] = dict(tower_forwards=n_fw, launches=launches, launches_per_forward=layers,
+                              tower_images_per_s=ips, clustering_wall_s=wall, tokens_rel_l2=err448)
+        del big, ranked
+
+        # crop 896: one tower forward at batch 2 through the no-max mode
+        top = [0.0]
+        nomax = pattn.FORWARD["K2"]
+
+        def k2_with_max_logit(q, k, v, scale=None):
+            scale = scale if scale is not None else q.shape[-1] ** -0.5
+            for i in range(q.shape[0]):
+                s = torch.matmul(q[i] * scale, k[i].transpose(-1, -2))
+                top[0] = max(top[0], float(s.max()) * fa.LOG2E)
+            return nomax(q, k, v, scale)
+
+        imgs = [im.resize((896, 896)) for im in imgs[:2]]
+        pixels = torch.from_numpy(np.stack([preprocess(im) for im in imgs])).permute(0, 3, 1, 2).cuda()
+        with torch.no_grad():
+            vision(pixels)  # warm
+            for f in (*kernels, *f32):
+                f.launches = 0
+            forwards[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pooled, tokens = vision(pixels)
+            torch.cuda.synchronize()
+            fw_s = time.perf_counter() - t0
+        launches896 = {f.__name__: f.launches for f in (*kernels, *f32)}
+        want = dict.fromkeys(launches896, 0)
+        want["flash_fwd_nomax_f32"] = layers
+        if launches896 != want or not (torch.isfinite(pooled).all() and torch.isfinite(tokens).all()):
+            raise AssertionError(f"clip 896: launches {launches896}, expected {want}; finite "
+                                 f"{bool(torch.isfinite(tokens).all())}")
+        pattn.FORWARD["K2"] = k2_with_max_logit
+        try:
+            with torch.no_grad():
+                vision(pixels)
+        finally:
+            pattn.FORWARD["K2"] = nomax
+        err896 = tower_rel_l2(vision, pixels)
+        if not err896 <= CLIP_F32_REL_L2:
+            raise AssertionError(f"clip 896: tokens through the kernel {err896:.3g} (rel L2) off the plain path")
+        log(f"clip: the ViT-L/14 tower at crop 896 (L 4097), batch 2: one forward {fw_s * 1e3:.1f} ms, "
+            f"flash_fwd_f32's no-max mode launched {launches896['flash_fwd_nomax_f32']} times; the largest "
+            f"logit x log2e {top[0]:.3f} (exp2 overflows past 128); tokens against the plain attention: rel L2 "
+            f"{err896:.3g} (bound {CLIP_F32_REL_L2:g})")
+        out["crop896"] = dict(batch=2, forward_ms=fw_s * 1e3, launches=launches896, max_logit_log2e=top[0],
+                              tokens_rel_l2=err896)
+    finally:
+        del vision.forward
+    return out
+
+
+def phase_doersch(smi):
+    """The Doersch baseline at its production widths on synthetic geo
+    images: HOG+LAB features, detector init (dense search), three folds of
+    the batched SVM over the full 25,000-row negative pool, the final
+    search and figure; per-stage times, the last fold's duality gaps and
+    objectives, the duality gap at the production shape, and one dense
+    search and one batched SVM held to the same call on the CPU."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diffmining_tpu_torch.baselines import doersch as dm
+    from diffmining_tpu_torch.ops import hog as hog_mod
+    from diffmining_tpu_torch.ops import svm
+
+    countries, per_country, px = ["France", "Japan"], 32, 512
+    how_many, num_detectors, folds = 256, 64, 3  # how_many cut from 25,000 for the script's time
+    work = os.path.join(ROOT, "build", "chip_smoke_doersch")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "geo")
+    rng = np.random.RandomState(SEED + 31)
+    for c in countries:
+        os.makedirs(os.path.join(data, c))
+        for i in range(per_country):
+            # smooth blobs plus noise, so patches have contrast and HOG structure
+            base = rng.randint(0, 256, (px // 32, px // 32, 3), dtype=np.uint8)
+            img = np.asarray(Image.fromarray(base).resize((px, px), Image.BICUBIC), np.int16)
+            img = np.clip(img + rng.randint(-24, 25, img.shape), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(data, c, f"gt--{c}__{i:03d}.png"), compress_level=1)
+    timing = {"svm_s": [], "search_s": []}
+    last_fold = {}
+    fit_batch, search = dm.fit_linear_svm_batch, dm.dense_search
+
+    def timed_fit(P, Pm, HN, HNm, NEG, NEGm, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit_batch(P, Pm, HN, HNm, NEG, NEGm, **kw)
+        timing["svm_s"].append(time.perf_counter() - t0)
+        last_fold.update(P=P, Pm=Pm, HN=HN, HNm=HNm, NEG=NEG, NEGm=NEGm, W=out[0], b=out[1])
+        return out
+
+    def timed_search(*a, **kw):
+        t0 = time.perf_counter()
+        out = search(*a, **kw)
+        timing["search_s"].append(time.perf_counter() - t0)
+        return out
+
+    dm.fit_linear_svm_batch, dm.dense_search = timed_fit, timed_search
+    try:
+        t_all = time.perf_counter()
+        d = dm.Doersch(os.path.join(work, "run"), "geo", data, how_many=how_many, device="cuda")
+        c = countries[0]
+        t0 = time.perf_counter()
+        for p in d.positive_paths(c) + d.negative_paths(c):
+            d.store.image_features(p)
+        hog_s = time.perf_counter() - t0
+        img0 = np.asarray(Image.open(d.positive_paths(c)[0]).convert("RGB"))
+        hog_mod.hoglab_features(img0, device="cuda")  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            hog_mod.hoglab_features(img0, device="cuda")
+        hog_call_ms = (time.perf_counter() - t0) / 5 * 1e3
+        n_images = len(d.positive_paths(c)) + len(d.negative_paths(c))
+        t0 = time.perf_counter()
+        init = d.initialize_classifier(c, num_detectors=num_detectors)
+        init_s = time.perf_counter() - t0
+        init_search_s = sum(timing["search_s"])
+        n_before = len(timing["search_s"])
+        t0 = time.perf_counter()
+        img = d.get_top(c, num_detectors=num_detectors, l=folds)
+        iter_s = time.perf_counter() - t0
+        total_s = time.perf_counter() - t_all
+    finally:
+        dm.fit_linear_svm_batch, dm.dense_search = fit_batch, search
+    iter_search = timing["search_s"][n_before:]
+    det_dir = os.path.join(work, "run", "geo", c, "detectors", "50")
+    dets = [os.path.join(det_dir, f) for f in os.listdir(det_dir)]
+    hog_ms = hog_s / n_images * 1e3
+    log(f"doersch: geo, {len(countries)} categories x {per_country} synthetic {px}px images (cut from a dataset), "
+        f"how_many {how_many} (cut from 25,000 for the script's time), {num_detectors} detectors (one chunk, J = {num_detectors}), "
+        f"{folds} folds, the 25,000-row x 2112 negative pool and 400 Adam steps (production widths), {c}'s "
+        f"detectors trained: features {hog_ms:.1f} ms/image (decode, HOG+LAB, the fp16 cache, normalise; "
+        f"hoglab_features alone {hog_call_ms:.1f} ms, its result on the host); init {init_s:.1f} s (dense search "
+        f"{init_search_s * 1e3:.0f} ms over {how_many} patches); the folds' and final dense searches "
+        f"{', '.join(f'{t * 1e3:.0f}' for t in iter_search)} ms; SVM {', '.join(f'{t * 1e3:.0f}' for t in timing['svm_s'])} "
+        f"ms a fold; iterative training and figure {iter_s:.1f} s; total {total_s:.1f} s on {smi}")
+    if len(init) != num_detectors or len(dets) != num_detectors or len(timing["svm_s"]) != folds or img.width <= 0:
+        raise AssertionError(f"doersch: {len(init)} init detectors, {len(dets)} trained, {len(timing['svm_s'])} "
+                             f"SVM solves, figure {img.size}")
+    import pickle
+
+    accs = []
+    for fp in dets:
+        with open(fp, "rb") as f:
+            acc, hits, _top, w = pickle.load(f)
+        if not (np.isfinite(w).all() and all(np.isfinite(h[0]) for h in hits) and 0 <= acc <= len(hits)):
+            raise AssertionError(f"doersch: detector {fp} has non-finite weights or scores")
+        accs.append(acc)
+
+    # The weak-duality certificate (ops/svm.py duality_gap) of the last
+    # fold's solves, and each objective against the point w = 0, b = -1,
+    # which meets every negative's margin. A fold has about 5 positives
+    # against 25,000 negatives: where no negative violates its margin, the
+    # certificate's dual point is zero (every violator is a positive, and
+    # shaving Σ α·y to 0 removes them all), so it reads 1.0.
+    lf = last_fold
+    t0 = time.perf_counter()
+    # each solve's rows are its positives, its hard negatives and a prefix of
+    # the shared pool: one float64 buffer holds the pool once, and each
+    # detector's positives and hard negatives are written just before it
+    pos_hn = [(lf["P"][j][lf["Pm"][j] > 0], lf["HN"][j][lf["HNm"][j] > 0]) for j in range(num_detectors)]
+    head = max(len(p_) + len(h_) for p_, h_ in pos_hn)
+    buf = np.empty((head + len(lf["NEG"]), lf["NEG"].shape[1]))
+    buf[head:] = lf["NEG"]
+    gaps, over_trivial = [], []
+    for j, (pos, hn) in enumerate(pos_hn):
+        m = int(lf["NEGm"][j].sum())
+        if not lf["NEGm"][j][:m].all():
+            raise AssertionError(f"doersch: detector {j}'s pool rows are not a prefix of the pool")
+        start = head - len(pos) - len(hn)
+        buf[start:start + len(pos)] = pos
+        buf[start + len(pos):head] = hn
+        X = buf[start:head + m]
+        y = np.concatenate([np.ones(len(pos)), -np.ones(len(X) - len(pos))])
+        gap = svm.duality_gap(X, y, lf["W"][j], float(lf["b"][j]), 0.1)
+        gaps.append(gap[1])
+        over_trivial.append(gap[2] / svm.primal_objective(X, y, np.zeros(X.shape[1]), -1.0, 0.1))
+    fold_gap_s = time.perf_counter() - t0
+
+    def production_gap(rows):
+        """The certificate at the production shape of tests/test_doersch.py
+        (:193-222): 25,000 x 2112 rows, 1,250 positives moved along a planted
+        direction drawn after the rows from RandomState(0), C = 0.1, 400
+        steps; fitted on the card."""
+        X = rows[:25000].astype(np.float64)
+        u = prng.randn(X.shape[1])
+        u /= np.linalg.norm(u)
+        y = np.asarray([1.0] * 1250 + [-1.0] * (len(X) - 1250))
+        X[:1250] += 0.5 * u
+        X[:1250] /= np.linalg.norm(X[:1250], axis=1, keepdims=True)
+        w, b = svm.fit_linear_svm(X, y, C=0.1, device="cuda")
+        return svm.duality_gap(X, y, w, b, 0.1)
+
+    # the test's own rows: the features of random 128 px 8-bit images drawn
+    # from RandomState(0), as many as reach 25,000 positions (the gated bound)
+    prng = np.random.RandomState(0)
+    cells, n_rows = [], 0
+    while n_rows < 25000:
+        f = hog_mod.normalize_features(hog_mod.hoglab_features(prng.randint(0, 255, (128, 128, 3), dtype=np.uint8),
+                                                               device="cuda"))
+        cells.append(f.reshape(-1, f.shape[-1]))
+        n_rows += len(cells[-1])
+    _, test_gap, test_primal, test_dual = production_gap(np.concatenate(cells))
+    # the same construction on this run's smooth synthetic images (printed)
+    prng = np.random.RandomState(0)
+    run_rows = np.concatenate([d.store.image_features(p).reshape(-1, 2112) for p in d.positive_paths(c)[:8]])
+    _, run_gap, _, _ = production_gap(run_rows)
+    log(f"doersch: the last fold's {num_detectors} solves: worst relative duality gap {max(gaps):.4g} (the "
+        f"certificate's dual point is zero where only positives violate), objective {min(over_trivial):.4g}-"
+        f"{max(over_trivial):.4g} x that of w = 0, b = -1 ({fold_gap_s:.1f} s on the host); at the production shape "
+        f"of tests/test_doersch.py (25,000 x 2112, 1,250 planted positives) the relative duality gap {test_gap:.4g} "
+        f"on its random 128 px images (bound {DOERSCH_GAP}; primal {test_primal:.5g}, dual {test_dual:.5g}) and "
+        f"{run_gap:.4g} on this run's smooth images; accuracies {min(accs)}-{max(accs)}")
+
+    # one dense search and one batched SVM on the card against the CPU
+    shards = d.store.build_shards(d.positive_paths(c), f"{c}-pos", num_splits=1)
+    ws = np.stack([w for _k, _p, w in init])
+    got = dm.dense_search(ws, shards, top_k=5, fold=(1, folds), ret_ws=True, device="cuda")
+    want = dm.dense_search(ws, shards, top_k=5, fold=(1, folds), ret_ws=True, device="cpu")
+    s_got = np.asarray([h[0] for hits in got for h in hits])
+    s_want = np.asarray([h[0] for hits in want for h in hits])
+    search_err = float(np.abs(s_got - s_want).max()) if s_got.shape == s_want.shape else float("inf")
+    J, M = 4, 3000  # cut from 64 x 25,000 for the CPU's time
+    args = (lf["P"][:J], lf["Pm"][:J], lf["HN"][:J], lf["HNm"][:J], lf["NEG"][:M], lf["NEGm"][:J, :M])
+    Wg, bg, sg = svm.fit_linear_svm_batch(*args, device="cuda")
+    Wc, bc, sc = svm.fit_linear_svm_batch(*args, device="cpu")
+    # float32 sums in another order, carried through 400 Adam steps: each
+    # output within 1e-4 of its largest magnitude
+    svm_err = {k: float(np.abs(g - c_).max() / max(np.abs(c_).max(), 1e-30))
+               for k, g, c_ in (("W", Wg, Wc), ("b", bg, bc), ("scores", sg, sc))}
+    log(f"doersch: card vs CPU: dense search of {len(ws)} detectors max |d score| {search_err:.3g} (rtol 1e-5, "
+        f"atol 1e-6); fit_linear_svm_batch at J {J} x {M} pool rows, max |d| over the largest magnitude {svm_err} "
+        f"(bound {SVM_CARD_RTOL:g})")
+    if not np.allclose(s_got, s_want, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"doersch: dense_search on the card vs the CPU: max |d score| {search_err}")
+    if not max(svm_err.values()) <= SVM_CARD_RTOL:
+        raise AssertionError(f"doersch: fit_linear_svm_batch on the card vs the CPU: {svm_err}")
+    if not test_gap <= DOERSCH_GAP:
+        raise AssertionError(f"doersch: the relative duality gap at the production shape {test_gap:.4g} > {DOERSCH_GAP}")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(categories=len(countries), images_per_category=per_country, px=px, how_many=how_many,
+                num_detectors=num_detectors, folds=folds, negative_pool=[25000, 2112], adam_steps=400,
+                features_ms_per_image=hog_ms, hoglab_features_ms=hog_call_ms, init_s=init_s, init_dense_search_ms=init_search_s * 1e3,
+                fold_dense_search_ms=[t * 1e3 for t in iter_search], svm_ms_per_fold=[t * 1e3 for t in timing["svm_s"]],
+                iterative_s=iter_s, total_s=total_s, last_fold_worst_rel_duality_gap=float(max(gaps)),
+                last_fold_objective_over_trivial=[min(over_trivial), max(over_trivial)],
+                production_shape_rel_duality_gap=test_gap, production_shape_gap_on_run_images=run_gap,
+                card_vs_cpu=dict(dense_search_max_abs=search_err, svm=svm_err, svm_shape=[J, M]),
+                reduced=dict(images_per_category=per_country, how_many=how_many, categories_trained=1), card=smi)
+
+
+def phase_verify_checkpoint(smi, pipeline_dir):
+    """verify_checkpoint on phase 12's SD-v1.5-width export: exit code 0 and
+    PASS on convert, structure (three modules) and forward."""
+    import contextlib
+    import io
+
+    from diffmining_tpu_torch.utils.verify_checkpoint import main as verify
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = verify([pipeline_dir, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  {line}")
+    need = ("[convert] PASS", "[structure:unet] PASS", "[structure:vae] PASS", "[structure:text_encoder] PASS",
+            "[forward] PASS")
+    missing = [n for n in need if not any(line.startswith(n) for line in lines)]
+    if rc != 0 or missing:
+        raise AssertionError(f"verify_checkpoint: exit {rc}, no {missing}")
+    log(f"verify_checkpoint on the SD-v1.5-width export of phase 12: exit 0, {len(need)} stages PASS in {wall:.1f} s "
+        f"on {smi}")
+    shutil.rmtree(pipeline_dir, ignore_errors=True)
+    return dict(rc=rc, stages=[line for line in lines if line.startswith("[")], wall_s=wall, card=smi)
 
 
 TRAIN_KERNELS = {
@@ -2173,6 +2672,13 @@ INFERENCE_KERNELS = {  # kind: (wrapper, source, the TPU kernel, the main shape)
            "_flash_forward_cbl :517)", "L4096 D40"),
     "K7": ("gn_act_proj", "diffmining_tpu_torch/csrc/gn_act_proj.cu",
            "diffmining_tpu/ops/fused_norm.py:27 (_gn_act_matmul_kernel, via gn_act_proj :44)", "N4096 C320"),
+}
+
+
+F32_REPLACES = {
+    "online": "diffmining_tpu/ops/flash_attention.py:199 (_flash_kernel_t at float32, via _flash_forward_t :417)",
+    "nomax": "diffmining_tpu/ops/flash_attention.py:250 (_flash_kernel_t_nomax at float32, via _flash_forward_t "
+             ":417); diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot at float32)",
 }
 
 
@@ -2227,28 +2733,55 @@ def main() -> int:
         return 2
     import diffmining_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    phase_s, clock = {}, [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+        log(f"[{name}: {phase_s[name]:.1f} s]")
+
     smi = phase_environment()
     phase_build()
+    done("environment and build")
     kern = phase_kernels()
+    done("kernels")
     launches, imgs_hr, imgs_hr_100, unet_pass = phase_slice(smi)
     torch.cuda.empty_cache()
+    done("slice")
     train_kern = phase_train_kernels()
+    done("training kernels")
     train = phase_train(smi)
+    done("train")
     infer_kern = phase_inference_kernels(smi)
+    done("inference-mode kernels")
     mining = phase_mining(smi)
     mining_work = mining.pop("work")
+    done("mining")
     sd = apps_bundle()
     xray = phase_xray(smi, sd)
+    done("xray")
     sampling = phase_sampling(smi, sd)
+    done("sampling")
     pnp = phase_pnp(smi, sd)
     pnp_work, pnp_out = pnp.pop("work"), pnp.pop("out")
     del sd
     torch.cuda.empty_cache()
+    done("pnp")
     lora = phase_train_lora_8bit(smi, train)
+    done("train_lora_8bit")
     sd = geo_bundle()
     parallel = phase_parallel(smi, pnp_out, sd)
+    done("parallel")
+    f32_kern = phase_f32_kernels()
     clip = phase_clip(smi, mining_work, sd)
     del sd
+    torch.cuda.empty_cache()
+    done("clip")
+    doersch = phase_doersch(smi)
+    done("doersch")
+    verify = phase_verify_checkpoint(smi, lora.pop("export_dir"))
+    done("verify_checkpoint")
     shutil.rmtree(pnp_work, ignore_errors=True)
     shutil.rmtree(mining_work["root"], ignore_errors=True)
 
@@ -2270,6 +2803,17 @@ def main() -> int:
     for kind, (name, source, replaces, main_case) in INFERENCE_KERNELS.items():
         entries.append(kernel_entry(name, source, replaces, mining["runs"]["modes"]["launches"][name],
                                     infer_kern[kind], main_case))
+    large = clip["large_crops"]
+    for mode, (name, replaces, main_case, launches) in {
+        "online": ("flash_fwd_online_f32", F32_REPLACES["online"], "L1025 D64",
+                   large["crop448"]["launches"]["flash_fwd_online_f32"]),
+        "nomax": ("flash_fwd_nomax_f32", F32_REPLACES["nomax"], "L4097 D64",
+                  large["crop896"]["launches"]["flash_fwd_nomax_f32"]),
+    }.items():
+        entry = kernel_entry(name, "diffmining_tpu_torch/csrc/flash_fwd_f32.cu", replaces, launches, f32_kern[mode],
+                             main_case)
+        entry["library"] = "sdpa forward, float32, TF32 off"
+        entries.append(entry)
     print(json.dumps({"slice": {"imgs_per_hr_n4": imgs_hr, "imgs_per_hr_n100": imgs_hr_100, **unet_pass,
                                 "card": smi}}))
     print(json.dumps({"train": train}))
@@ -2280,6 +2824,9 @@ def main() -> int:
     print(json.dumps({"train_lora_8bit": lora}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"clip": clip}))
+    print(json.dumps({"doersch": doersch}))
+    print(json.dumps({"verify_checkpoint": verify}))
+    print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -9,13 +9,17 @@
     parallel    typicality and mining over PnP's translations
                 (applications/parallel.py CLI)
     clipmining  CLIP patch-ranking baseline (baselines/clipmining.py CLI)
+    doersch     HOG+SVM mining baseline (baselines/doersch.py CLI)
+    verify_checkpoint
+                checks a pipeline dir: verify_checkpoint PIPELINE_DIR
+                (utils/verify_checkpoint.py CLI)
     html        figure-tree HTML report: html FIGURES_DIR [OUTPUT_DIR] [NC]
     fidelity    compare typicality artifact trees: --ours A --theirs B
 
-finetune, typicality, cluster, xray, pnp, parallel and clipmining run on the
-GPU unless given --device cpu; html and fidelity are file and numpy work on
-the host. These are 9 of the JAX package's 11 commands; doersch and
-verify_checkpoint are not ported yet (ROADMAP.md section A).
+finetune, typicality, cluster, xray, pnp, parallel, clipmining, doersch and
+verify_checkpoint run on the GPU unless given --device cpu; html and
+fidelity are file and numpy work on the host. These are all 11 of the JAX
+package's commands.
 """
 from __future__ import annotations
 
@@ -67,6 +71,14 @@ def main(argv=None) -> None:
         from diffmining_tpu_torch.baselines.clipmining import main as m
 
         m(rest)
+    elif cmd == "doersch":
+        from diffmining_tpu_torch.baselines.doersch import main as m
+
+        m(rest)
+    elif cmd == "verify_checkpoint":
+        from diffmining_tpu_torch.utils.verify_checkpoint import main as m
+
+        raise SystemExit(m(rest))
     elif cmd == "html":
         from diffmining_tpu_torch.typicality.make_html import main as m
 
@@ -77,7 +89,7 @@ def main(argv=None) -> None:
         m(rest)
     else:
         raise SystemExit(f"unknown command {cmd!r}; this port has: finetune, typicality, cluster, xray, pnp, "
-                         "parallel, clipmining, html, fidelity")
+                         "parallel, clipmining, doersch, verify_checkpoint, html, fidelity")
 
 
 if __name__ == "__main__":

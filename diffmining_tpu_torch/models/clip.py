@@ -10,7 +10,10 @@ embedding and every patch token, both through ``visual_projection``, which
 is what the CLIP-mining baseline scores; off its native grid it interpolates
 the learned position embeddings as torch's bicubic ``F.interpolate`` does.
 The towers run in float32: at the native crops (ViT-L/14 at 336 px: L =
-577; ViT-B/32 at 224: L = 50) every attention takes ``sdpa_plain``.
+577; ViT-B/32 at 224: L = 50) every attention takes ``sdpa_plain``; from a
+448 px crop on (L = 1025) the vision tower's self-attention passes the
+flash gate and, on the card, runs the float32 flash forward (online at L =
+1025, no-max from L = 4097, as the JAX package routes it).
 """
 from __future__ import annotations
 

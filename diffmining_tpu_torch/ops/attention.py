@@ -13,10 +13,13 @@ JAX primal takes under the same settings (``flash_attention.forward_route``:
 ``flash_fwd_nomax``, K3 ``flash_fwd_online`` and K4 ``flash_fwd_lse`` with
 the lse dropped. Under the default settings at 512px every gated call is
 K1. Cross-attention (Lk = 77), L <= 256, the VAE's single-head D = 512,
-CLIP's causal mask and every CPU tensor take the plain path. The kernels
-are bf16 only: a float32 CUDA tensor at a gated shape raises in the wrapper
-(so ``--mixed_precision no`` training raises on the card at the first
-gated attention), and float32 validation runs on the CPU.
+CLIP's causal mask and every CPU tensor take the plain path. A float32 CUDA
+forward without grad at head dim 64 (the CLIP vision towers at crops of 448
+px and more: L = 1025 takes K3, L = 4097 K2, as in JAX) runs the float32
+kernel in the same mode; every other float32 CUDA tensor at a gated shape
+raises in the wrapper (so ``--mixed_precision no`` training raises on the
+card at the first gated attention), and float32 UNet validation runs on the
+CPU.
 
 Unlike the JAX ``sdpa`` there is no try/except around the kernel: a gated
 call launches it or raises.

@@ -2,7 +2,7 @@
 versions, the forward route gates and the autograd Function (counterpart of
 diffmining_tpu/ops/flash_attention.py).
 
-Five kernels, one CUDA source each under ``csrc/``:
+Six kernels, one CUDA source each under ``csrc/``:
 
   flash_fwd_nomax   no-max forward (TPU ``_flash_kernel_t_1shot``, K1, and
                     ``_flash_kernel_t_nomax``, K2): the UNet without grad
@@ -15,7 +15,12 @@ Five kernels, one CUDA source each under ``csrc/``:
                     grad, and without grad under ``DIFFMINING_ATTN_TLAYOUT=0``;
   flash_bwd_dq      dq from lse, and delta from dO and o (TPU
                     ``_bwd_dq_kernel``, K5, and the delta of ``_bwd_pallas``);
-  flash_bwd_dkv     dk and dv from lse and delta (TPU ``_bwd_dkv_kernel``, K6).
+  flash_bwd_dkv     dk and dv from lse and delta (TPU ``_bwd_dkv_kernel``, K6);
+  flash_fwd_f32     the float32 forward in two modes, online (K3) and no-max
+                    (K1/K2): the CLIP vision towers, which run in float32, at
+                    crops of 448 px and more (L = 1025 and up, head dim 64).
+                    ``flash_fwd_online`` and ``flash_fwd_nomax`` hand it their
+                    float32 CUDA calls.
 
 ``forward_route`` picks among K1-K4 for a forward without grad as the JAX
 ``sdpa`` and ``_flash_forward_t`` do, from the same environment variables,
@@ -32,8 +37,10 @@ to it on the card. A wrapper takes the plain version only for a tensor that
 lies on the CPU; for a CUDA tensor it launches its kernel or raises. Each
 wrapper counts its launches in ``.launches``.
 
-The kernels are bf16 only, for head dims 40, 80 and 160, and read strided
-[B,L,H*D]-as-[B,H,L,D] views in place; they write [B,L,H,D] buffers and
+The bf16 kernels take head dims 40, 80 and 160 (``HEAD_DIMS``), the float32
+forward head dim 64 (``F32_HEAD_DIMS``); the training route (K4-K6) is bf16
+only and raises on float32. They read strided [B,L,H*D]-as-[B,H,L,D] views
+in place; they write [B,L,H,D] buffers and
 return [B,H,L,D] views of them, so merging heads (and, in the backward,
 handing the gradients back to the projections) needs no copy.
 
@@ -60,7 +67,8 @@ import torch
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 NEG_INF = -1e30  # the TPU kernels' mask value
-HEAD_DIMS = (40, 80, 160)  # the kernels' instantiations: SD-v1.5's self-attention head dims
+HEAD_DIMS = (40, 80, 160)  # the bf16 kernels' instantiations: SD-v1.5's self-attention head dims
+F32_HEAD_DIMS = (64,)  # flash_fwd_f32's instantiations: the head dim of every CLIP vision tower
 TPU_BLOCK_K = 1024  # the TPU kernel's key block (flash_attention.py:102, :148)
 # The key tile of the CUDA online-softmax forward (K3, K4; BLOCK_N in
 # csrc/flash_fwd_online.cuh): p is rounded to bf16 relative to the running max
@@ -78,6 +86,7 @@ ARGTYPES = {
     "flash_fwd_nomax": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
     "flash_fwd_online": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
     "flash_fwd_lse": [_P] * 5 + [_I] * 5 + [_P, _F, _P],
+    "flash_fwd_f32": [_P] * 4 + [_I] * 6 + [_P, _F, _P],
     "flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
     "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _P],
     "gn_act_proj": [_P] * 7 + [_I] * 5 + [_F] + [_LL] * 3 + [_I] * 5 + [_P],
@@ -356,7 +365,8 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: 
     if len({t.device for t in ts}) != 1:
         raise ValueError(f"{name}: every operand must be on one device")
     if not all(t.dtype == torch.bfloat16 for t in ts):
-        raise ValueError(f"{name}: bf16 only, got {[str(t.dtype) for t in ts]} (float32 runs on the CPU)")
+        raise ValueError(f"{name}: bf16 only, got {[str(t.dtype) for t in ts]} (the float32 forwards are "
+                         "flash_fwd_online and flash_fwd_nomax at head dim 64; float32 training runs on the CPU)")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: expected [B,H,L,D], got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, _, d = q.shape
@@ -368,6 +378,24 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: 
         raise ValueError(f"{name}: head dim {d} is not one of SD-v1.5's {HEAD_DIMS}")
     for t in ts:
         if not _aligned(t):
+            raise ValueError(f"{name}: strides and base must be 16-byte aligned with the head dim contiguous")
+
+
+def _check_f32(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """flash_fwd_f32's operands: float32 [B,H,L,D] on one CUDA device, D in
+    ``F32_HEAD_DIMS``, the head dim contiguous, the other strides and the
+    base 16-byte aligned."""
+    ts = (q, k, v)
+    if len({t.device for t in ts}) != 1 or not all(t.is_cuda for t in ts):
+        raise ValueError(f"{name}: every operand must be a CUDA tensor on one device")
+    if not all(t.dtype == torch.float32 for t in ts):
+        raise ValueError(f"{name}: float32 only, got {[str(t.dtype) for t in ts]}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"{name}: expected [B,H,L,D], got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[3] not in F32_HEAD_DIMS:
+        raise ValueError(f"{name}: float32 head dim {q.shape[3]} is not one of {F32_HEAD_DIMS}")
+    for t in ts:
+        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{name}: strides and base must be 16-byte aligned with the head dim contiguous")
 
 
@@ -399,15 +427,48 @@ def _requires_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
+def _fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None, nomax: bool) -> torch.Tensor:
+    _check_f32("flash_fwd_f32", q, k, v)
+    b, h, lq, d = q.shape
+    out = _bhld(q, lq)
+    _launch("flash_fwd_f32", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, lq, k.shape[2], d, int(nomax), ctypes.cast(_strides(q, k, v, out), _P),
+            _prescale(q, _scale(q, scale)))
+    return out
+
+
+def flash_fwd_online_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """K3 in float32: flash_fwd_f32's online mode on float32 CUDA [B,H,L,D]
+    at a head dim of ``F32_HEAD_DIMS``. Its plain version is
+    ``flash_fwd_online_plain`` at float32. ``flash_fwd_online_f32.launches``
+    counts launches."""
+    out = _fwd_f32(q, k, v, scale, nomax=False)
+    flash_fwd_online_f32.launches += 1
+    return out
+
+
+def flash_fwd_nomax_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """K1/K2 in float32: flash_fwd_f32's no-max mode. Its plain version is
+    ``flash_attention_nomax_plain`` at float32. It overflows where the TPU
+    kernels do, once a logit·log2e passes 128. ``flash_fwd_nomax_f32
+    .launches`` counts launches."""
+    out = _fwd_f32(q, k, v, scale, nomax=True)
+    flash_fwd_nomax_f32.launches += 1
+    return out
+
+
 def flash_fwd_nomax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> torch.Tensor:
     """softmax(q·kᵀ·scale)·v without the running max. q [B,H,Lq,D], k/v
     [B,H,Lk,D] -> [B,H,Lq,D]. Forward only: it raises when grad mode is on
     and an input requires grad (use ``flash_attention``), since its output
-    carries no gradient. ``flash_fwd_nomax.launches`` counts launches."""
+    carries no gradient. Float32 CUDA tensors go to ``flash_fwd_nomax_f32``;
+    ``flash_fwd_nomax.launches`` counts the bf16 kernel's launches."""
     if _requires_grad(q, k, v):
         raise RuntimeError("flash_fwd_nomax has no backward; under grad use flash_attention")
     if q.device.type == "cpu":
         return flash_attention_nomax_plain(q, k, v, scale)
+    if q.dtype == torch.float32:
+        return flash_fwd_nomax_f32(q, k, v, scale)
     _check("flash_fwd_nomax", q, k, v)
     b, h, lq, d = q.shape
     out = _bhld(q, lq)
@@ -421,12 +482,15 @@ def flash_fwd_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
     """K3: softmax(q·kᵀ·scale)·v with the running max and no lse. q
     [B,H,Lq,D], k/v [B,H,Lk,D] -> [B,H,Lq,D]. Forward only, like
     ``flash_fwd_nomax``: it raises under grad. CPU tensors take
-    ``flash_fwd_online_plain``; ``flash_fwd_online.launches`` counts
-    launches."""
+    ``flash_fwd_online_plain``, float32 CUDA tensors
+    ``flash_fwd_online_f32``; ``flash_fwd_online.launches`` counts the bf16
+    kernel's launches."""
     if _requires_grad(q, k, v):
         raise RuntimeError("flash_fwd_online has no backward; under grad use flash_attention")
     if q.device.type == "cpu":
         return flash_fwd_online_plain(q, k, v, scale)
+    if q.dtype == torch.float32:
+        return flash_fwd_online_f32(q, k, v, scale)
     _check("flash_fwd_online", q, k, v)
     b, h, lq, d = q.shape
     out = _bhld(q, lq)
@@ -493,7 +557,8 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, qs, scale: float | None = None) -> Tup
     return dk, dv
 
 
-for _fn in (flash_fwd_nomax, flash_fwd_online, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv):
+for _fn in (flash_fwd_nomax, flash_fwd_online, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, flash_fwd_online_f32,
+            flash_fwd_nomax_f32):
     _fn.launches = 0
 
 

@@ -18,7 +18,9 @@ adds what one flipped bf16 rounding of a row's largest p can move an
 output by (``_over_p_flip_bound``). K7 rounds its product to bf16 and then adds the bias in
 bf16, so a flipped rounding of the product is one ulp of the product,
 |plain - bias|, which the bias can cancel down to a smaller result: its
-bound adds 2^-7 |plain - bias|.
+bound adds 2^-7 |plain - bias|. The float32 forward (the CLIP towers'
+``flash_fwd_f32``) computes the plain version's float32 arithmetic in
+another order, with TF32 off on both sides: 2^-14 |plain| + 2^-14 rms.
 """
 import math
 
@@ -391,3 +393,55 @@ def test_fused_norm_statistics_on_large_mean_data_on_card(hh, ww, c, layout):
     want = pfn.gn_act_proj_plain(x, gamma, beta, w, bias, 32)
     assert torch.isfinite(got).all()
     assert _over_tolerance(got, want, rounded_before=want.float() - bias.float()) <= 1.0
+
+
+def _f32_operands(b, h, lq, lk, d, seed=0):
+    """float32 [B, L, H*D] projections viewed as [B, H, L, D], as the CLIP
+    vision tower hands them over."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return [torch.randn(b, n, h * d, generator=gen, device="cuda").view(b, n, h, d).transpose(1, 2)
+            for n in (lq, lk, lk)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["online", "nomax"])
+@pytest.mark.parametrize("b,h,lq,lk", [(2, 16, 1025, 1025), (1, 4, 4097, 4097), (1, 2, 1000, 1100), (2, 1, 70, 1)])
+def test_f32_forward_matches_plain_on_card(mode, b, h, lq, lk):
+    """flash_fwd_f32 against its plain version in float32 with TF32 off:
+    float32 roundings in other orders, within 2^-14 of the element plus
+    2^-14 of the output's rms (chip_smoke.py's bound); ragged q and key
+    tiles, a one-key row."""
+    _needs_gpu()
+    q, k, v = _f32_operands(b, h, lq, lk, 64)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if mode == "online":
+            got, want = pfa.flash_fwd_online(q, k, v), pfa.flash_fwd_online_plain(q, k, v)
+        else:
+            got, want = pfa.flash_fwd_nomax(q, k, v), pfa.flash_attention_nomax_plain(q, k, v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    tol = 2.0**-14 * want.abs() + 2.0**-14 * want.pow(2).mean().sqrt()
+    assert got.dtype == torch.float32 and bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_f32_forward_raises_off_its_head_dims_on_card():
+    _needs_gpu()
+    q, k, v = _f32_operands(1, 2, 1024, 1024, 40)
+    with pytest.raises(ValueError, match="head dim 40"):
+        pfa.flash_fwd_online(q, k, v)
+    q, k, v = _f32_operands(1, 2, 1024, 1024, 64)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        pfa.flash_fwd_nomax(q, k, v)
+
+
+@pytest.mark.cuda
+def test_f32_forward_raises_on_mixed_dtypes_on_card():
+    _needs_gpu()
+    q, k, v = _f32_operands(1, 2, 1024, 1024, 64)
+    with pytest.raises(ValueError, match="float32 only"):
+        pfa.flash_fwd_online(q, k.to(torch.bfloat16), v)
