@@ -129,8 +129,32 @@ back to the CPU):
      on its random 128px images (<= 0.02) and on this run's (printed); one
      dense search and one batched SVM against the same call on the CPU;
  16. verify_checkpoint on phase 12's SD-v1.5-width export: exit 0, PASS on
-     convert, structure and forward.
-Then one JSON line each for the slice, the training run, the mining runs,
+     convert, structure and forward;
+ 17. f32 sweep (run after phase 4): the sweep with --dtype fp32, an SD-v1.5
+     bundle in float32 (random weights from the seed) over 2 labels x 4
+     synthetic 512x512 images at N=4: 10 launches of the float32 no-max mode
+     a UNet pass and none of a bf16 kernel; one UNet pass against the same
+     pass through the plain attention (relative L2 <= 1e-4), its time and
+     device busy share; one pass under DIFFMINING_FUSED_NORM=1 (16 launches
+     of the float32 K7) against the module path;
+ 18. f32 UNet kernels (run after phase 5): flash_fwd_f32's no-max and
+     online modes at B4 H8 L4096 D40, L1024 D80, L1024 D160, B1 H8 L16384
+     D40 and masked tails (L1000 D40, L1100 D160); its lse mode (K4),
+     flash_bwd_dq_f32 (K5, with delta) and flash_bwd_dkv_f32 (K6) at B4 H8
+     L4096 D40, L1024 D80, B2 H8 L1100 D160 and Lq 1100 against Lk 300;
+     gn_act_proj_f32 (K7) at the four SpatialTransformer entries of a 512px
+     pass at batch 8 in both layouts: each against its plain version in
+     float32 (TF32 off) within 2^-14 |plain| + 2^-14 rms, with times, device
+     times, the bound and the library's float32 call (sdpa's forward or
+     backward; F.group_norm + 1x1 F.conv2d);
+ 19. train f32 (run after phase 6): finetune --mixed_precision no, the
+     places trainer at SD-v1.5 widths in float32, batch 2 at 512px: the
+     level-0 to_q/to_k/to_v gradients with the float32 kernels against the
+     plain attention (relative L2 <= 1e-4); 3 steps, 10 launches each of the
+     float32 lse mode, K5 and K6 a step and none of a bf16 kernel; warm step
+     ms and peak memory.
+Then one JSON line each for the slice, the float32 sweep, the training run,
+the float32 training run, the mining runs,
 X-ray, sampling, PnP, train_lora_8bit, parallel, clip, doersch and
 verify_checkpoint, one of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
@@ -159,7 +183,10 @@ EXP2_PER_CLOCK_PER_SM = 16
 SM_COUNT = 0
 SM_MAX_MHZ = 0.0
 TRACE_CALLS = 20  # calls device_split reads from a trace
-TRACE_PAD = 5  # calls it traces but does not read, before and after those
+# calls it traces but does not read, before and after those: a trace late in
+# a run can lose its first 7-8 kernel records, whatever its settle (at 5, one
+# whole run on an H100 retraced 219 times, 139 of them in phase 18; at 10, 35)
+TRACE_PAD = 10
 TRACE_ATTEMPTS = 5  # traces it takes before it gives up
 TRACE_SETTLE_S = 0.2  # host wait between starting a trace and its first call; doubled at each retry
 # kernel vs plain, elementwise: |got - want| <= RTOL |want| + ATOL_RMS rms(want).
@@ -186,8 +213,27 @@ KERNEL_ATOL_RMS = 2.0**-7
 # A kernel that drops one 64-key tile of 1025 is off by about 1/16.
 F32_RTOL = 2.0**-14
 F32_ATOL_RMS = 2.0**-14
-F32_SOURCES = ("flash_fwd_f32",)
 UNET_REL_L2 = 5e-2
+# the float32 UNet pass (--dtype fp32) with its self-attention through the
+# float32 kernels against the same pass through the plain attention, both
+# float32 with TF32 off; and the DIFFMINING_FUSED_NORM=1 pass (float32 K7)
+# against the module path: float32 roundings in other orders carried
+# through the UNet's random weights (the CLIP towers read 1.4e-6 through 24
+# layers); the bound is 1e-4 relative L2. A dropped 64-key tile of 4096
+# moves a pass by about 1e-2.
+UNET_F32_REL_L2 = 1e-4
+# float32 training (--mixed_precision no): the level-0 to_q/to_k/to_v
+# gradients with the float32 kernels against the same through the plain
+# attention, one forward and backward at the seed's weights: float32
+# roundings through the backward of the whole UNet; the bound is 1e-4
+# relative L2.
+F32_GRAD_REL_L2 = 1e-4
+# the float32 lse mode against flash_fwd_lse_plain at float32: within
+# 2^-14 max(1, |lse|)
+F32_LSE_RTOL = 2.0**-14
+# the gated self-attentions of a 512px SD-v1.5 UNet pass, (L, head dim):
+# five transformers at level 0 and five at level 1
+UNET_512_GATED = ((4096, 40),) * 5 + ((1024, 80),) * 5
 # bf16 mixed precision through the UNet's forward and backward against a
 # float32 pass: relative L2 error of the level-0 attention projections'
 # gradients at the seed's weights, before any step. Measured 0.0215-0.0245
@@ -356,6 +402,48 @@ def device_split(fn, name_part, launches=1, other=None):
     return (busy, named) if other is None else (busy, named, None)
 
 
+def device_busy(fn, calls=5):
+    """A call's device time from a torch.profiler trace of ``calls`` calls
+    between two spin kernels: (the sum of its kernels' times, the time in
+    which at least one of them runs: the union of their intervals, a
+    kernel that starts before the last one ends counted once; the five
+    kernels with the largest sums, names and ms a call). Where TRACE_ATTEMPTS
+    traces lose a spin or hold a kernel count that is no multiple of
+    ``calls``, (None, None, [])."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(TRACE_SETTLE_S * 2**attempt)
+            pad = torch.zeros(1, device="cuda")
+            for _ in range(TRACE_PAD):  # records a trace may lose, before the first spin
+                pad.add_(1)
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        spins = [i for i, e in enumerate(kernels) if "spin_kernel" in e.name]
+        read = kernels[spins[0] + 1:spins[1]] if len(spins) == 2 else []
+        if not read or len(read) % calls:
+            continue
+        union, end, by_name = 0.0, -math.inf, {}
+        for e in read:
+            start, stop = e.time_range.start, e.time_range.end
+            union += max(0.0, stop - max(start, end))
+            end = max(end, stop)
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / calls / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        return sum(by_name.values()), union / calls / 1e3, top
+    return None, None, []
+
+
 def queued_device_ms(fn) -> float:
     """Device time of one call of ``fn``: CUDA events around TRACE_CALLS
     calls enqueued behind a spin kernel long enough that the host queues
@@ -454,6 +542,38 @@ def f32_attention_bound(b, h, lq, lk, d):
     return bound, ("bytes" if bound == t_bytes else "operations")
 
 
+def f32_training_bound(kind, b, h, lq, lk, d):
+    """Least time of one float32 lse-mode forward (K4), K5 or K6 call: its
+    float32 operands ([B,H,L,D] 4 bytes an element, [B,H,Lq] rows) read or
+    written once over the memory rate, against its 4, 6 or 8 Lq Lk D fp32
+    operations a head on the float32 pipes outside the tensor cores."""
+    n_q, n_k, rows, ops = {"K4": (2, 2, 1, 4), "K5": (4, 2, 2, 6), "K6": (2, 4, 2, 8)}[kind]
+    nbytes = 4 * (n_q * b * h * lq * d + n_k * b * h * lk * d + rows * b * h * lq)
+    t_bytes = nbytes / (PEAK_HBM_TBS * 1e12) * 1e3
+    t_ops = ops * b * h * lq * lk * d / (PEAK_FP32_TFLOPS * 1e12) * 1e3
+    bound = max(t_bytes, t_ops)
+    return bound, ("bytes" if bound == t_bytes else "operations")
+
+
+def gn_proj_f32_bound(b, n, c, cout):
+    """Least time of one float32 K7 call: x, w, bias, gamma, beta and the
+    statistics read once and the output written once (4 bytes an element)
+    over the memory rate, against the projection's 2 N C Cout per image and
+    the normalise's 4 operations per x element on the float32 pipes."""
+    nbytes = 4 * (b * n * c + c * cout + cout + 2 * c + 2 * b * c + b * n * cout)
+    t_bytes = nbytes / (PEAK_HBM_TBS * 1e12) * 1e3
+    t_ops = (2.0 * b * n * c * cout + 4.0 * b * n * c) / (PEAK_FP32_TFLOPS * 1e12) * 1e3
+    bound = max(t_bytes, t_ops)
+    return bound, ("bytes" if bound == t_bytes else "operations")
+
+
+def assert_no_tf32():
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 must be off for float32 matmuls and convolutions (the float32 references)")
+
+
 def phase_environment():
     import torch
 
@@ -494,12 +614,12 @@ def phase_build():
             f"spills: {spills or 'none'}" + (f"; warnings: {warnings}" if warnings else ""))
         fa._library(name)
     # every bf16 kernel issues wgmma: the SASS shows HGMMA; the float32
-    # forward is fp32 FMA only: no tensor-core instruction (no TF32, no bf16)
+    # kernels are fp32 FMA only: no tensor-core instruction (no TF32, no bf16)
     cuobjdump = os.path.join(os.path.dirname(fa._nvcc()), "cuobjdump")
     for name in fa.SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", str(fa._library_path(name))], capture_output=True, text=True,
                               check=True).stdout
-        if name in F32_SOURCES:
+        if name in fa.F32_SOURCES:
             mma = [line.strip() for line in sass.splitlines() if re.search(r"\b[A-Z]*G?MMA\.", line.split(";")[0])
                    and "HFMA2.MMA" not in line]  # HFMA2.MMA: a register move issued on the FMA pipe
             ffma = sum("FFMA" in line for line in sass.splitlines())
@@ -738,8 +858,8 @@ def phase_slice(smi):
         pass_ms = cuda_time_ms(lambda: sd.unet(x, t, ctx, ctx_tile=2), reps=5, warmup=1)
         # these launches are not the main path's: its counts were read above
         busy_ms, k1_ms = device_split(lambda: sd.unet(x, t, ctx, ctx_tile=2), "flash_fwd_nomax_kernel", launches=10)
-        # the float32 reference: the kernel is bf16 only, so this pass (and
-        # only this one) swaps the UNet's attention for the plain softmax
+        # the float32 reference: this pass (and only this one) swaps the
+        # UNet's attention for the plain softmax
         unet_mod.sdpa = sdpa_plain
         try:
             eps32 = sd.unet.float()(x, t, ctx, ctx_tile=2)
@@ -882,7 +1002,8 @@ def phase_train_kernels():
 
 def places_trainer(work, batch, px, n_images, max_train_steps, extra=()):
     """The places trainer at SD-v1.5 widths with random weights from SEED:
-    float32 master weights, bf16 autocast, EMA, batches of ``batch`` out of
+    float32 master weights, bf16 autocast (float32 throughout with ``extra``
+    ("--mixed_precision", "no")), EMA, batches of ``batch`` out of
     ``n_images`` synthetic px x px images (numpy, seeded) handed in through
     BaseTrainer(load=...), trainer flags ``extra`` added. Returns the trainer
     after training_init(), its args and the epoch's batches on the card."""
@@ -1009,7 +1130,7 @@ def phase_train(smi):
 
     g16 = proj_grads()
     b.mixed_precision = False
-    unet_mod.sdpa = sdpa_plain  # the kernels are bf16 only: this pass alone uses the plain softmax
+    unet_mod.sdpa = sdpa_plain  # the float32 reference: this pass alone uses the plain softmax
     try:
         g32 = proj_grads()
     finally:
@@ -1468,8 +1589,8 @@ def phase_mining(smi):
                 raise AssertionError(f"modes-on UNet pass launched {per_pass} of K1, K3, K7")
             pass_times = modes_pass_times(sd2, x, t, ctx)
             pass_ms = pass_times["pass_ms"]
-            # the float32 reference: the kernels are bf16 only, so this pass
-            # alone takes the module path and the plain softmax
+            # the float32 reference: this pass alone takes the module path
+            # and the plain softmax
             cfg = sd2.unet.config
             sd2.unet.config = dataclasses.replace(cfg, fused_norm=False)
             unet_mod.sdpa = sdpa_plain
@@ -1654,7 +1775,7 @@ def phase_xray(smi, sd):
         eps16 = sd.unet(x, t, ctx, ctx_tile=2).float()
         if fa.flash_fwd_nomax.launches - before != 15:
             raise AssertionError("xray: the 1024px bf16 UNet pass did not launch the kernel 15 times")
-        unet_mod.sdpa = sdpa_query_chunked  # the kernels are bf16 only: this pass alone takes the plain softmax
+        unet_mod.sdpa = sdpa_query_chunked  # the float32 reference: this pass alone takes the plain softmax
         try:
             eps32 = sd.unet.float()(x, t, ctx, ctx_tile=2)
         finally:
@@ -1967,7 +2088,7 @@ def phase_train_lora_8bit(smi, dense):
 
     g16 = factor_grads()
     b.mixed_precision = False
-    unet_mod.sdpa = sdpa_plain  # the kernels are bf16 only: this pass alone uses the plain softmax
+    unet_mod.sdpa = sdpa_plain  # the float32 reference: this pass alone uses the plain softmax
     try:
         g32 = factor_grads()
     finally:
@@ -2137,8 +2258,7 @@ def phase_f32_kernels():
 
     from diffmining_tpu_torch.ops import flash_attention as fa
 
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("TF32 must be off for the float32 references")
+    assert_no_tf32()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 23)
@@ -2178,6 +2298,384 @@ def phase_f32_kernels():
     if failed:
         raise AssertionError("; ".join(failed))
     return results
+
+
+def phase_f32_unet_kernels(smi):
+    """The float32 kernels at the UNet's shapes (SD-v1.5's head dims 40, 80
+    and 160), each against its plain version in float32 with TF32 off:
+    flash_fwd_f32's no-max (K1/K2) and online (K3) modes at the 512px
+    sweep's B4 H8 L4096 D40 and L1024 D80, 1024px's L1024 D160 and L16384
+    D40 (B1) and masked key tails (L1000 D40, L1100 D160); its lse mode (K4),
+    flash_bwd_dq_f32 (K5, and delta, held to attention_delta) and
+    flash_bwd_dkv_f32 (K6) at the trainer's shapes and a masked tail at
+    D160 and Lq != Lk; gn_act_proj_f32 (K7) at the four SpatialTransformer
+    entries of a 512px pass at batch 8 in both layouts, its statistics held
+    to group_stats_plain. With CUDA-event and device times, the plain
+    version's, the library's (sdpa's float32 forward or backward;
+    F.group_norm + 1x1 F.conv2d) and the bound. These launches are not the
+    main path's."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffmining_tpu_torch.ops import flash_attention as fa
+    from diffmining_tpu_torch.ops import fused_norm as fn
+
+    assert_no_tf32()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 25)
+
+    def views(b, h, l, d, n):  # float32 [B, L, H*D] projections viewed as [B, H, L, D]
+        return [torch.randn(b, l, h * d, generator=g, device=dev).view(b, l, h, d).transpose(1, 2) for _ in range(n)]
+
+    results = {k: {} for k in ("nomax", "online", "lse", "K5", "K6", "K7")}
+    failed = []
+
+    def record(kind, name, shape, errs, ms, device_ms, plain_ms, lib_ms, lib_device, library, bound, by, **extra):
+        max_err, worst = max(e for e, _ in errs), max(w for _, w in errs)
+        if worst > 1.0:
+            failed.append(f"{kind} float32 {name}: {worst:.3g} x the tolerance (max abs err {max_err})")
+        results[kind][name] = dict(shape=shape, max_abs_err=max_err, err_over_tol=worst, ms=ms, device_ms=device_ms,
+                                   plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_device,
+                                   library=library, bound_ms=bound, bound_by=by, **extra)
+        log(f"kernel {kind} float32 {name}: max|err| {max_err:.3g} = {worst:.3g} x tolerance (rtol 2^-14, atol 2^-14 "
+            f"rms)  ms {ms:.4f}  device {fmt(device_ms)}  plain {plain_ms:.3f}  {library} {fmt(lib_ms)} (device "
+            f"{fmt(lib_device)})  bound {bound:.4f} ({by})" + "".join(f"  {k} {v:.3g}" for k, v in extra.items()))
+
+    fwd_cases = [("L4096 D40", (4, 8, 4096, 40)), ("L1024 D80", (4, 8, 1024, 80)), ("L1024 D160", (4, 8, 1024, 160)),
+                 ("L16384 D40", (1, 8, 16384, 40)), ("masked tail L1000 D40", (2, 8, 1000, 40)),
+                 ("masked tail L1100 D160", (2, 8, 1100, 160))]
+    modes = {"nomax": (fa.flash_fwd_nomax_f32, fa.flash_attention_nomax_plain),
+             "online": (fa.flash_fwd_online_f32, fa.flash_fwd_online_plain)}
+    for name, (b, h, l, d) in fwd_cases:
+        q, k, v = views(b, h, l, d, 3)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        lib_ms = cuda_time_ms(sdpa)
+        lib_device, _ = device_split(sdpa, "")
+        bound, by = f32_attention_bound(b, h, l, l, d)
+        for mode, (kernel, plain) in modes.items():
+            got = kernel(q, k, v)
+            torch.cuda.synchronize()
+            want = plain_chunked(plain, q, k, v)
+            err = f32_error(got, want) if bool(torch.isfinite(got).all()) else (math.inf, math.inf)
+            del got, want
+            ms = cuda_time_ms(lambda: kernel(q, k, v))
+            plain_ms = cuda_time_ms(lambda: plain_chunked(plain, q, k, v), reps=3, warmup=1)
+            _, device_ms = device_split(lambda: kernel(q, k, v), "flash_fwd_f32_kernel")
+            record(mode, name, [b, h, l, d], [err], ms, device_ms, plain_ms, lib_ms, lib_device,
+                   "sdpa forward, float32, TF32 off", bound, by)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    train_cases = [("L4096 D40", (4, 8, 4096, 4096, 40)), ("L1024 D80", (4, 8, 1024, 1024, 80)),
+                   ("masked tail L1100 D160", (2, 8, 1100, 1100, 160)), ("Lq1100 Lk300 D80", (2, 8, 1100, 300, 80))]
+    for name, (b, h, lq, lk, d) in train_cases:
+        q, do = views(b, h, lq, d, 2)
+        k, v = views(b, h, lk, d, 2)
+        o, lse = fa.flash_fwd_lse_f32(q, k, v)
+        qs = fa.prescaled_q(q)
+        dq, delta_k = fa.flash_bwd_dq_f32(q, k, v, do, o, lse, qs)
+        delta = fa.attention_delta(do, o)
+        dk, dv = fa.flash_bwd_dkv_f32(q, k, v, do, lse, delta, qs)
+        torch.cuda.synchronize()
+        delta_err = float(((delta_k - delta).abs() / (do * o).abs().sum(-1)).max())
+        if not delta_err <= DELTA_RTOL:
+            failed.append(f"K5 float32 {name}: delta differs from attention_delta by {delta_err:.3g} of sum|dO o|")
+        o_p, lse_p = plain_chunked(fa.flash_fwd_lse_plain, q, k, v)
+        lse_err = float(((lse - lse_p).abs() / lse_p.abs().clamp_min(1.0)).max())
+        if not lse_err <= F32_LSE_RTOL:
+            failed.append(f"K4 float32 {name}: lse off the plain version's by {lse_err:.3g} of max(1, |lse|)")
+        dq_p = plain_chunked(fa.flash_bwd_dq_plain, q, k, v, do, lse, delta)
+        dk_p, dv_p = plain_chunked(fa.flash_bwd_dkv_plain, q, k, v, do, lse, delta)
+        errs = {"lse": [f32_error(o, o_p)], "K5": [f32_error(dq, dq_p)], "K6": [f32_error(dk, dk_p), f32_error(dv, dv_p)]}
+        del o_p, lse_p, dq_p, dk_p, dv_p
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+        ref = F.scaled_dot_product_attention(qr, kr, vr)
+        lib_bwd = lambda: torch.autograd.grad(ref, (qr, kr, vr), do, retain_graph=True)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        lib = {"fwd": (cuda_time_ms(sdpa), device_split(sdpa, "")[0]),
+               "bwd": (cuda_time_ms(lib_bwd), device_split(lib_bwd, "")[0])}
+        calls = {
+            "lse": (lambda: fa.flash_fwd_lse_f32(q, k, v), lambda: plain_chunked(fa.flash_fwd_lse_plain, q, k, v),
+                    "flash_fwd_f32_kernel", "K4", "fwd"),
+            "K5": (lambda: fa.flash_bwd_dq_f32(q, k, v, do, o, lse, qs),
+                   lambda: plain_chunked(fa.flash_bwd_dq_plain, q, k, v, do, lse, delta), "flash_bwd_dq_f32_kernel",
+                   "K5", "bwd"),
+            "K6": (lambda: fa.flash_bwd_dkv_f32(q, k, v, do, lse, delta, qs),
+                   lambda: plain_chunked(fa.flash_bwd_dkv_plain, q, k, v, do, lse, delta),
+                   "flash_bwd_dkv_f32_kernel", "K6", "bwd"),
+        }
+        for kind, (call, plain, kname, bkind, libkind) in calls.items():
+            ms = cuda_time_ms(call)
+            plain_ms = cuda_time_ms(plain, reps=3, warmup=1)
+            _, device_ms = device_split(call, kname)
+            bound, by = f32_training_bound(bkind, b, h, lq, lk, d)
+            extra = {"lse": dict(lse_rel_err=lse_err), "K5": dict(delta_err_over_abs_sum=delta_err), "K6": {}}[kind]
+            record(kind, name, [b, h, lq, lk, d], errs[kind], ms, device_ms, plain_ms, *lib[libkind],
+                   "sdpa forward, float32, TF32 off" if libkind == "fwd"
+                   else "sdpa backward (dq, dk, dv together), float32, TF32 off", bound, by, **extra)
+        del q, k, v, do, o, lse, qs, dq, delta_k, delta, dk, dv, qr, kr, vr, ref
+        torch.cuda.empty_cache()
+
+    gn_cases = [("N4096 C320", (8, 64, 64, 320)), ("N1024 C640", (8, 32, 32, 640)), ("N256 C1280", (8, 16, 16, 1280)),
+                ("N64 C1280", (8, 8, 8, 1280))]
+    for layout in ("nchw", "channels_last"):
+        for base, (b, hh, ww, c) in gn_cases:
+            name = base if layout == "nchw" else f"channels-last {base}"
+            x = torch.randn(b, c, hh, ww, generator=g, device=dev) * 2 + 0.5
+            if layout == "channels_last":  # as the UNet hands it after a transformer's proj_out
+                x = x.contiguous(memory_format=torch.channels_last)
+            gamma, beta, bias = (torch.randn(c, generator=g, device=dev) * s_ + o_
+                                 for s_, o_ in ((0.3, 1.0), (0.3, 0.0), (0.5, 0.0)))
+            weight = torch.randn(c, c, 1, 1, generator=g, device=dev) / math.sqrt(c)
+            xv, w = x.permute(0, 2, 3, 1), weight[:, :, 0, 0].t()
+            stats = torch.empty(b, 2, c, device=dev)
+            got = fn.gn_act_proj_f32(xv, gamma, beta, w, bias, 32, stats=stats)
+            torch.cuda.synchronize()
+            mean, rsig = fn.group_stats_plain(xv, 32, 1e-6)
+            mean_err = float((stats[:, 0] - mean).abs().max() / xv.abs().max())
+            rsig_err = float((stats[:, 1] / rsig - 1).abs().max())
+            if not mean_err <= GN_MEAN_TOL or not rsig_err <= GN_RSIG_RTOL:
+                failed.append(f"K7 float32 {name}: statistics off the plain version's ({mean_err:.3g}, {rsig_err:.3g})")
+            want = fn.gn_act_proj_plain(xv, gamma, beta, w, bias, 32)
+            err = f32_error(got, want) if bool(torch.isfinite(got).all()) else (math.inf, math.inf)
+            del got, want
+            call = lambda: fn.gn_act_proj_f32(xv, gamma, beta, w, bias, 32)  # noqa: E731
+            lib = lambda: F.conv2d(F.group_norm(x, 32, gamma, beta, 1e-6), weight, bias)  # noqa: E731
+            ms = cuda_time_ms(call)
+            plain_ms = cuda_time_ms(lambda: fn.gn_act_proj_plain(xv, gamma, beta, w, bias, 32), reps=3, warmup=1)
+            busy_ms, proj_ms, stats_ms = device_split(call, "gn_proj_f32_kernel", other="gn_stats_f32_kernel")
+            bound, by = gn_proj_f32_bound(b, hh * ww, c, c)
+            record("K7", name, [b, hh * ww, c, c], [err], ms, busy_ms, plain_ms, cuda_time_ms(lib),
+                   device_split(lib, "")[0], "F.group_norm + 1x1 F.conv2d (two calls), float32, TF32 off", bound,
+                   by, stats_mean_err=mean_err, stats_rsig_err=rsig_err, stats_device_ms=stats_ms,
+                   proj_device_ms=proj_ms)
+            del x, xv
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    log(f"float32 UNet kernels: every shape within its bound of its plain version on {smi}")
+    return results
+
+
+def phase_f32_sweep(smi):
+    """The typicality sweep with --dtype fp32 (an SD-v1.5-width bundle in
+    float32, random weights from SEED) over 2 labels x 4 synthetic 512x512
+    images at N=4, batch_images 4: 10 launches of the float32 no-max mode a
+    UNet pass (5 at L4096 D40, 5 at L1024 D80) and none of a bf16 kernel;
+    artifacts checked; one UNet pass against the same pass through the plain
+    attention (relative L2), its event time and device busy share; then one
+    pass of the same bundle under DIFFMINING_FUSED_NORM=1 (16 launches of
+    the float32 K7) against the module path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from diffmining_tpu_torch.models import unet as unet_mod
+    from diffmining_tpu_torch.models.clip import CLIP_VIT_L_TEXT
+    from diffmining_tpu_torch.models.unet import SD15_UNET
+    from diffmining_tpu_torch.models.vae import SD15_VAE
+    from diffmining_tpu_torch.ops import flash_attention as fa
+    from diffmining_tpu_torch.ops import fused_norm as fn
+    from diffmining_tpu_torch.ops.attention import kernel_route, sdpa, sdpa_plain
+    from diffmining_tpu_torch.typicality.compute import SD, Typicality
+    from diffmining_tpu_torch.utils.images import array_from_uint8
+
+    assert_no_tf32()
+    labels, per_label, px, N, batch_images = ["1920", "1960"], 4, 512, 4, 4
+    work = os.path.join(ROOT, "build", "chip_smoke_f32")
+    shutil.rmtree(work, ignore_errors=True)
+    data, out, subs = (os.path.join(work, n) for n in ("ftt", "typicality", "subs"))
+    rng = np.random.RandomState(SEED + 26)
+    arrays = {}
+    for c in labels:
+        os.makedirs(os.path.join(data, c))
+        for i in range(per_label):
+            path = os.path.join(data, c, f"img{i}.jpg")
+            open(path, "wb").close()  # a name for the work queue; never decoded
+            arrays[path] = array_from_uint8(rng.randint(0, 256, (px, px, 3), dtype=np.uint8))
+    t0 = time.perf_counter()
+    sd = SD.init_random("ftt", labels, SD15_UNET, SD15_VAE, CLIP_VIT_L_TEXT, seed=SEED, dtype=torch.float32,
+                        device="cuda")
+    torch.cuda.synchronize()
+    log(f"f32 sweep: SD-v1.5 widths, random weights (seed {SEED}), float32 (--dtype fp32), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    typ = Typicality("ftt", None, data, out, t_min=0.1, t_max=0.9, sd=sd, N=N, batch_images=batch_images, chunk=1,
+                     dtype=torch.float32, device="cuda")
+    typ.make_submission(data, subs, sub_split=1)
+    kernels = (fa.flash_fwd_nomax_f32, fa.flash_fwd_online_f32, fa.flash_fwd_lse_f32, fa.flash_fwd_nomax,
+               fa.flash_fwd_online, fa.flash_fwd_lse)
+    for f in kernels:
+        f.launches = 0
+    t0 = time.perf_counter()
+    typ.compute_submission(os.path.join(subs, "0.txt"), load=arrays.__getitem__)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in kernels}
+    n_passes = len(labels) * math.ceil(per_label / batch_images) * N
+    want = dict.fromkeys(launches, 0)
+    for l, d in UNET_512_GATED:  # the wrapper each gated call's route names
+        for name in kernel_route(torch.float32, d, l, l, False).wrappers:
+            want[name] += n_passes
+    if launches != want:
+        raise AssertionError(f"f32 sweep: launches {launches}, expected {want} (10 a UNet pass x {n_passes})")
+    for c in labels:
+        for i in range(per_label):
+            a = np.load(os.path.join(out, c, f"img{i}.npy"))
+            if a.shape != (N, 2, 4, px // 8, px // 8) or a.dtype != np.float16 or not np.isfinite(a).all():
+                raise AssertionError(f"f32 sweep artifact {c}/img{i}.npy: {a.shape} {a.dtype}")
+    imgs_hr = len(arrays) / dt * 3600.0
+    log(f"f32 sweep: {len(arrays)} artifacts [{N}, 2, 4, {px // 8}, {px // 8}] fp16, all finite; launches {launches} "
+        f"(10 a UNet pass x {n_passes} passes); {imgs_hr:.1f} imgs/hr at N={N} ({dt:.2f} s, first run) on {smi}")
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 27)
+    x = torch.randn(batch_images, 4, px // 8, px // 8, generator=g, device="cuda")
+    t = torch.randint(100, 900, (batch_images,), generator=g, device="cuda")
+    ctx = torch.stack([torch.stack([sd.country_embeds[labels[0]], sd.country_embeds[""]])] * batch_images)
+    ctx = ctx.reshape(batch_images * 2, *ctx.shape[2:])
+    unet_pass = lambda: sd.unet(x, t, ctx, ctx_tile=2)  # noqa: E731
+    with torch.inference_mode():
+        eps = unet_pass()
+        pass_ms = cuda_time_ms(unet_pass, reps=5, warmup=1)
+        _, k_ms = device_split(unet_pass, "flash_fwd_f32_kernel", launches=10)
+        # the device's busy time as the union of the kernels' intervals: in
+        # float32 the kernels' summed times came to 1.89x the event time of
+        # a pass (kernels that overlap their neighbours), so the sum is no
+        # busy time; both are printed, with the largest kernels
+        kernel_sum_ms, busy_ms, top = device_busy(unet_pass)
+        unet_mod.sdpa = sdpa_plain  # the reference: the same float32 pass through the plain attention
+        try:
+            eps_plain = unet_pass()
+        finally:
+            unet_mod.sdpa = sdpa
+        rel = rel_l2(eps, eps_plain)
+        # DIFFMINING_FUSED_NORM=1 on the same modules: the bundle's own gate
+        # turns the UNet's transformer entries to the fused kernel
+        saved = os.environ.get("DIFFMINING_FUSED_NORM")
+        os.environ["DIFFMINING_FUSED_NORM"] = "1"
+        try:
+            SD("ftt", sd.unet, sd.vae, sd.clip, sd.tokenizer, sd.schedule, labels, torch.float32, "cuda")
+        finally:
+            if saved is None:
+                os.environ.pop("DIFFMINING_FUSED_NORM")
+            else:
+                os.environ["DIFFMINING_FUSED_NORM"] = saved
+        try:
+            before = (fn.gn_act_proj_f32.launches, fn.gn_act_proj.launches)
+            eps_fused = unet_pass()
+            k7 = (fn.gn_act_proj_f32.launches - before[0], fn.gn_act_proj.launches - before[1])
+        finally:
+            sd.unet.config = dataclasses.replace(sd.unet.config, fused_norm=False)
+        rel_fused = rel_l2(eps_fused, eps)
+    if not (torch.isfinite(eps).all() and rel < UNET_F32_REL_L2):
+        raise AssertionError(f"f32 UNet pass: kernels vs plain attention relative L2 {rel}")
+    if k7 != (16, 0) or not (torch.isfinite(eps_fused).all() and rel_fused < UNET_F32_REL_L2):
+        raise AssertionError(f"f32 fused-norm pass: K7 launches (float32, bf16) {k7}, relative L2 {rel_fused}")
+    busy_share = None if busy_ms is None else busy_ms / pass_ms
+    log(f"f32 sweep: UNet pass (B={batch_images}x2, 512px, float32) kernels vs plain attention: relative L2 "
+        f"{rel:.4g} (limit {UNET_F32_REL_L2}); {pass_ms:.2f} ms, device busy {fmt(busy_ms, '.2f')} ms "
+        f"({fmt(busy_share, '.3f')} of the pass; kernel times summed {fmt(kernel_sum_ms, '.2f')} ms), of which the "
+        "float32 no-max mode " + ("not measured" if k_ms is None else f"{10 * k_ms:.2f} ms (10 launches)")
+        + f"; under DIFFMINING_FUSED_NORM=1: {k7[0]} launches of the float32 K7, relative L2 {rel_fused:.4g} from "
+        f"the module path, on {smi}")
+    log("f32 sweep: the pass's largest kernels (ms a pass, summed): "
+        + "; ".join(f"{ms:.2f} {name[:70]}" for name, ms in top))
+    del sd, typ, eps, eps_plain, eps_fused
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(images=len(arrays), N=N, batch_images=batch_images, imgs_per_hr_n4=imgs_hr, launches=launches,
+                unet_pass_ms=pass_ms, unet_pass_busy_ms=busy_ms, busy_share=busy_share,
+                unet_pass_kernel_sum_ms=kernel_sum_ms, top_kernels=top,
+                unet_pass_nomax_f32_ms=None if k_ms is None else 10 * k_ms, rel_l2_vs_plain=rel,
+                fused_norm_launches=k7[0], fused_norm_rel_l2=rel_fused, card=smi)
+
+
+def phase_train_f32(smi):
+    """finetune --mixed_precision no: the places trainer at SD-v1.5 widths
+    (random weights from SEED, as phase 6's: no pipeline export), float32
+    throughout, EMA, batch 2 of synthetic 512x512 images: one forward and
+    backward at the seed's weights with the float32 kernels against the same
+    through the plain attention (level-0 to_q/to_k/to_v gradients); 3 steps
+    through train_step, each launching the float32 lse mode, K5 and K6 10
+    times and no bf16 kernel; warm step ms and peak memory."""
+    import torch
+
+    from diffmining_tpu_torch.models import unet as unet_mod
+    from diffmining_tpu_torch.ops import flash_attention as fa
+    from diffmining_tpu_torch.ops.attention import kernel_route, sdpa, sdpa_plain
+
+    assert_no_tf32()
+    batch, px, n_images, n_steps = 2, 512, 4, 3
+    work = os.path.join(ROOT, "build", "chip_smoke_train_f32")
+    t0 = time.perf_counter()
+    tr, args, batches = places_trainer(work, batch, px, n_images, max_train_steps=n_steps,
+                                       extra=("--mixed_precision", "no"))
+    torch.cuda.synchronize()
+    if tr.builder.mixed_precision:
+        raise AssertionError("train f32: --mixed_precision no left autocast on")
+    log(f"train f32: places trainer at SD-v1.5 widths, --mixed_precision no (float32 throughout), EMA, batch "
+        f"{batch}; built and training_init in {time.perf_counter() - t0:.1f} s")
+    proj = [f"down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_{n}.weight" for n in "qkv"]
+    before = {n: tr.state.params[n].detach().clone() for n in proj}
+    b = tr.builder
+    images, tokens = batches[0][0][:1], batches[0][1][:1]
+    draws = b.draw(SEED + 3, 0, (1, 4, px // 8, px // 8), torch.device("cuda"))
+
+    def proj_grads():
+        b.loss(images, tokens, draws=draws).backward()
+        grads = {n: tr.state.params[n].grad.clone() for n in proj}
+        for p in tr.state.params.values():
+            p.grad = None
+        return grads
+
+    g_kernel = proj_grads()
+    unet_mod.sdpa = sdpa_plain  # the reference: the same float32 pass through the plain attention
+    try:
+        g_plain = proj_grads()
+    finally:
+        unet_mod.sdpa = sdpa
+    rel = {n.split(".")[-2]: rel_l2(g_kernel[n], g_plain[n]) for n in proj}
+    if not all(float(g_kernel[n].abs().max()) > 0 for n in proj) or max(rel.values()) >= F32_GRAD_REL_L2:
+        raise AssertionError(f"train f32: level-0 projection gradients, float32 kernels vs plain: {rel}")
+    log(f"train f32: level-0 to_q/to_k/to_v gradients, float32 kernels vs the plain attention (batch 1): relative L2 "
+        f"{', '.join(f'{k} {v:.4g}' for k, v in rel.items())} (limit {F32_GRAD_REL_L2}); all nonzero")
+
+    kernels = (fa.flash_fwd_lse_f32, fa.flash_bwd_dq_f32, fa.flash_bwd_dkv_f32, fa.flash_fwd_lse, fa.flash_bwd_dq,
+               fa.flash_bwd_dkv, fa.flash_fwd_nomax_f32)
+    for f in kernels:
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        tr.state, loss = tr.train_step(tr.state, *batches[i % len(batches)], args.seed)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {f.__name__: f.launches for f in kernels}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = dict.fromkeys(launches, 0)
+    for l, d in UNET_512_GATED:  # under grad: the lse mode, K5 and K6, once each a gated call a step
+        for name in kernel_route(torch.float32, d, l, l, True).wrappers:
+            want[name] += n_steps
+    if launches != want:
+        raise AssertionError(f"train f32: launches {launches}, expected {want} (10 gated attentions a step)")
+    moved = min(float((tr.state.params[n].detach() - before[n]).abs().max()) for n in proj)
+    if not all(math.isfinite(x) for x in losses) or not moved > 0:
+        raise AssertionError(f"train f32: losses {losses}, level-0 projections moved by {moved}")
+    warm_ms = statistics.median(step_s[1:]) * 1e3
+    log(f"train f32: {n_steps} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; launches {launches}; step times "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, warm median {warm_ms:.1f} ms = "
+        f"{batch / warm_ms * 1e3:.2f} images/s; peak allocated {peak_gib:.2f} GiB on {smi}")
+    del tr, batches
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(steps=n_steps, batch=batch, px=px, losses=losses, step_ms=[x * 1e3 for x in step_s],
+                warm_step_ms=warm_ms, images_per_s=batch / warm_ms * 1e3, peak_gib=peak_gib, launches=launches,
+                grad_rel_l2=rel, card=smi)
 
 
 def phase_clip(smi, mining_work, dift_sd):
@@ -2675,10 +3173,23 @@ INFERENCE_KERNELS = {  # kind: (wrapper, source, the TPU kernel, the main shape)
 }
 
 
-F32_REPLACES = {
-    "online": "diffmining_tpu/ops/flash_attention.py:199 (_flash_kernel_t at float32, via _flash_forward_t :417)",
-    "nomax": "diffmining_tpu/ops/flash_attention.py:250 (_flash_kernel_t_nomax at float32, via _flash_forward_t "
-             ":417); diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot at float32)",
+F32_KERNELS = {  # mode: (wrapper, source, the TPU kernel, the main shape)
+    "online": ("flash_fwd_online_f32", "flash_fwd_f32",
+               "diffmining_tpu/ops/flash_attention.py:199 (_flash_kernel_t at float32, via _flash_forward_t :417)",
+               "L1025 D64"),
+    "nomax": ("flash_fwd_nomax_f32", "flash_fwd_f32",
+              "diffmining_tpu/ops/flash_attention.py:250 (_flash_kernel_t_nomax at float32, via _flash_forward_t "
+              ":417); diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot at float32)", "L4096 D40"),
+    "lse": ("flash_fwd_lse_f32", "flash_fwd_f32",
+            "diffmining_tpu/ops/flash_attention.py:37 (_flash_kernel at float32, via _flash_forward(return_lse=True) "
+            ":142)", "L4096 D40"),
+    "K5": ("flash_bwd_dq_f32", "flash_bwd_dq_f32",
+           "diffmining_tpu/ops/flash_attention.py:573 (_bwd_dq_kernel at float32, via _bwd_pallas :659)", "L4096 D40"),
+    "K6": ("flash_bwd_dkv_f32", "flash_bwd_dkv_f32",
+           "diffmining_tpu/ops/flash_attention.py:609 (_bwd_dkv_kernel at float32, via _bwd_pallas :659)", "L4096 D40"),
+    "K7": ("gn_act_proj_f32", "gn_act_proj_f32",
+           "diffmining_tpu/ops/fused_norm.py:27 (_gn_act_matmul_kernel at float32, via gn_act_proj :44)",
+           "N4096 C320"),
 }
 
 
@@ -2749,10 +3260,16 @@ def main() -> int:
     launches, imgs_hr, imgs_hr_100, unet_pass = phase_slice(smi)
     torch.cuda.empty_cache()
     done("slice")
+    sweep_f32 = phase_f32_sweep(smi)
+    done("f32 sweep")
     train_kern = phase_train_kernels()
     done("training kernels")
+    f32_unet = phase_f32_unet_kernels(smi)
+    done("f32 UNet kernels")
     train = phase_train(smi)
     done("train")
+    train_f32 = phase_train_f32(smi)
+    done("train f32")
     infer_kern = phase_inference_kernels(smi)
     done("inference-mode kernels")
     mining = phase_mining(smi)
@@ -2804,19 +3321,26 @@ def main() -> int:
         entries.append(kernel_entry(name, source, replaces, mining["runs"]["modes"]["launches"][name],
                                     infer_kern[kind], main_case))
     large = clip["large_crops"]
-    for mode, (name, replaces, main_case, launches) in {
-        "online": ("flash_fwd_online_f32", F32_REPLACES["online"], "L1025 D64",
-                   large["crop448"]["launches"]["flash_fwd_online_f32"]),
-        "nomax": ("flash_fwd_nomax_f32", F32_REPLACES["nomax"], "L4097 D64",
-                  large["crop896"]["launches"]["flash_fwd_nomax_f32"]),
-    }.items():
-        entry = kernel_entry(name, "diffmining_tpu_torch/csrc/flash_fwd_f32.cu", replaces, launches, f32_kern[mode],
-                             main_case)
-        entry["library"] = "sdpa forward, float32, TF32 off"
+    f32_paths = {
+        "online": {"clip crop 448": large["crop448"]["launches"]["flash_fwd_online_f32"]},
+        "nomax": {"clip crop 896": large["crop896"]["launches"]["flash_fwd_nomax_f32"],
+                  "f32 sweep": sweep_f32["launches"]["flash_fwd_nomax_f32"]},
+        "lse": {"train f32": train_f32["launches"]["flash_fwd_lse_f32"]},
+        "K5": {"train f32": train_f32["launches"]["flash_bwd_dq_f32"]},
+        "K6": {"train f32": train_f32["launches"]["flash_bwd_dkv_f32"]},
+        "K7": {"f32 sweep, DIFFMINING_FUSED_NORM=1 pass": sweep_f32["fused_norm_launches"]},
+    }
+    for mode, (name, source, replaces, main_case) in F32_KERNELS.items():
+        cases = {**f32_kern.get(mode, {}), **f32_unet[mode]}
+        entry = kernel_entry(name, f"diffmining_tpu_torch/csrc/{source}.cu", replaces, sum(f32_paths[mode].values()),
+                             cases, main_case)
+        entry["launches_by_path"] = f32_paths[mode]
         entries.append(entry)
     print(json.dumps({"slice": {"imgs_per_hr_n4": imgs_hr, "imgs_per_hr_n100": imgs_hr_100, **unet_pass,
                                 "card": smi}}))
+    print(json.dumps({"f32_sweep": sweep_f32}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"train_f32": train_f32}))
     print(json.dumps({"mining": mining}))
     print(json.dumps({"xray": xray}))
     print(json.dumps({"sampling": sampling}))

@@ -358,7 +358,8 @@ def main(argv=None):
     p.add_argument("--mesh_dp", type=int, default=None,
                    help="shard the sweep over a device mesh (multi-GPU: not ported yet, ROADMAP A12)")
     p.add_argument("--dtype", type=str, default="bf16", choices=sorted(DTYPES),
-                   help="compute dtype: bf16 on the GPU; fp32 for validation runs with --device cpu")
+                   help="compute dtype: bf16 (default), or fp32 for validation runs; both run on the GPU "
+                        "(float32 flash kernels) and with --device cpu")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 

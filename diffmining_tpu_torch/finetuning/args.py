@@ -56,8 +56,8 @@ def parser_base() -> argparse.ArgumentParser:
                    help="int8 Adam moments in 256-element blocks (ops/optim8bit.py)")
     # precision / hardware
     p.add_argument("--mixed_precision", type=str, default="bf16", choices=["no", "fp16", "bf16"],
-                   help="bf16/fp16: bf16 autocast over float32 master weights; no: float32 "
-                        "(on the GPU the flash kernels are bf16 only and raise)")
+                   help="bf16/fp16: bf16 autocast over float32 master weights; no: float32 throughout "
+                        "(on the GPU through the float32 flash kernels, forward and backward)")
     p.add_argument("--allow_tf32", action="store_true", help="inert")
     p.add_argument("--xformers", action="store_true", help="inert: attention kernels are built in")
     p.add_argument("--enable_xformers_memory_efficient_attention", action="store_true")

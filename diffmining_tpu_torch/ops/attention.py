@@ -13,18 +13,25 @@ JAX primal takes under the same settings (``flash_attention.forward_route``:
 ``flash_fwd_nomax``, K3 ``flash_fwd_online`` and K4 ``flash_fwd_lse`` with
 the lse dropped. Under the default settings at 512px every gated call is
 K1. Cross-attention (Lk = 77), L <= 256, the VAE's single-head D = 512,
-CLIP's causal mask and every CPU tensor take the plain path. A float32 CUDA
-forward without grad at head dim 64 (the CLIP vision towers at crops of 448
-px and more: L = 1025 takes K3, L = 4097 K2, as in JAX) runs the float32
-kernel in the same mode; every other float32 CUDA tensor at a gated shape
-raises in the wrapper (so ``--mixed_precision no`` training raises on the
-card at the first gated attention), and float32 UNet validation runs on the
-CPU.
+CLIP's causal mask and every CPU tensor take the plain path.
+
+``kernel_route`` names, on metadata only, the wrappers a gated CUDA call
+runs (each wrapper picks its bf16 or float32 kernel by the same
+``flash_attention.variant``): bf16 operands at SD-v1.5's head dims (40, 80,
+160) take the bf16 kernels; float32 operands at those and the CLIP towers'
+64 take the float32 kernels
+(``flash_fwd_f32`` in the mode the route names, and under grad its lse mode
+with ``flash_bwd_dq_f32`` and ``flash_bwd_dkv_f32``), as the JAX kernels
+compute in their operands' dtype: so ``--dtype fp32`` runs and ``finetune
+--mixed_precision no`` run on the card. Any other dtype or head dim at a
+gated shape raises.
 
 Unlike the JAX ``sdpa`` there is no try/except around the kernel: a gated
-call launches it or raises.
+call launches it or raises; nothing casts to bf16 or pads the head dim.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -34,6 +41,7 @@ from diffmining_tpu_torch.ops.flash_attention import (
     flash_fwd_nomax,
     flash_fwd_online,
     forward_route,
+    variant,
 )
 
 
@@ -69,11 +77,35 @@ def use_kernel(q_shape, k_shape, masked: bool, device: torch.device) -> bool:
     )
 
 
+class Route(NamedTuple):
+    """The TPU kernels a gated call replaces and the port's wrappers that
+    launch their counterparts, in order."""
+    kinds: Tuple[str, ...]
+    wrappers: Tuple[str, ...]
+
+
+# the wrapper (bf16 name; the float32 one adds "_f32") of each TPU kernel
+WRAPPER = {"K1": "flash_fwd_nomax", "K2": "flash_fwd_nomax", "K3": "flash_fwd_online", "K4": "flash_fwd_lse",
+           "K5": "flash_bwd_dq", "K6": "flash_bwd_dkv"}
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int, lq: int, lk: int, grad: bool) -> Route:
+    """The kernels a gated call launches, on metadata only: under grad the
+    forward with the lse (K4), then K5 and K6 in the backward; without grad
+    the forward ``forward_route`` names. bf16 at ``HEAD_DIMS`` names the
+    bf16 wrappers, float32 at ``F32_HEAD_DIMS`` the float32 ones
+    (``flash_attention.variant``); any other dtype or head dim raises."""
+    suffix = variant(dtype, head_dim)
+    kinds = ("K4", "K5", "K6") if grad else (forward_route(lq, lk),)
+    return Route(kinds, tuple(WRAPPER[k] + suffix for k in kinds))
+
+
 def _lse_dropped(q, k, v, scale):
     return flash_fwd_lse(q, k, v, scale)[0]
 
 
-# the port's wrapper for each TPU forward kernel
+# the port's wrapper for each TPU forward kernel (each hands float32 CUDA
+# tensors to its float32 counterpart)
 FORWARD = {"K1": flash_fwd_nomax, "K2": flash_fwd_nomax, "K3": flash_fwd_online, "K4": _lse_dropped}
 
 

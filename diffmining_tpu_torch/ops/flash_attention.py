@@ -2,7 +2,7 @@
 versions, the forward route gates and the autograd Function (counterpart of
 diffmining_tpu/ops/flash_attention.py).
 
-Six kernels, one CUDA source each under ``csrc/``:
+Nine kernels, one CUDA source each under ``csrc/``; six bf16:
 
   flash_fwd_nomax   no-max forward (TPU ``_flash_kernel_t_1shot``, K1, and
                     ``_flash_kernel_t_nomax``, K2): the UNet without grad
@@ -16,11 +16,19 @@ Six kernels, one CUDA source each under ``csrc/``:
   flash_bwd_dq      dq from lse, and delta from dO and o (TPU
                     ``_bwd_dq_kernel``, K5, and the delta of ``_bwd_pallas``);
   flash_bwd_dkv     dk and dv from lse and delta (TPU ``_bwd_dkv_kernel``, K6);
-  flash_fwd_f32     the float32 forward in two modes, online (K3) and no-max
-                    (K1/K2): the CLIP vision towers, which run in float32, at
-                    crops of 448 px and more (L = 1025 and up, head dim 64).
-                    ``flash_fwd_online`` and ``flash_fwd_nomax`` hand it their
-                    float32 CUDA calls.
+
+and three float32 (fp32 FMA only: no TF32, no bf16), for every float32 run
+on the card (the UNet under ``--dtype fp32`` and ``finetune
+--mixed_precision no``, the CLIP vision towers from crop 448 on):
+
+  flash_fwd_f32     the float32 forward in three modes of one loop: online
+                    (K3), no-max (K1/K2) and online with the lse (K4);
+  flash_bwd_dq_f32  K5 in float32, with delta, flash_bwd_dq's interface;
+  flash_bwd_dkv_f32 K6 in float32, flash_bwd_dkv's interface.
+
+``flash_fwd_nomax``, ``flash_fwd_online``, ``flash_fwd_lse``,
+``flash_bwd_dq`` and ``flash_bwd_dkv`` hand their float32 CUDA calls to the
+``*_f32`` wrappers (``variant`` decides from the dtype and the head dim).
 
 ``forward_route`` picks among K1-K4 for a forward without grad as the JAX
 ``sdpa`` and ``_flash_forward_t`` do, from the same environment variables,
@@ -31,22 +39,22 @@ read into module attributes at import (``_ONESHOT``, ``_NOMAX``,
 flash_fwd_lse and saves (q, k, v, o, lse); its backward forms the
 pre-scaled q (``prescaled_q``) once and runs flash_bwd_dq, which also
 forms delta = sum(dO * o), and flash_bwd_dkv. Each ``*_plain``
-function repeats its kernel's arithmetic step by step in PyTorch: the CPU
-tests hold it to the Pallas kernels, and ``chip_smoke.py`` holds the kernel
-to it on the card. A wrapper takes the plain version only for a tensor that
-lies on the CPU; for a CUDA tensor it launches its kernel or raises. Each
+function repeats its kernel's arithmetic step by step in PyTorch (at
+float32 every rounding to the operands' dtype is a no-op): the CPU tests
+hold it to the Pallas kernels, and ``chip_smoke.py`` holds the kernel to it
+on the card. A wrapper takes the plain version only for a tensor that lies
+on the CPU; for a CUDA tensor it launches its kernel or raises. Each
 wrapper counts its launches in ``.launches``.
 
 The bf16 kernels take head dims 40, 80 and 160 (``HEAD_DIMS``), the float32
-forward head dim 64 (``F32_HEAD_DIMS``); the training route (K4-K6) is bf16
-only and raises on float32. They read strided [B,L,H*D]-as-[B,H,L,D] views
-in place; they write [B,L,H,D] buffers and
+ones those and the CLIP towers' 64 (``F32_HEAD_DIMS``). They read strided
+[B,L,H*D]-as-[B,H,L,D] views in place; they write [B,L,H,D] buffers and
 return [B,H,L,D] views of them, so merging heads (and, in the backward,
 handing the gradients back to the projections) needs no copy.
 
-Each source under ``csrc/`` (these and ``gn_act_proj.cu``, the fused
-GroupNorm kernel of ops/fused_norm.py) is built with ``nvcc`` at first use
-into ``build/kernels/`` beside the package (a plain C entry point loaded
+Each source under ``csrc/`` (these and ``gn_act_proj.cu`` and
+``gn_act_proj_f32.cu``, the fused GroupNorm kernels of ops/fused_norm.py) is
+built with ``nvcc`` at first use into ``build/kernels/`` beside the package (a plain C entry point loaded
 with ``ctypes``), keyed by the hash of the source, the shared headers and
 the flags, so importing this module needs neither a GPU nor nvcc.
 """
@@ -68,12 +76,17 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 NEG_INF = -1e30  # the TPU kernels' mask value
 HEAD_DIMS = (40, 80, 160)  # the bf16 kernels' instantiations: SD-v1.5's self-attention head dims
-F32_HEAD_DIMS = (64,)  # flash_fwd_f32's instantiations: the head dim of every CLIP vision tower
+# the float32 kernels' instantiations: SD-v1.5's and every CLIP vision tower's (64)
+F32_HEAD_DIMS = (40, 64, 80, 160)
 TPU_BLOCK_K = 1024  # the TPU kernel's key block (flash_attention.py:102, :148)
 # The key tile of the CUDA online-softmax forward (K3, K4; BLOCK_N in
 # csrc/flash_fwd_online.cuh): p is rounded to bf16 relative to the running max
 # of each tile, so the plain versions equal the kernel only at this block_k.
 ONLINE_BLOCK_K = 128
+# The key tile of the float32 kernels (TILE in csrc/flash_f32.cuh): the online
+# and lse modes take their running max per tile, which in float32 moves only
+# roundings.
+F32_BLOCK_K = 64
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -86,11 +99,15 @@ ARGTYPES = {
     "flash_fwd_nomax": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
     "flash_fwd_online": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
     "flash_fwd_lse": [_P] * 5 + [_I] * 5 + [_P, _F, _P],
-    "flash_fwd_f32": [_P] * 4 + [_I] * 6 + [_P, _F, _P],
+    "flash_fwd_f32": [_P] * 5 + [_I] * 6 + [_P, _F, _P],
     "flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
     "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _P],
+    "flash_bwd_dq_f32": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
+    "flash_bwd_dkv_f32": [_P] * 8 + [_I] * 5 + [_P, _P],
     "gn_act_proj": [_P] * 7 + [_I] * 5 + [_F] + [_LL] * 3 + [_I] * 5 + [_P],
+    "gn_act_proj_f32": [_P] * 7 + [_I] * 5 + [_F] + [_LL] * 3 + [_I] + [_P],
 }
+F32_SOURCES = ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32", "gn_act_proj_f32")
 SOURCES = tuple(ARGTYPES)
 
 # The JAX package's forward gates (flash_attention.py:101-133), read from the
@@ -353,20 +370,39 @@ def _library(name: str):
 # ---------------------------------------------------------------------------
 
 
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels take CUDA operands of this dtype and head dim, on
+    metadata only: "" for the bf16 kernels (``HEAD_DIMS``), "_f32" for the
+    float32 ones (``F32_HEAD_DIMS``), the suffix of their wrappers' names.
+    Any other dtype or head dim raises: no kernel computes it, and a cast or
+    a padded head dim would compute something other than the JAX package
+    does."""
+    dims = {torch.bfloat16: HEAD_DIMS, torch.float32: F32_HEAD_DIMS}.get(dtype)
+    if dims is None:
+        raise ValueError(f"no flash kernel takes {dtype}: bf16 or float32 only")
+    if head_dim not in dims:
+        raise ValueError(f"{dtype} head dim {head_dim} is not one of {dims}")
+    return "" if dtype == torch.bfloat16 else "_f32"
+
+
 def _aligned(t: torch.Tensor) -> bool:
     """Head dim contiguous, other strides and the base 16-byte aligned."""
-    return t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
+    return t.stride(3) == 1 and not any(s * t.element_size() % 16 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
 
 
-def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor) -> None:
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor,
+           dtype: torch.dtype = torch.bfloat16) -> None:
+    """A kernel's [B,H,L,D] operands (``more``: dO and the like, q's shape):
+    all of ``dtype`` on one CUDA device, D one of the kernel's head dims, the
+    head dim contiguous, the other strides and the base 16-byte aligned."""
     ts = (q, k, v, *more)
     if not all(t.is_cuda for t in ts):
         raise ValueError(f"{name}: every operand must be a CUDA tensor")
     if len({t.device for t in ts}) != 1:
         raise ValueError(f"{name}: every operand must be on one device")
-    if not all(t.dtype == torch.bfloat16 for t in ts):
-        raise ValueError(f"{name}: bf16 only, got {[str(t.dtype) for t in ts]} (the float32 forwards are "
-                         "flash_fwd_online and flash_fwd_nomax at head dim 64; float32 training runs on the CPU)")
+    if not all(t.dtype == dtype for t in ts):
+        kind = "bf16" if dtype == torch.bfloat16 else "float32"
+        raise ValueError(f"{name}: {kind} only, got {[str(t.dtype) for t in ts]}")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: expected [B,H,L,D], got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, _, d = q.shape
@@ -374,28 +410,11 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: 
         raise ValueError(f"{name}: q {tuple(q.shape)} and k/v {tuple(k.shape)} disagree")
     if any(t.shape != q.shape for t in more):
         raise ValueError(f"{name}: dO {[tuple(t.shape) for t in more]} does not match q {tuple(q.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} is not one of SD-v1.5's {HEAD_DIMS}")
+    dims = HEAD_DIMS if dtype == torch.bfloat16 else F32_HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"{name}: {dtype} head dim {d} is not one of {dims}")
     for t in ts:
         if not _aligned(t):
-            raise ValueError(f"{name}: strides and base must be 16-byte aligned with the head dim contiguous")
-
-
-def _check_f32(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """flash_fwd_f32's operands: float32 [B,H,L,D] on one CUDA device, D in
-    ``F32_HEAD_DIMS``, the head dim contiguous, the other strides and the
-    base 16-byte aligned."""
-    ts = (q, k, v)
-    if len({t.device for t in ts}) != 1 or not all(t.is_cuda for t in ts):
-        raise ValueError(f"{name}: every operand must be a CUDA tensor on one device")
-    if not all(t.dtype == torch.float32 for t in ts):
-        raise ValueError(f"{name}: float32 only, got {[str(t.dtype) for t in ts]}")
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
-        raise ValueError(f"{name}: expected [B,H,L,D], got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[3] not in F32_HEAD_DIMS:
-        raise ValueError(f"{name}: float32 head dim {q.shape[3]} is not one of {F32_HEAD_DIMS}")
-    for t in ts:
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{name}: strides and base must be 16-byte aligned with the head dim contiguous")
 
 
@@ -427,14 +446,18 @@ def _requires_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def _fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None, nomax: bool) -> torch.Tensor:
-    _check_f32("flash_fwd_f32", q, k, v)
+F32_MODES = {"online": 0, "nomax": 1, "lse": 2}  # flash_fwd_f32's modes
+
+
+def _fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None, mode: str):
+    _check("flash_fwd_f32", q, k, v, dtype=torch.float32)
     b, h, lq, d = q.shape
     out = _bhld(q, lq)
+    lse = torch.empty((b, h, lq), device=q.device, dtype=torch.float32) if mode == "lse" else None
     _launch("flash_fwd_f32", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, lq, k.shape[2], d, int(nomax), ctypes.cast(_strides(q, k, v, out), _P),
-            _prescale(q, _scale(q, scale)))
-    return out
+            0 if lse is None else lse.data_ptr(), b, h, lq, k.shape[2], d, F32_MODES[mode],
+            ctypes.cast(_strides(q, k, v, out), _P), _prescale(q, _scale(q, scale)))
+    return out if lse is None else (out, lse)
 
 
 def flash_fwd_online_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> torch.Tensor:
@@ -442,7 +465,7 @@ def flash_fwd_online_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
     at a head dim of ``F32_HEAD_DIMS``. Its plain version is
     ``flash_fwd_online_plain`` at float32. ``flash_fwd_online_f32.launches``
     counts launches."""
-    out = _fwd_f32(q, k, v, scale, nomax=False)
+    out = _fwd_f32(q, k, v, scale, "online")
     flash_fwd_online_f32.launches += 1
     return out
 
@@ -452,8 +475,17 @@ def flash_fwd_nomax_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale
     ``flash_attention_nomax_plain`` at float32. It overflows where the TPU
     kernels do, once a logit·log2e passes 128. ``flash_fwd_nomax_f32
     .launches`` counts launches."""
-    out = _fwd_f32(q, k, v, scale, nomax=True)
+    out = _fwd_f32(q, k, v, scale, "nomax")
     flash_fwd_nomax_f32.launches += 1
+    return out
+
+
+def flash_fwd_lse_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None):
+    """K4 in float32: flash_fwd_f32's lse mode, (o, lse [B,H,Lq] float32
+    natural log). Its plain version is ``flash_fwd_lse_plain`` at float32.
+    ``flash_fwd_lse_f32.launches`` counts launches."""
+    out = _fwd_f32(q, k, v, scale, "lse")
+    flash_fwd_lse_f32.launches += 1
     return out
 
 
@@ -467,7 +499,7 @@ def flash_fwd_nomax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         raise RuntimeError("flash_fwd_nomax has no backward; under grad use flash_attention")
     if q.device.type == "cpu":
         return flash_attention_nomax_plain(q, k, v, scale)
-    if q.dtype == torch.float32:
+    if variant(q.dtype, q.shape[-1]):
         return flash_fwd_nomax_f32(q, k, v, scale)
     _check("flash_fwd_nomax", q, k, v)
     b, h, lq, d = q.shape
@@ -489,7 +521,7 @@ def flash_fwd_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
         raise RuntimeError("flash_fwd_online has no backward; under grad use flash_attention")
     if q.device.type == "cpu":
         return flash_fwd_online_plain(q, k, v, scale)
-    if q.dtype == torch.float32:
+    if variant(q.dtype, q.shape[-1]):
         return flash_fwd_online_f32(q, k, v, scale)
     _check("flash_fwd_online", q, k, v)
     b, h, lq, d = q.shape
@@ -502,9 +534,12 @@ def flash_fwd_online(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
 
 def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None):
     """K4: (o [B,H,Lq,D], lse [B,H,Lq] float32 natural log). CPU tensors take
-    ``flash_fwd_lse_plain``; ``flash_fwd_lse.launches`` counts launches."""
+    ``flash_fwd_lse_plain``, float32 CUDA tensors ``flash_fwd_lse_f32``;
+    ``flash_fwd_lse.launches`` counts the bf16 kernel's launches."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v, scale)
+    if variant(q.dtype, q.shape[-1]):
+        return flash_fwd_lse_f32(q, k, v, scale)
     _check("flash_fwd_lse", q, k, v)
     b, h, lq, d = q.shape
     out = _bhld(q, lq)
@@ -515,50 +550,85 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     return out, lse
 
 
+def _bwd_dq(name, q, k, v, g, o, lse, qs, scale, dtype):
+    _check(name, q, k, v, g, o, qs, dtype=dtype)
+    _check_rows(name, q, lse)
+    b, h, lq, d = q.shape
+    dq = _bhld(q, lq)
+    delta = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
+    _launch(name, q, qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, lq, k.shape[2], d,
+            ctypes.cast(_strides(qs, k, v, g, o, dq), _P), _scale(q, scale))
+    return dq, delta
+
+
+def _bwd_dkv(name, q, k, v, g, lse, delta, qs, dtype):
+    _check(name, q, k, v, g, qs, dtype=dtype)
+    _check_rows(name, q, lse, delta)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dk, dv = _bhld(k, lk), _bhld(v, lk)
+    _launch(name, q, qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, lq, lk, d,
+            ctypes.cast(_strides(qs, k, v, g, dk, dv), _P))
+    return dk, dv
+
+
+def flash_bwd_dq_f32(q, k, v, g, o, lse, qs, scale: float | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 in float32 (``csrc/flash_bwd_dq_f32.cu``): flash_bwd_dq's
+    interface on float32 CUDA tensors at a head dim of ``F32_HEAD_DIMS``. Its
+    plain versions are ``attention_delta`` and ``flash_bwd_dq_plain`` at
+    float32. ``flash_bwd_dq_f32.launches`` counts launches."""
+    out = _bwd_dq("flash_bwd_dq_f32", q, k, v, g, o, lse, qs, scale, torch.float32)
+    flash_bwd_dq_f32.launches += 1
+    return out
+
+
+def flash_bwd_dkv_f32(q, k, v, g, lse, delta, qs, scale: float | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 in float32 (``csrc/flash_bwd_dkv_f32.cu``): flash_bwd_dkv's
+    interface on float32 CUDA tensors. Its plain version is
+    ``flash_bwd_dkv_plain`` at float32. ``flash_bwd_dkv_f32.launches``
+    counts launches."""
+    out = _bwd_dkv("flash_bwd_dkv_f32", q, k, v, g, lse, delta, qs, torch.float32)
+    flash_bwd_dkv_f32.launches += 1
+    return out
+
+
 def flash_bwd_dq(q, k, v, g, o, lse, qs, scale: float | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: (dq [B,H,Lq,D], delta [B,H,Lq] float32) from dO ``g`` and the
     forward's ``o`` and ``lse``: the kernel forms delta = Σ dO·o of its rows
     itself (``attention_delta``'s arithmetic) and returns it for K6. It
     reads ``qs = prescaled_q(q, scale)`` in place of q. CPU tensors take
     ``attention_delta`` and ``flash_bwd_dq_plain``, which pre-scales q
-    itself; ``flash_bwd_dq.launches`` counts launches."""
+    itself; float32 CUDA tensors ``flash_bwd_dq_f32``;
+    ``flash_bwd_dq.launches`` counts the bf16 kernel's launches."""
     if q.device.type == "cpu":
         delta = attention_delta(g, o)
         return flash_bwd_dq_plain(q, k, v, g, lse, delta, scale), delta
-    scale = _scale(q, scale)
-    _check("flash_bwd_dq", q, k, v, g, o, qs)
-    _check_rows("flash_bwd_dq", q, lse)
-    b, h, lq, d = q.shape
-    dq = _bhld(q, lq)
-    delta = torch.empty((b, h, lq), device=q.device, dtype=torch.float32)
-    _launch("flash_bwd_dq", q, qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, lq, k.shape[2], d,
-            ctypes.cast(_strides(qs, k, v, g, o, dq), _P), scale)
+    if variant(q.dtype, q.shape[-1]):
+        return flash_bwd_dq_f32(q, k, v, g, o, lse, qs, scale)
+    out = _bwd_dq("flash_bwd_dq", q, k, v, g, o, lse, qs, scale, torch.bfloat16)
     flash_bwd_dq.launches += 1
-    return dq, delta
+    return out
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, qs, scale: float | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6: (dk, dv) [B,H,Lk,D] from dO ``g``, the forward's ``lse`` and
     ``delta``. The kernel reads ``qs = prescaled_q(q, scale)`` in place of
     q. CPU tensors take ``flash_bwd_dkv_plain``, which pre-scales q itself;
-    ``flash_bwd_dkv.launches`` counts launches."""
+    float32 CUDA tensors ``flash_bwd_dkv_f32``; ``flash_bwd_dkv.launches``
+    counts the bf16 kernel's launches."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, g, lse, delta, scale)
-    _check("flash_bwd_dkv", q, k, v, g, qs)
-    _check_rows("flash_bwd_dkv", q, lse, delta)
-    b, h, lq, d = q.shape
-    lk = k.shape[2]
-    dk, dv = _bhld(k, lk), _bhld(v, lk)
-    _launch("flash_bwd_dkv", q, qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, lq, lk, d,
-            ctypes.cast(_strides(qs, k, v, g, dk, dv), _P))
+    if variant(q.dtype, q.shape[-1]):
+        return flash_bwd_dkv_f32(q, k, v, g, lse, delta, qs, scale)
+    out = _bwd_dkv("flash_bwd_dkv", q, k, v, g, lse, delta, qs, torch.bfloat16)
     flash_bwd_dkv.launches += 1
-    return dk, dv
+    return out
 
 
 for _fn in (flash_fwd_nomax, flash_fwd_online, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, flash_fwd_online_f32,
-            flash_fwd_nomax_f32):
+            flash_fwd_nomax_f32, flash_fwd_lse_f32, flash_bwd_dq_f32, flash_bwd_dkv_f32):
     _fn.launches = 0
 
 

@@ -2,12 +2,19 @@
 diffmining_tpu/ops/fused_norm.py), the entry of every SpatialTransformer on
 the inference paths when ``DIFFMINING_FUSED_NORM=1``.
 
-  gn_act_proj         the wrapper: for a CUDA tensor one call of the
+  gn_act_proj         the wrapper: for a bf16 CUDA tensor one call of the
                       hand-written CUDA source ``csrc/gn_act_proj.cu``, which
                       launches two kernels, the per-(batch, group) statistics
                       (``gn_stats_kernel``) and the normalise + projection
                       (``gn_act_proj_kernel``, TPU ``_gn_act_matmul_kernel``,
-                      K7); for a CPU tensor ``gn_act_proj_plain``;
+                      K7); for a float32 CUDA tensor ``gn_act_proj_f32``;
+                      for a CPU tensor ``gn_act_proj_plain``;
+  gn_act_proj_f32     K7 in float32 (``csrc/gn_act_proj_f32.cu``, fp32 FMA
+                      only): the same statistics in the same order, then a
+                      simple tiled normalise + projection; its plain version
+                      is ``gn_act_proj_plain`` at float32 (every rounding to
+                      w's and x's dtype a no-op);
+  gn_kernel           which of the two a CUDA call runs, from the dtypes;
   group_stats_plain   the statistics kernel's arithmetic: its partial sums
                       and centred merges in its order;
   gn_act_proj_plain   the whole call's arithmetic step by step in PyTorch;
@@ -264,18 +271,36 @@ def gn_act_proj_xla(x, gamma, beta, w, bias, groups: int, eps: float = 1e-6, act
     return torch.matmul(h.reshape(b, hh * ww, c), w) + bias[None, None]
 
 
-def _check(x, gamma, beta, w, bias, groups: int) -> None:
+F32_K_CHUNK = 32  # input channels a chunk of the float32 projection
+F32_TILE_N = 64  # output channels a block of the float32 projection
+
+
+def gn_kernel(x_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
+    """The wrapper whose kernel a CUDA call runs, on metadata only: bf16 x
+    and w take ``gn_act_proj``'s bf16 kernels, float32 x and w
+    ``gn_act_proj_f32`` (the JAX kernel computes in x's and w's dtypes); any
+    other pair raises."""
+    kernels = {torch.bfloat16: "gn_act_proj", torch.float32: "gn_act_proj_f32"}
+    if x_dtype != w_dtype or x_dtype not in kernels:
+        raise ValueError(f"gn_act_proj: x and w both bf16 or both float32, got {x_dtype}, {w_dtype}")
+    return kernels[x_dtype]
+
+
+def _check(x, gamma, beta, w, bias, groups: int, kernel: str = "gn_act_proj") -> None:
+    """``kernel``'s operands: CUDA tensors on one device, x and w of its
+    dtype, C and Cout multiples of its tiles."""
     ts = (x, gamma, beta, w, bias)
     if not all(t.is_cuda for t in ts) or len({t.device for t in ts}) != 1:
         raise ValueError("gn_act_proj: every operand must be a CUDA tensor on one device")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"gn_act_proj: bf16 x and w only, got {x.dtype}, {w.dtype} (float32 runs on the CPU)")
+    if gn_kernel(x.dtype, w.dtype) != kernel:
+        raise ValueError(f"{kernel}: x and w of {x.dtype} go to {gn_kernel(x.dtype, w.dtype)}")
+    k_chunk, tile_n = (K_TILE, TILE_N) if kernel == "gn_act_proj" else (F32_K_CHUNK, F32_TILE_N)
     b, hh, ww, c = x.shape
     if w.ndim != 2 or w.shape[0] != c or gamma.shape != (c,) or beta.shape != (c,) or bias.shape != (w.shape[1],):
         raise ValueError(f"gn_act_proj: x {tuple(x.shape)}, w {tuple(w.shape)}, gamma/beta/bias do not agree")
-    if c % groups or c % K_TILE or w.shape[1] % TILE_N:
-        raise ValueError(f"gn_act_proj: C={c} must divide into {groups} groups and be a multiple of {K_TILE}, "
-                         f"Cout={w.shape[1]} a multiple of {TILE_N}")
+    if c % groups or c % k_chunk or w.shape[1] % tile_n:
+        raise ValueError(f"gn_act_proj: C={c} must divide into {groups} groups and be a multiple of {k_chunk}, "
+                         f"Cout={w.shape[1]} a multiple of {tile_n}")
 
 
 def kernel_strides(x: torch.Tensor) -> Tuple[int, int, int]:
@@ -303,32 +328,66 @@ def _param(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
     return t.contiguous(), int(t.dtype == torch.float32)
 
 
+def _stats_buffer(x: torch.Tensor, stats: Optional[torch.Tensor]) -> torch.Tensor:
+    b, c = x.shape[0], x.shape[3]
+    if stats is None:
+        return torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
+    if stats.shape != (b, 2, c) or stats.dtype != torch.float32 or not stats.is_contiguous() or \
+            stats.device != x.device:
+        raise ValueError(f"gn_act_proj: stats must be a contiguous float32 {(b, 2, c)} tensor on {x.device}")
+    return stats
+
+
+def gn_act_proj_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                    groups: int, eps: float = 1e-6, act: str = "none",
+                    stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K7 in float32 on float32 CUDA x [B, H, W, C] (either layout
+    ``kernel_strides`` takes) and w [C, Cout]: one call of
+    ``csrc/gn_act_proj_f32.cu`` (the statistics kernel, then the normalise
+    + projection kernel) -> [B, H, W, Cout] float32. C must be a multiple of
+    32, Cout of 64. ``stats`` as for ``gn_act_proj``;
+    ``gn_act_proj_f32.launches`` counts the calls."""
+    if act not in ACTS:
+        raise ValueError(f"act={act!r}: expected one of {ACTS}")
+    _check(x, gamma, beta, w, bias, groups, "gn_act_proj_f32")
+    sb, sn, sc = kernel_strides(x)
+    b, hh, ww, c = x.shape
+    cout = w.shape[1]
+    stats = _stats_buffer(x, stats)
+    gamma_k, beta_k, bias_k = (t.float().contiguous() for t in (gamma, beta, bias))
+    wt = w.t().contiguous()  # [Cout, C]: the conv weight's own layout, so no copy in the UNet
+    out = torch.empty((b, hh, ww, cout), device=x.device, dtype=torch.float32)
+    _launch("gn_act_proj_f32", x, x.data_ptr(), stats.data_ptr(), gamma_k.data_ptr(), beta_k.data_ptr(),
+            wt.data_ptr(), bias_k.data_ptr(), out.data_ptr(), b, hh * ww, c, cout, groups, ctypes.c_float(eps),
+            sb, sn, sc, int(act == "silu"))
+    gn_act_proj_f32.launches += 1
+    return out
+
+
 def gn_act_proj(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                 groups: int, eps: float = 1e-6, act: str = "none",
                 stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GroupNorm(groups, eps) → optional SiLU → 1x1 projection. x [B, H, W,
     C], gamma/beta [C], w [C, Cout], bias [Cout] -> [B, H, W, Cout] in x's
-    dtype. CPU tensors take ``gn_act_proj_plain``; a CUDA call launches the
-    statistics kernel and the projection kernel, and
-    ``gn_act_proj.launches`` counts the calls. ``stats``, a contiguous
-    float32 [B, 2, C] CUDA tensor, receives the per-channel (mean, rsigma)
-    the statistics kernel wrote (for checks)."""
+    dtype. CPU tensors take ``gn_act_proj_plain``; float32 CUDA tensors
+    ``gn_act_proj_f32``; a bf16 CUDA call launches the statistics kernel and
+    the projection kernel, and ``gn_act_proj.launches`` counts the calls.
+    ``stats``, a contiguous float32 [B, 2, C] CUDA tensor, receives the
+    per-channel (mean, rsigma) the statistics kernel wrote (for checks)."""
     if act not in ACTS:
         raise ValueError(f"act={act!r}: expected one of {ACTS}")
     if _requires_grad(x, gamma, beta, w, bias):
         raise RuntimeError("gn_act_proj has no backward (forward only, as in JAX); train with fused_norm off")
     if x.device.type == "cpu":
         return gn_act_proj_plain(x, gamma, beta, w, bias, groups, eps, act)
+    if gn_kernel(x.dtype, w.dtype) == "gn_act_proj_f32":
+        return gn_act_proj_f32(x, gamma, beta, w, bias, groups, eps, act, stats)
     _check(x, gamma, beta, w, bias, groups)
     sb, sn, sc = kernel_strides(x)
     b, hh, ww, c = x.shape
     cout = w.shape[1]
     p = plan(b, hh * ww, c, cout, _sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device()))
-    if stats is None:
-        stats = torch.empty((b, 2, c), device=x.device, dtype=torch.float32)
-    elif stats.shape != (b, 2, c) or stats.dtype != torch.float32 or not stats.is_contiguous() or \
-            stats.device != x.device:
-        raise ValueError(f"gn_act_proj: stats must be a contiguous float32 {(b, 2, c)} tensor on {x.device}")
+    stats = _stats_buffer(x, stats)
     (gamma_k, gamma_f32), (beta_k, beta_f32) = _param(gamma), _param(beta)
     if gamma_f32 != beta_f32:
         gamma_k, beta_k, gamma_f32 = gamma_k.float(), beta_k.float(), 1
@@ -344,3 +403,4 @@ def gn_act_proj(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, w: tor
 
 
 gn_act_proj.launches = 0
+gn_act_proj_f32.launches = 0

@@ -642,8 +642,8 @@ def main(argv=None):
         help="shard the DIFT ensemble axis over a device mesh (multi-GPU: not ported yet, ROADMAP A12)",
     )
     parser.add_argument("--dtype", type=str, default="bf16", choices=sorted(DTYPES),
-                        help="DIFT compute dtype: bf16 on the GPU (the kernels are bf16 only); "
-                             "fp32 for validation runs with --device cpu")
+                        help="DIFT compute dtype: bf16 (default), or fp32 for validation runs; both "
+                             "run on the GPU (float32 flash and fused-norm kernels) and with --device cpu")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 

@@ -346,7 +346,8 @@ def main(argv=None) -> int:
         from diffmining_tpu_torch.utils.fidelity import compare_typicality_dirs
 
         with tempfile.TemporaryDirectory() as tmp:
-            # the sweep's dtype: bf16 on the card (its flash kernels are bf16), float32 on the CPU
+            # the sweep's dtype: on the card the JAX Typicality's default, bf16
+            # (diffmining_tpu/typicality/compute.py:451); float32 on the CPU
             dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
             typ = Typicality(args.which, args.pipeline_dir, args.dataset, tmp, N=args.n_samples, t_min=args.t_min,
                              t_max=args.t_max, dtype=dtype, device=device)

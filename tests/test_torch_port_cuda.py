@@ -18,9 +18,12 @@ adds what one flipped bf16 rounding of a row's largest p can move an
 output by (``_over_p_flip_bound``). K7 rounds its product to bf16 and then adds the bias in
 bf16, so a flipped rounding of the product is one ulp of the product,
 |plain - bias|, which the bias can cancel down to a smaller result: its
-bound adds 2^-7 |plain - bias|. The float32 forward (the CLIP towers'
-``flash_fwd_f32``) computes the plain version's float32 arithmetic in
-another order, with TF32 off on both sides: 2^-14 |plain| + 2^-14 rms.
+bound adds 2^-7 |plain - bias|. The float32 kernels (``flash_fwd_f32``
+in its three modes, ``flash_bwd_dq_f32``, ``flash_bwd_dkv_f32`` and
+``gn_act_proj_f32``) compute their plain versions' float32 arithmetic in
+another order, with TF32 off on both sides: 2^-14 |plain| + 2^-14 rms, and
+the lse within 2^-14 max(1, |lse|); K5's delta within 2^-15 of
+sum_d |dO o| as in bf16.
 """
 import math
 
@@ -429,10 +432,14 @@ def test_f32_forward_matches_plain_on_card(mode, b, h, lq, lk):
 
 @pytest.mark.cuda
 def test_f32_forward_raises_off_its_head_dims_on_card():
+    """Head dim 72 is none of F32_HEAD_DIMS (40, 64, 80 and 160 are): the
+    wrappers raise, forward and backward, and nothing pads it."""
     _needs_gpu()
-    q, k, v = _f32_operands(1, 2, 1024, 1024, 40)
-    with pytest.raises(ValueError, match="head dim 40"):
+    q, k, v = _f32_operands(1, 2, 1024, 1024, 72)
+    with pytest.raises(ValueError, match="head dim 72"):
         pfa.flash_fwd_online(q, k, v)
+    with pytest.raises(ValueError, match="head dim 72"):
+        pfa.flash_attention(*(t.detach().requires_grad_(True) for t in (q, k, v)))
     q, k, v = _f32_operands(1, 2, 1024, 1024, 64)
     q.requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
@@ -445,3 +452,168 @@ def test_f32_forward_raises_on_mixed_dtypes_on_card():
     q, k, v = _f32_operands(1, 2, 1024, 1024, 64)
     with pytest.raises(ValueError, match="float32 only"):
         pfa.flash_fwd_online(q, k.to(torch.bfloat16), v)
+
+
+class _NoTF32:
+    """TF32 off for float32 matmuls and convolutions (the plain versions)."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
+
+
+def _f32_over(got: torch.Tensor, want: torch.Tensor) -> float:
+    """|got - want| in units of 2^-14 |want| + 2^-14 rms(want)."""
+    tol = 2.0**-14 * want.abs() + 2.0**-14 * want.pow(2).mean().sqrt()
+    return float(((got - want).abs() / tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["online", "nomax", "lse"])
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("b,h,lq,lk", [(2, 8, 1024, 1024), (1, 2, 1000, 1100), (1, 3, 1100, 300), (2, 1, 70, 1)])
+def test_f32_forward_modes_match_plain_at_the_unet_head_dims_on_card(mode, d, b, h, lq, lk):
+    """flash_fwd_f32's three modes at SD-v1.5's head dims (D=40 padded to 48
+    in shared memory) on the UNet's [B, L, H*D] views: ragged q and key
+    tiles, Lq != Lk both ways, a one-key row; the lse mode's lse too."""
+    _needs_gpu()
+    q, k, v = _f32_operands(b, h, lq, lk, d, seed=d + lq)
+    with _NoTF32():
+        if mode == "online":
+            got, want = pfa.flash_fwd_online(q, k, v), pfa.flash_fwd_online_plain(q, k, v)
+        elif mode == "nomax":
+            got, want = pfa.flash_fwd_nomax(q, k, v), pfa.flash_attention_nomax_plain(q, k, v)
+        else:
+            (got, lse), (want, lse_want) = pfa.flash_fwd_lse(q, k, v), pfa.flash_fwd_lse_plain(q, k, v)
+            assert lse.shape == (b, h, lq)
+            assert float(((lse - lse_want).abs() / lse_want.abs().clamp_min(1.0)).max()) <= 2.0**-14
+    assert got.dtype == torch.float32 and got.shape == q.shape and _f32_over(got, want) <= 1.0
+
+
+def _f32_backward(q, k, v, g):
+    """The float32 backward through the wrappers, and its plain versions on
+    the kernel forward's o and lse."""
+    o, lse = pfa.flash_fwd_lse(q, k, v)
+    qs = pfa.prescaled_q(q)
+    dq, delta = pfa.flash_bwd_dq(q, k, v, g, o, lse, qs)
+    dk, dv = pfa.flash_bwd_dkv(q, k, v, g, lse, delta, qs)
+    gc = g.contiguous()
+    with _NoTF32():
+        delta_plain = pfa.attention_delta(gc, o)
+        want = (pfa.flash_bwd_dq_plain(q, k, v, gc, lse, delta_plain),
+                *pfa.flash_bwd_dkv_plain(q, k, v, gc, lse, delta_plain))
+    return (dq, dk, dv), want, _delta_over_tolerance(delta, gc, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+@pytest.mark.parametrize("lq,lk", [(1024, 1024), (1000, 1100), (1100, 300), (70, 65)])
+def test_f32_backward_matches_plain_on_card(d, lq, lk):
+    """flash_bwd_dq_f32 (with delta) and flash_bwd_dkv_f32 against their
+    plain versions in float32 on the UNet's [B, L, H*D] views: partial q
+    and key tiles, Lq != Lk both ways, less than one q tile beside one key
+    tile and a key. (With a single key p is 1 and dq and dk are exactly 0:
+    both sides read rounding residues there, which no relative bound
+    holds.)"""
+    _needs_gpu()
+    q, _, _ = _f32_operands(2, 4, lq, lq, d, seed=lq)
+    _, k, v = _f32_operands(2, 4, lk, lk, d, seed=lk + 1)
+    (g,) = _f32_operands(2, 4, lq, lq, d, seed=lq + 2)[:1]
+    before = [f.launches for f in (pfa.flash_bwd_dq, pfa.flash_bwd_dkv, pfa.flash_bwd_dq_f32, pfa.flash_bwd_dkv_f32)]
+    got, want, delta_ratio = _f32_backward(q, k, v, g)
+    after = [f.launches for f in (pfa.flash_bwd_dq, pfa.flash_bwd_dkv, pfa.flash_bwd_dq_f32, pfa.flash_bwd_dkv_f32)]
+    assert [a - b_ for a, b_ in zip(after, before)] == [0, 0, 1, 1]
+    assert delta_ratio <= 1.0
+    assert all(a.dtype == torch.float32 and a.shape == w.shape and _f32_over(a, w) <= 1.0 for a, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_f32_kernels_read_a_fused_qkv_view_on_card(d):
+    """q, k and v as slices of one float32 [B, L, 3*H*D] projection (rows
+    3*H*D apart) and dO as a transposed [B, L, H, D] buffer: the forward
+    modes and the backward read them in place and agree with the plain
+    versions."""
+    _needs_gpu()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(d)
+    b, h, l = 2, 4, 1000
+    qkv = torch.randn(b, l, 3 * h * d, generator=gen, device="cuda")
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d).transpose(1, 2) for i in range(3))
+    g = torch.randn(b, l, h, d, generator=gen, device="cuda").transpose(1, 2)
+    assert not q.is_contiguous() and q.stride(2) == 3 * h * d
+    with _NoTF32():
+        assert _f32_over(pfa.flash_fwd_nomax(q, k, v), pfa.flash_attention_nomax_plain(q, k, v)) <= 1.0
+        assert _f32_over(pfa.flash_fwd_online(q, k, v), pfa.flash_fwd_online_plain(q, k, v)) <= 1.0
+    got, want, delta_ratio = _f32_backward(q, k, v, g)
+    assert delta_ratio <= 1.0 and all(_f32_over(a, w) <= 1.0 for a, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_f32_dispatch_under_grad_on_card():
+    """A gated float32 UNet shape under grad goes through the autograd
+    Function and launches the float32 lse mode, K5 and K6 once each (no bf16
+    kernel); without grad the float32 no-max mode; the gradients agree with
+    autograd through sdpa_plain in float32."""
+    _needs_gpu()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    leaves = [torch.randn(2, 1024, 8 * 80, generator=gen, device="cuda").requires_grad_(True) for _ in range(3)]
+    q, k, v = (t.view(2, 1024, 8, 80).transpose(1, 2) for t in leaves)
+    assert pattn.kernel_route(q.dtype, 80, 1024, 1024, True).wrappers == (
+        "flash_fwd_lse_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+    fns = (pfa.flash_fwd_lse_f32, pfa.flash_bwd_dq_f32, pfa.flash_bwd_dkv_f32, pfa.flash_fwd_nomax_f32,
+           pfa.flash_fwd_lse, pfa.flash_bwd_dq, pfa.flash_bwd_dkv, pfa.flash_fwd_nomax)
+    before = [f.launches for f in fns]
+    w = torch.randn(2, 8, 1024, 80, generator=gen, device="cuda")
+    (pattn.sdpa(q, k, v) * w).sum().backward()
+    got = [t.grad.clone() for t in leaves]
+    with torch.no_grad():
+        pattn.sdpa(q, k, v)
+    assert [a - b_ for a, b_ in zip([f.launches for f in fns], before)] == [1, 1, 1, 1, 0, 0, 0, 0]
+    for t in leaves:
+        t.grad = None
+    with _NoTF32():
+        (pattn.sdpa_plain(q, k, v) * w).sum().backward()
+    for a, t in zip(got, leaves):
+        assert float((a - t.grad).norm() / t.grad.norm()) <= 1e-5
+
+
+def _gn_f32_operands(b, hh, ww, c, layout, scale, mean):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    x = torch.randn(b, c, hh, ww, generator=gen, device="cuda") * scale + mean
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    gamma, beta, bias = (torch.randn(c, generator=gen, device="cuda") for _ in range(3))
+    w = (torch.randn(c, c, generator=gen, device="cuda") / c**0.5).t()
+    return x.permute(0, 2, 3, 1), gamma, beta, w, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hh,ww,c,act,layout", [
+    (2, 64, 64, 320, "none", "nchw"), (2, 63, 65, 320, "none", "nchw"), (2, 63, 65, 320, "silu", "channels_last"),
+    (2, 32, 32, 640, "none", "channels_last"), (2, 16, 16, 1280, "none", "nchw"), (4, 8, 8, 1280, "silu", "nchw"),
+])
+@pytest.mark.parametrize("mean", [0.5, 300.0])
+def test_f32_fused_norm_matches_plain_on_card(b, hh, ww, c, act, layout, mean):
+    """gn_act_proj_f32 on float32 activations in both layouts the UNet hands
+    it, odd pixel counts (N = 4095), the SiLU variant and data whose mean is
+    large against its spread: the statistics held to group_stats_plain
+    (its order; bit-equal expected, held to chip_smoke.py's bounds), the
+    output to gn_act_proj_plain in float32."""
+    _needs_gpu()
+    x, gamma, beta, w, bias = _gn_f32_operands(b, hh, ww, c, layout, 2.0, mean)
+    stats = torch.empty(b, 2, c, device="cuda")
+    before = (pfn.gn_act_proj.launches, pfn.gn_act_proj_f32.launches)
+    got = pfn.gn_act_proj(x, gamma, beta, w, bias, 32, act=act, stats=stats)
+    assert (pfn.gn_act_proj.launches, pfn.gn_act_proj_f32.launches) == (before[0], before[1] + 1)
+    mean_p, rsig_p = pfn.group_stats_plain(x, 32, 1e-6)
+    assert float((stats[:, 0] - mean_p).abs().max()) <= 2.0**-21 * float(x.abs().max())
+    assert float((stats[:, 1] / rsig_p - 1).abs().max()) <= 2.0**-17
+    with _NoTF32():
+        want = pfn.gn_act_proj_plain(x, gamma, beta, w, bias, 32, act=act)
+    assert got.dtype == torch.float32 and got.shape == (b, hh, ww, c) and _f32_over(got, want) <= 1.0
