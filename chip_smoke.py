@@ -402,14 +402,15 @@ def device_split(fn, name_part, launches=1, other=None):
     return (busy, named) if other is None else (busy, named, None)
 
 
-def device_busy(fn, calls=5):
+def device_busy(fn, calls=5, parts=()):
     """A call's device time from a torch.profiler trace of ``calls`` calls
     between two spin kernels: (the sum of its kernels' times, the time in
     which at least one of them runs: the union of their intervals, a
     kernel that starts before the last one ends counted once; the five
-    kernels with the largest sums, names and ms a call). Where TRACE_ATTEMPTS
-    traces lose a spin or hold a kernel count that is no multiple of
-    ``calls``, (None, None, [])."""
+    kernels with the largest sums, names and ms a call; for each string of
+    ``parts``, the ms a call of the kernels whose name holds it). Where
+    TRACE_ATTEMPTS traces lose a spin or hold a kernel count that is no
+    multiple of ``calls``, (None, None, [], {})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -440,8 +441,9 @@ def device_busy(fn, calls=5):
             end = max(end, stop)
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / calls / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        return sum(by_name.values()), union / calls / 1e3, top
-    return None, None, []
+        part_ms = {p: sum(ms for name, ms in by_name.items() if p in name) for p in parts}
+        return sum(by_name.values()), union / calls / 1e3, top, part_ms
+    return None, None, [], {}
 
 
 def queued_device_ms(fn) -> float:
@@ -2310,10 +2312,11 @@ def phase_f32_unet_kernels(smi):
     flash_bwd_dkv_f32 (K6) at the trainer's shapes and a masked tail at
     D160 and Lq != Lk; gn_act_proj_f32 (K7) at the four SpatialTransformer
     entries of a 512px pass at batch 8 in both layouts, its statistics held
-    to group_stats_plain. With CUDA-event and device times, the plain
-    version's, the library's (sdpa's float32 forward or backward;
-    F.group_norm + 1x1 F.conv2d) and the bound. These launches are not the
-    main path's."""
+    to group_stats_plain. The forward modes and K7 are run twice and must
+    repeat bit for bit (no atomics; K7's split sums add in a fixed order).
+    With CUDA-event and device times, the plain version's, the library's
+    (sdpa's float32 forward or backward; F.group_norm + 1x1 F.conv2d) and
+    the bound. These launches are not the main path's."""
     import torch
     import torch.nn.functional as F
 
@@ -2356,6 +2359,8 @@ def phase_f32_unet_kernels(smi):
         for mode, (kernel, plain) in modes.items():
             got = kernel(q, k, v)
             torch.cuda.synchronize()
+            if not torch.equal(got, kernel(q, k, v)):  # no atomics: a call repeats bit for bit
+                failed.append(f"{mode} float32 {name}: a repeated call differs")
             want = plain_chunked(plain, q, k, v)
             err = f32_error(got, want) if bool(torch.isfinite(got).all()) else (math.inf, math.inf)
             del got, want
@@ -2432,6 +2437,8 @@ def phase_f32_unet_kernels(smi):
             stats = torch.empty(b, 2, c, device=dev)
             got = fn.gn_act_proj_f32(xv, gamma, beta, w, bias, 32, stats=stats)
             torch.cuda.synchronize()
+            if not torch.equal(got, fn.gn_act_proj_f32(xv, gamma, beta, w, bias, 32)):  # a split sum adds in order
+                failed.append(f"K7 float32 {name}: a repeated call differs")
             mean, rsig = fn.group_stats_plain(xv, 32, 1e-6)
             mean_err = float((stats[:, 0] - mean).abs().max() / xv.abs().max())
             rsig_err = float((stats[:, 1] / rsig - 1).abs().max())
@@ -2466,7 +2473,8 @@ def phase_f32_sweep(smi):
     artifacts checked; one UNet pass against the same pass through the plain
     attention (relative L2), its event time and device busy share; then one
     pass of the same bundle under DIFFMINING_FUSED_NORM=1 (16 launches of
-    the float32 K7) against the module path."""
+    the float32 K7) against the module path, with its event time, device
+    busy time and the float32 K7's part of it."""
     import dataclasses
 
     import numpy as np
@@ -2544,7 +2552,7 @@ def phase_f32_sweep(smi):
         # float32 the kernels' summed times came to 1.89x the event time of
         # a pass (kernels that overlap their neighbours), so the sum is no
         # busy time; both are printed, with the largest kernels
-        kernel_sum_ms, busy_ms, top = device_busy(unet_pass)
+        kernel_sum_ms, busy_ms, top, _ = device_busy(unet_pass)
         unet_mod.sdpa = sdpa_plain  # the reference: the same float32 pass through the plain attention
         try:
             eps_plain = unet_pass()
@@ -2566,6 +2574,10 @@ def phase_f32_sweep(smi):
             before = (fn.gn_act_proj_f32.launches, fn.gn_act_proj.launches)
             eps_fused = unet_pass()
             k7 = (fn.gn_act_proj_f32.launches - before[0], fn.gn_act_proj.launches - before[1])
+            fused_ms = cuda_time_ms(unet_pass, reps=5, warmup=1)
+            _, fused_busy_ms, _, k7_parts = device_busy(unet_pass,
+                                                        parts=("gn_proj_f32_kernel", "gn_stats_f32_kernel"))
+            k7_pass_ms = sum(k7_parts.values()) if k7_parts else None
         finally:
             sd.unet.config = dataclasses.replace(sd.unet.config, fused_norm=False)
         rel_fused = rel_l2(eps_fused, eps)
@@ -2579,7 +2591,8 @@ def phase_f32_sweep(smi):
         f"({fmt(busy_share, '.3f')} of the pass; kernel times summed {fmt(kernel_sum_ms, '.2f')} ms), of which the "
         "float32 no-max mode " + ("not measured" if k_ms is None else f"{10 * k_ms:.2f} ms (10 launches)")
         + f"; under DIFFMINING_FUSED_NORM=1: {k7[0]} launches of the float32 K7, relative L2 {rel_fused:.4g} from "
-        f"the module path, on {smi}")
+        f"the module path; that pass {fused_ms:.2f} ms, device busy {fmt(fused_busy_ms, '.2f')} ms, of which the "
+        f"float32 K7 {fmt(k7_pass_ms, '.2f')} ms (statistics and projection, 16 launches), on {smi}")
     log("f32 sweep: the pass's largest kernels (ms a pass, summed): "
         + "; ".join(f"{ms:.2f} {name[:70]}" for name, ms in top))
     del sd, typ, eps, eps_plain, eps_fused
@@ -2589,7 +2602,8 @@ def phase_f32_sweep(smi):
                 unet_pass_ms=pass_ms, unet_pass_busy_ms=busy_ms, busy_share=busy_share,
                 unet_pass_kernel_sum_ms=kernel_sum_ms, top_kernels=top,
                 unet_pass_nomax_f32_ms=None if k_ms is None else 10 * k_ms, rel_l2_vs_plain=rel,
-                fused_norm_launches=k7[0], fused_norm_rel_l2=rel_fused, card=smi)
+                fused_norm_launches=k7[0], fused_norm_rel_l2=rel_fused, fused_norm_pass_ms=fused_ms,
+                fused_norm_pass_busy_ms=fused_busy_ms, fused_norm_k7_ms=k7_pass_ms, card=smi)
 
 
 def phase_train_f32(smi):

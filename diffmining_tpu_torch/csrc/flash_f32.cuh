@@ -1,9 +1,12 @@
 // flash_f32.cuh: what the float32 attention kernels share
 // (flash_fwd_f32.cu, flash_bwd_dq_f32.cu, flash_bwd_dkv_f32.cu). Float32
 // throughout: fp32 FMA only, no TF32, no bf16, no tensor-core instruction.
+// The forward takes the constants (TILE, its 64-key tile), exp2_ftz and
+// Strides from here and has register tiles of its own; the tile helpers
+// below are the backward kernels'.
 //
-// Every kernel works on 64-row tiles with 256 threads as a 16 x 16 grid
-// (ty = tid / 16, tx = tid % 16):
+// The backward kernels work on 64-row tiles with 256 threads as a 16 x 16
+// grid (ty = tid / 16, tx = tid % 16):
 //   * a "row product" S = A . B^T of two [64 x D] tiles gives each thread a
 //     4 x 4 block of S: rows 4ty + i of A against rows tx + 16j of B;
 //   * a "tile product" acc += P . M of a [64 x 64] tile P (rows 4ty + i)
@@ -74,26 +77,6 @@ __device__ __forceinline__ void load_tile(float* tile, const float* base, long l
     const int r = f / Dm::V4, c = f % Dm::V4;
     const bool in = r0 + r < n;
     cp_async16(tile + r * Dm::S + 4 * c, in ? base + (r0 + r) * rs + 4 * c : base, in);
-  }
-}
-
-// a tile loaded by plain loads, each element times mul; rows at n and past
-// it are zeros
-template <int D>
-__device__ __forceinline__ void load_tile_scaled(float* tile, const float* base, long long rs, int r0, int n,
-                                                 float mul) {
-  using Dm = Dims<D>;
-  for (int f = threadIdx.x; f < TILE * Dm::V4; f += THREADS) {
-    const int r = f / Dm::V4, c = f % Dm::V4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) {
-      x = *reinterpret_cast<const float4*>(base + (r0 + r) * rs + 4 * c);
-      x.x *= mul;
-      x.y *= mul;
-      x.z *= mul;
-      x.w *= mul;
-    }
-    *reinterpret_cast<float4*>(tile + r * Dm::S + 4 * c) = x;
   }
 }
 
@@ -213,12 +196,6 @@ __device__ __forceinline__ void store_rows(float* base, long long rs, int r0, in
 __device__ __forceinline__ float half_warp_sum(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
 

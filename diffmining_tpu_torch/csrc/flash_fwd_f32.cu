@@ -30,137 +30,410 @@
 // and in the plain versions. The running max is taken per 64-key tile here
 // and per TPU key block there; in float32 that moves only roundings.
 //
-// What bounds it on an H100 SXM: a call is 4 Lq Lk D fp32 operations a
-// head for the two products (the exp2 and the row sums are a few more a
-// logit), against 67 TFLOP/s outside the tensor cores: at B4 H8 L4096 D40
-// 2.1e10 operations, 0.32 ms; q, k, v and o are 21 MB, 0.006 ms at 3.35
-// TB/s. It is bound by its operations at every shape the paths give it.
+// What bounds it on an H100 SXM: a call is 4 B H Lq Lk D fp32 operations
+// for the two products (the exp2 and the row sums are a few more a logit),
+// against 67 TFLOP/s outside the tensor cores: at B4 H8 L4096 D40 8.6e10
+// operations, 1.28 ms; q, k, v and o are 84 MB, 0.025 ms at 3.35 TB/s. It is
+// bound by its operations at every shape the paths give it. An SM issues one
+// warp's FFMA a clock on each of its four schedulers, so the products run
+// near that rate only while shared-memory reads, exp2, shuffles and waits
+// take few of the issue slots.
 //
-// Design (a simple kernel that is right first; flash_f32.cuh has the
-// shared parts): one block of 256 threads a (64-row q tile, head, batch).
-// The pre-scaled q tile stays in shared memory; K and V stream through
-// shared memory in 64-key tiles by cp.async, K's next tile copied during
-// this tile's P.V and V's next during the next tile's q.K^T, so neither
-// holds registers. A thread holds a 4 x 4 block of S and 4 rows x DPT
-// head-dim columns of the output; P goes through shared memory between the
-// two products. The row max is four shuffles; the row sum is carried per
-// thread and reduced once at the end. D = 40 is padded to 48 columns in
-// shared memory only (V's columns 40-47 are zeros, so the padded output
-// columns sum exact zeros and are not stored; flash_f32.cuh). At D = 160
-// the tiles take 143 KB of shared memory: one block an SM.
+// Design. One block of eight warps a (128-row q tile, head, batch); each
+// warp owns 16 q rows from S to O, so nothing but the K/V ring is shared
+// and no instruction waits for the whole block:
+//   * S = qs . K^T: a lane holds a 4 x 8 register tile of S (rows r + 4i of
+//     the warp's 16, keys c + 8t of the 64-key tile; lane = 8r + c). A
+//     16-byte read of q and of k feeds 4 FMA each: 12 reads for 128 FMA.
+//     q is pre-scaled once into shared memory, K comes chunk-major ([D/4]
+//     [64 keys][4]), so a warp's reads cover 64 and 128 contiguous bytes:
+//     no bank conflicts.
+//   * P goes through a per-warp slab ([16][64], its 16-byte groups XOR-ed
+//     with the row, only __syncwarp), and a lane's O tile is the same 4
+//     rows x D/8 columns (32j + 4c .. and, at D = 40 and 80, 32 J + c or
+//     2c ..: no padded column), so P . V reads a row of P 16 bytes at a
+//     time and 16 bytes of each V row: 12 reads for 128 FMA at D = 64, 24
+//     for 320 at D = 160. The row max is three shuffles; the row sum is
+//     carried per lane and reduced once at the end.
+//   * K and V come by TMA (a 5-D map of the strided view for K's
+//     chunk-major tile, a 4-D one for V's row-major tile; rows past Lk read
+//     as zeros) into two rings of 64-key stages with an mbarrier each. The
+//     last of the block's warps done with a stage (K after its S, V after
+//     its P . V; counted in shared memory) has the TMA unit refill it, so a
+//     warp waits for data only; K's next tile lands during P . V, V's during
+//     the next S.
+//   * Shared memory decides the rest: at D = 40 (two stages each, 92 KB)
+//     and D = 64 (one each, 96 KB) two blocks share an SM at 128 registers
+//     a thread; at D = 80 (two each, 152 KB) and D = 160 (one each, 192 KB)
+//     one block an SM, at 168 and 254 registers.
+//   * Ragged grids: the blocks of every head's whole q tiles come first and
+//     the ragged last tiles after them, and a last tile runs only the warps
+//     that hold a row (L = 1025: one warp of eight), so it costs 16 rows of
+//     work, not 128. Where 8 warps a block would leave a second wave of
+//     blocks less than half full (B2 H8 L1100 at D = 80 and 160: 144 blocks
+//     for 132 slots), a block takes 4 warps (64 rows): 288 blocks.
 
 #include "flash_f32.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace f32attn;
+using namespace hopper;
+
+constexpr int BK = TILE;  // keys a K/V tile (F32_BLOCK_K: the online mode's max is per tile)
+
+template <int D>
+struct FwdCfg {
+  static_assert(D % 8 == 0 && D <= 256, "a lane holds D/8 columns; a TMA box row holds at most 256");
+  static constexpr int MAX_WARPS = 8;  // 16 q rows each; a launch takes 8 or 4 (fwd_warps)
+  static constexpr int THREADS = 32 * MAX_WARPS;
+  static constexpr int NSK = D == 40 || D == 80 ? 2 : 1;  // stages of the K ring
+  static constexpr int NSV = NSK;                         // and of the V ring
+  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
+  static constexpr int J = D / 32;          // 16-byte column groups a lane holds in O
+  static constexpr int R = D % 32 / 8;      // and single columns past them (0, 1 or 2)
+  static constexpr int CPL = 4 * J + R;     // columns a lane holds: D / 8
+  static constexpr int KV_FLOATS = BK * D;  // a K stage [D/4][BK][4] or a V stage [BK][D]
+  static constexpr int P_FLOATS = 16 * BK;  // a warp's P slab [16][BK], 16-byte groups swizzled by row
+  // bytes of shared memory at `warps` warps: q [D/4][16 warps][4], the rings, the slabs, the barriers
+  static constexpr int smem(int warps) {
+    return (16 * warps * D + (NSK + NSV) * KV_FLOATS + warps * P_FLOATS) * 4 +
+           (NSK + NSV) * int(sizeof(uint64_t) + sizeof(int));
+  }
+  static_assert(CPL * 8 == D, "no padded column");
+};
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) { return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w; }
+
+// over the 8 lanes of a row group (lane = 8r + c)
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
 
 template <int D, int MODE>
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                         float* __restrict__ o, float* __restrict__ lse, int Lq, int Lk, Strides st, float q_scale) {
-  using Dm = Dims<D>;
-  constexpr int DPT = Dm::DPT;
+__global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
+    flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                         const float* __restrict__ q, float* __restrict__ o, float* __restrict__ lse, int H, int Lq,
+                         int Lk, long long q_sb, long long q_sh, long long q_sl, long long o_sb, long long o_sh,
+                         long long o_sl, float q_scale) {
+  using C = FwdCfg<D>;
   constexpr bool NOMAX = MODE == 1;
+  constexpr int CPL = C::CPL, J = C::J;
+  constexpr uint32_t KV_BYTES = C::KV_FLOATS * 4;
+  const int warps = blockDim.x / 32, BQ = 16 * warps;
 
-  extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);
-  float* sk = sq + Dm::TILE_FLOATS;
-  float* sv = sk + Dm::TILE_FLOATS;
-  float* sp = sv + Dm::TILE_FLOATS;
+  extern __shared__ __align__(128) float smem[];
+  float* sQ = smem;                          // [D/4][BQ][4], pre-scaled
+  float* sK = sQ + BQ * D;                   // [NSK] stages [D/4][BK][4]
+  float* sV = sK + C::NSK * C::KV_FLOATS;    // [NSV] stages [BK][D]
+  float* sP = sV + C::NSV * C::KV_FLOATS;    // [warps] slabs [16][BK]
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(sP + warps * C::P_FLOATS);
+  uint64_t* full_v = full_k + C::NSK;
+  int* done_k = reinterpret_cast<int*>(full_v + C::NSV);  // warps done with each stage
+  int* done_v = done_k + C::NSK;
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int q0 = blockIdx.x * TILE, h = blockIdx.y, b = blockIdx.z;
-  const float* qb = q + b * st.s[0] + h * st.s[1];
-  const float* kb = k + b * st.s[3] + h * st.s[4];
-  const float* vb = v + b * st.s[6] + h * st.s[7];
-  float* ob = o + b * st.s[9] + h * st.s[10];
+  // the block's (q tile, head, batch): every head's whole tiles first, then
+  // the ragged last tiles, so the cheap blocks fill the last wave
+  const int whole = Lq / BQ, bhs = gridDim.x / ((Lq + BQ - 1) / BQ);
+  const int bid = blockIdx.x;
+  const int tile = bid < whole * bhs ? bid % whole : whole;
+  const int bh = bid < whole * bhs ? bid / whole : bid - whole * bhs;
+  const int h = bh % H, b = bh / H;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = lane / 8, cg = lane % 8;  // row group (rows rg + 4i of the warp's 16); key or column group
+  const int q0 = tile * BQ;
+  const int n_tiles = (Lk + BK - 1) / BK;
+  const int active = min(warps, (Lq - q0 + 15) / 16);  // warps that hold a q row
 
-  load_tile<D>(sk, kb, st.s[5], 0, Lk);
-  cp_async_commit();
-  load_tile<D>(sv, vb, st.s[8], 0, Lk);
-  cp_async_commit();
-  load_tile_scaled<D>(sq, qb, st.s[2], q0, Lq, q_scale);  // rows past Lq are zeros and are never stored
-  zero_pad<D>(sv);
+  auto fetch_k = [&](int t) {
+    const int st = t % C::NSK;
+    mbar_expect_tx(&full_k[st], KV_BYTES);
+    tma_load_5d(sK + st * C::KV_FLOATS, &map_k, &full_k[st], 0, t * BK, 0, h, b);
+  };
+  auto fetch_v = [&](int t) {
+    const int st = t % C::NSV;
+    mbar_expect_tx(&full_v[st], KV_BYTES);
+    tma_load_4d(sV + st * C::KV_FLOATS, &map_v, &full_v[st], 0, t * BK, h, b);
+  };
+  // this warp is done reading a stage; the last active warp refills it with tile t
+  auto release = [&](int* done, int st, int t, bool k_ring) {
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(&done[st], 1) == active - 1) {
+        done[st] = 0;
+        __threadfence_block();
+        if (t < n_tiles) {
+          fence_proxy_async();
+          if (k_ring)
+            fetch_k(t);
+          else
+            fetch_v(t);
+        }
+      }
+    }
+  };
 
-  float acc[4][DPT], m[4], l[4];
+  if (tid == 0) {
+    for (int s = 0; s < C::NSK; ++s) {
+      mbar_init(&full_k[s], 1);
+      done_k[s] = 0;
+    }
+    for (int s = 0; s < C::NSV; ++s) {
+      mbar_init(&full_v[s], 1);
+      done_v[s] = 0;
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();  // the barriers are initialised
+  if (warp >= active) return;
+  if (tid == 0) {
+    for (int t = 0; t < C::NSK && t < n_tiles; ++t) fetch_k(t);
+    for (int t = 0; t < C::NSV && t < n_tiles; ++t) fetch_v(t);
+  }
+
+  // this warp's 16 q rows, pre-scaled, chunk-major; rows past Lq are zeros and are never stored
+  {
+    const float* qb = q + b * q_sb + h * q_sh;
+    for (int f = lane; f < 16 * (D / 4); f += 32) {
+      const int row = warp * 16 + f % 16, c4 = f / 16;
+      const int r = q0 + row;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < Lq) {
+        x = *reinterpret_cast<const float4*>(qb + r * q_sl + 4 * c4);
+        x.x *= q_scale;
+        x.y *= q_scale;
+        x.z *= q_scale;
+        x.w *= q_scale;
+      }
+      *reinterpret_cast<float4*>(sQ + (c4 * BQ + row) * 4) = x;
+    }
+    __syncwarp();
+  }
+
+  float acc[4][CPL], m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < CPL; ++c) acc[i][c] = 0.f;
   }
+  const float4* q4 = reinterpret_cast<const float4*>(sQ) + warp * 16 + rg;  // + c4 BQ + 4i
+  // this warp's P slab: row r's 16-byte groups XOR-ed with (r % 4) * 4 floats
+  // (r % 4 = rg), so the row group's 16-byte reads of four rows hit four
+  // bank groups
+  float* pw = sP + warp * C::P_FLOATS;
+  const int swz = rg * 4;
 
-  for (int k0 = 0; k0 < Lk; k0 += TILE) {
-    cp_async_wait<1>();  // this tile's K has landed (its V may be in flight)
-    __syncthreads();
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BK;
+    const int ks = j % C::NSK;
+    mbar_wait(&full_k[ks], (j / C::NSK) & 1);
+    const float4* k4 = reinterpret_cast<const float4*>(sK + ks * C::KV_FLOATS) + cg;  // + c4 BK + 8t
 
-    float s[4][4];
-    row_product<D>(s, sq, sk, ty, tx);
+    float s[4][8];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (k0 + tx + 16 * j >= Lk)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = NEG_INF;
+      for (int t = 0; t < 8; ++t) s[i][t] = 0.f;
+#pragma unroll 2
+    for (int c4 = 0; c4 < D / 4; ++c4) {
+      float4 a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = q4[c4 * BQ + 4 * i];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const float4 kv = k4[c4 * BK + 8 * t];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][t] = fmaf(a[i].x, kv.x, s[i][t]);
+          s[i][t] = fmaf(a[i].y, kv.y, s[i][t]);
+          s[i][t] = fmaf(a[i].z, kv.z, s[i][t]);
+          s[i][t] = fmaf(a[i].w, kv.w, s[i][t]);
+        }
+      }
+    }
+    release(done_k, ks, j + C::NSK, true);
 
-    // p, the running max (online and lse modes) and the per-thread part of l
+    if (k0 + BK > Lk) {
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        if (k0 + cg + 8 * t >= Lk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[i][t] = NEG_INF;
+    }
+    // p, the running max (online and lse modes) and the per-lane part of l
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float shift = 0.f;
       if (!NOMAX) {
-        const float m_new = fmaxf(m[i], half_warp_max(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]))));
+        float mx = s[i][0];
+#pragma unroll
+        for (int t = 1; t < 8; ++t) mx = fmaxf(mx, s[i][t]);
+        const float m_new = fmaxf(m[i], group_max(mx));
         const float alpha = exp2_ftz(m[i] - m_new);
         m[i] = m_new;
         shift = m_new;
         l[i] *= alpha;
 #pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] *= alpha;
+        for (int c = 0; c < CPL; ++c) acc[i][c] *= alpha;
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2_ftz(s[i][j] - shift);
+      for (int t = 0; t < 8; ++t) {
+        const float p = exp2_ftz(s[i][t] - shift);
         l[i] += p;
-        sp[(4 * ty + i) * SP + tx + 16 * j] = p;
+        pw[(rg + 4 * i) * BK + ((cg + 8 * t) ^ swz)] = p;
       }
     }
-    __syncthreads();  // K is free, P is whole
-    if (k0 + TILE < Lk) load_tile<D>(sk, kb, st.s[5], k0 + TILE, Lk);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's V has landed (the next K may be in flight)
-    __syncthreads();
+    __syncwarp();  // the warp's P is whole
 
-    tile_product<D>(acc, sp, sv, ty, tx);
-    __syncthreads();  // V and P are free
-    if (k0 + TILE < Lk) load_tile<D>(sv, vb, st.s[8], k0 + TILE, Lk);
-    cp_async_commit();
+    const int vs = j % C::NSV;
+    mbar_wait(&full_v[vs], (j / C::NSV) & 1);
+    const float* vt = sV + vs * C::KV_FLOATS;
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pr[i] = *reinterpret_cast<const float4*>(pw + (rg + 4 * i) * BK + (kk ^ swz));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* vrow = vt + (kk + e) * D;
+        float vv[CPL];
+#pragma unroll
+        for (int g = 0; g < J; ++g) {
+          const float4 x = *reinterpret_cast<const float4*>(vrow + 32 * g + 4 * cg);
+          vv[4 * g] = x.x;
+          vv[4 * g + 1] = x.y;
+          vv[4 * g + 2] = x.z;
+          vv[4 * g + 3] = x.w;
+        }
+        if constexpr (C::R == 1) {
+          vv[4 * J] = vrow[32 * J + cg];
+        } else if constexpr (C::R == 2) {
+          const float2 x = *reinterpret_cast<const float2*>(vrow + 32 * J + 2 * cg);
+          vv[4 * J] = x.x;
+          vv[4 * J + 1] = x.y;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pe = lane_of(pr[i], e);
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) acc[i][c] = fmaf(pe, vv[c], acc[i][c]);
+        }
+      }
+    }
+    release(done_v, vs, j + C::NSV, false);  // also orders the P reads before the next tile's P writes
   }
-  cp_async_wait<0>();
 
-  // l from the half-warp's parts; o = acc / max(l, 1e-30)
-  float inv[4];
+  // l from the row group's parts; o = acc / max(l, 1e-30)
+  float* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float li = fmaxf(half_warp_sum(l[i]), 1e-30f);
-    inv[i] = 1.f / li;
-    const int r = q0 + 4 * ty + i;
-    if (MODE == 2 && tx == 0 && r < Lq)
-      lse[(static_cast<long long>(b) * gridDim.y + h) * Lq + r] = m[i] * LN2 + logf(li);
+    const float li = fmaxf(group_sum(l[i]), 1e-30f);
+    const float inv = 1.f / li;
+    const int r = q0 + warp * 16 + rg + 4 * i;
+    if (r >= Lq) continue;
+    if (MODE == 2 && cg == 0) lse[(static_cast<long long>(b) * H + h) * Lq + r] = m[i] * LN2 + logf(li);
+    float* row = ob + r * o_sl;
+#pragma unroll
+    for (int g = 0; g < J; ++g)
+      *reinterpret_cast<float4*>(row + 32 * g + 4 * cg) =
+          make_float4(acc[i][4 * g] * inv, acc[i][4 * g + 1] * inv, acc[i][4 * g + 2] * inv, acc[i][4 * g + 3] * inv);
+    if constexpr (C::R == 1) {
+      row[32 * J + cg] = acc[i][4 * J] * inv;
+    } else if constexpr (C::R == 2) {
+      *reinterpret_cast<float2*>(row + 32 * J + 2 * cg) = make_float2(acc[i][4 * J] * inv, acc[i][4 * J + 1] * inv);
+    }
   }
-  store_rows<D>(ob, st.s[11], q0, Lq, acc, inv, ty, tx);
+}
+
+// The TMA maps of a strided [B, H, L, D] float32 view (element strides sb,
+// sh, sl; the head dim contiguous) cut in 64-row tiles; rows past L read as
+// zeros. K's is 5-D, (4 elements, L, D/4 chunks, H, B), so a tile lands
+// chunk-major [D/4][64][4]; V's 4-D, (D, L, H, B), a row-major [64][D].
+cudaError_t encode_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
+  const auto encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(base), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t k_map(CUtensorMap* map, const void* base, int B, int H, int L, int D, long long sb, long long sh,
+                  long long sl) {
+  const cuuint64_t dims[5] = {4, (cuuint64_t)L, (cuuint64_t)(D / 4), (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {(cuuint64_t)sl * 4, 16, (cuuint64_t)sh * 4, (cuuint64_t)sb * 4};
+  const cuuint32_t box[5] = {4, BK, (cuuint32_t)(D / 4), 1, 1};
+  return encode_map(map, base, 5, dims, strides, box);
+}
+
+cudaError_t v_map(CUtensorMap* map, const void* base, int B, int H, int L, int D, long long sb, long long sh,
+                  long long sl) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sl * 4, (cuuint64_t)sh * 4, (cuuint64_t)sb * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)D, BK, 1, 1};
+  return encode_map(map, base, 4, dims, strides, box);
+}
+
+int sm_count() {
+  static int counts[MAX_DEVICES];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return 132;
+  if (!counts[dev] && cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    counts[dev] = 132;
+  return counts[dev];
+}
+
+// Warps a block: 8 (128 q rows), or 4 where 8 would leave the card a
+// second wave of blocks less than half full (B2 H8 L1100: 144 blocks of 8
+// warps for 132 block slots at D = 80 and 160, 288 of 4 in 2.2 waves). A
+// warp's work is its 16 rows whatever the block, and 5 to 7 warps put two
+// warps on some of an SM's four schedulers: at D = 160 a block of 5 ran as
+// long as one of 8 (0.588 ms there against 0.508 with 4, on an H100).
+int fwd_warps(int BH, int Lq, int slots) {
+  const long long blocks = static_cast<long long>(BH) * ((Lq + 127) / 128);
+  return blocks > slots && 2 * blocks <= 3LL * slots ? 4 : 8;
 }
 
 template <int D, int MODE>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Lq, int Lk,
            const Strides& st, float q_scale, cudaStream_t stream) {
-  constexpr size_t smem = (3 * size_t(Dims<D>::TILE_FLOATS) + size_t(TILE) * SP) * sizeof(float);
-  auto kernel = flash_fwd_f32_kernel<D, MODE>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  using C = FwdCfg<D>;
+  const auto kernel = flash_fwd_f32_kernel<D, MODE>;
+  static bool ready[MAX_DEVICES];
+  cudaError_t err = prepare(kernel, C::smem(C::MAX_WARPS), ready);
+  CUtensorMap mk, mv;
+  if (err == cudaSuccess) err = k_map(&mk, k, B, H, Lk, D, st.s[3], st.s[4], st.s[5]);
+  if (err == cudaSuccess) err = v_map(&mv, v, B, H, Lk, D, st.s[6], st.s[7], st.s[8]);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + TILE - 1) / TILE, H, B);
-  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                          static_cast<const float*>(v), static_cast<float*>(o),
-                                          static_cast<float*>(lse), Lq, Lk, st, q_scale);
+  const int warps = fwd_warps(B * H, Lq, C::MIN_BLOCKS * sm_count());
+  const int rows = 16 * warps;
+  const long long blocks = static_cast<long long>(B) * H * ((Lq + rows - 1) / rows);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  kernel<<<unsigned(blocks), 32 * warps, C::smem(warps), stream>>>(
+      mk, mv, static_cast<const float*>(q), static_cast<float*>(o), static_cast<float*>(lse), H, Lq, Lk, st.s[0],
+      st.s[1], st.s[2], st.s[9], st.s[10], st.s[11], q_scale);
   return cudaGetLastError();
 }
 

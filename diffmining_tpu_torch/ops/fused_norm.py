@@ -11,7 +11,9 @@ the inference paths when ``DIFFMINING_FUSED_NORM=1``.
                       for a CPU tensor ``gn_act_proj_plain``;
   gn_act_proj_f32     K7 in float32 (``csrc/gn_act_proj_f32.cu``, fp32 FMA
                       only): the same statistics in the same order, then a
-                      simple tiled normalise + projection; its plain version
+                      normalise + projection on 8 x 8 register tiles fed by
+                      a two-stage ring (small images split the channel sum
+                      over a cluster of blocks); its plain version
                       is ``gn_act_proj_plain`` at float32 (every rounding to
                       w's and x's dtype a no-op);
   gn_kernel           which of the two a CUDA call runs, from the dtypes;
@@ -271,8 +273,8 @@ def gn_act_proj_xla(x, gamma, beta, w, bias, groups: int, eps: float = 1e-6, act
     return torch.matmul(h.reshape(b, hh * ww, c), w) + bias[None, None]
 
 
-F32_K_CHUNK = 32  # input channels a chunk of the float32 projection
-F32_TILE_N = 64  # output channels a block of the float32 projection
+F32_K_CHUNK = 16  # input channels a chunk of the float32 projection (KC in csrc/gn_act_proj_f32.cu)
+F32_TILE_N = 160  # output channels a block of the float32 projection (BN in csrc/gn_act_proj_f32.cu)
 
 
 def gn_kernel(x_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
@@ -345,7 +347,7 @@ def gn_act_proj_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, w:
     ``kernel_strides`` takes) and w [C, Cout]: one call of
     ``csrc/gn_act_proj_f32.cu`` (the statistics kernel, then the normalise
     + projection kernel) -> [B, H, W, Cout] float32. C must be a multiple of
-    32, Cout of 64. ``stats`` as for ``gn_act_proj``;
+    16, Cout of 160. ``stats`` as for ``gn_act_proj``;
     ``gn_act_proj_f32.launches`` counts the calls."""
     if act not in ACTS:
         raise ValueError(f"act={act!r}: expected one of {ACTS}")

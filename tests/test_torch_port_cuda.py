@@ -428,6 +428,8 @@ def test_f32_forward_matches_plain_on_card(mode, b, h, lq, lk):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     tol = 2.0**-14 * want.abs() + 2.0**-14 * want.pow(2).mean().sqrt()
     assert got.dtype == torch.float32 and bool(((got - want).abs() <= tol).all())
+    again = pfa.flash_fwd_online(q, k, v) if mode == "online" else pfa.flash_fwd_nomax(q, k, v)
+    assert torch.equal(got, again)  # no atomics: a call repeats bit for bit
 
 
 @pytest.mark.cuda
@@ -473,12 +475,15 @@ def _f32_over(got: torch.Tensor, want: torch.Tensor) -> float:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["online", "nomax", "lse"])
-@pytest.mark.parametrize("d", [40, 80, 160])
-@pytest.mark.parametrize("b,h,lq,lk", [(2, 8, 1024, 1024), (1, 2, 1000, 1100), (1, 3, 1100, 300), (2, 1, 70, 1)])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+@pytest.mark.parametrize("b,h,lq,lk", [(2, 8, 1024, 1024), (1, 2, 1000, 1100), (1, 3, 1100, 300), (2, 1, 70, 1),
+                                       (2, 3, 127, 65), (1, 2, 129, 1025), (1, 2, 1025, 130)])
 def test_f32_forward_modes_match_plain_at_the_unet_head_dims_on_card(mode, d, b, h, lq, lk):
-    """flash_fwd_f32's three modes at SD-v1.5's head dims (D=40 padded to 48
-    in shared memory) on the UNet's [B, L, H*D] views: ragged q and key
-    tiles, Lq != Lk both ways, a one-key row; the lse mode's lse too."""
+    """flash_fwd_f32's three modes at SD-v1.5's head dims and the CLIP
+    towers' 64 on the UNet's [B, L, H*D] views: ragged q and key tiles, Lq
+    != Lk both ways, a one-key row; q lengths one short of, one past and
+    one row past the 128-row q tile (the last tile runs one warp of eight);
+    the lse mode's lse too. A repeated call is bit-identical."""
     _needs_gpu()
     q, k, v = _f32_operands(b, h, lq, lk, d, seed=d + lq)
     with _NoTF32():
@@ -490,7 +495,11 @@ def test_f32_forward_modes_match_plain_at_the_unet_head_dims_on_card(mode, d, b,
             (got, lse), (want, lse_want) = pfa.flash_fwd_lse(q, k, v), pfa.flash_fwd_lse_plain(q, k, v)
             assert lse.shape == (b, h, lq)
             assert float(((lse - lse_want).abs() / lse_want.abs().clamp_min(1.0)).max()) <= 2.0**-14
+            assert torch.equal(lse, pfa.flash_fwd_lse(q, k, v)[1])
     assert got.dtype == torch.float32 and got.shape == q.shape and _f32_over(got, want) <= 1.0
+    again = {"online": pfa.flash_fwd_online, "nomax": pfa.flash_fwd_nomax,
+             "lse": lambda *a: pfa.flash_fwd_lse(*a)[0]}[mode](q, k, v)
+    assert torch.equal(got, again)
 
 
 def _f32_backward(q, k, v, g):
@@ -597,14 +606,19 @@ def _gn_f32_operands(b, hh, ww, c, layout, scale, mean):
 @pytest.mark.parametrize("b,hh,ww,c,act,layout", [
     (2, 64, 64, 320, "none", "nchw"), (2, 63, 65, 320, "none", "nchw"), (2, 63, 65, 320, "silu", "channels_last"),
     (2, 32, 32, 640, "none", "channels_last"), (2, 16, 16, 1280, "none", "nchw"), (4, 8, 8, 1280, "silu", "nchw"),
+    (8, 8, 8, 1280, "none", "nchw"), (8, 8, 8, 1280, "none", "channels_last"), (8, 16, 16, 1280, "silu", "nchw"),
+    (8, 16, 16, 1280, "none", "channels_last"), (2, 7, 9, 640, "none", "nchw"), (2, 7, 9, 640, "silu", "channels_last"),
 ])
 @pytest.mark.parametrize("mean", [0.5, 300.0])
 def test_f32_fused_norm_matches_plain_on_card(b, hh, ww, c, act, layout, mean):
     """gn_act_proj_f32 on float32 activations in both layouts the UNet hands
-    it, odd pixel counts (N = 4095), the SiLU variant and data whose mean is
-    large against its spread: the statistics held to group_stats_plain
-    (its order; bit-equal expected, held to chip_smoke.py's bounds), the
-    output to gn_act_proj_plain in float32."""
+    it, odd pixel counts (N = 4095, no multiple of the 128-pixel tile; N =
+    63, a 64-pixel tile with element loads in NCHW), the SiLU variant and
+    data whose mean is large against its spread; SD-v1.5's B8 N64 and N256
+    C1280 entries in both layouts (N64 splits the channel sum over a
+    cluster of four blocks): the statistics held to group_stats_plain (its
+    order; bit-equal expected, held to chip_smoke.py's bounds), the output
+    to gn_act_proj_plain in float32. A repeated call is bit-identical."""
     _needs_gpu()
     x, gamma, beta, w, bias = _gn_f32_operands(b, hh, ww, c, layout, 2.0, mean)
     stats = torch.empty(b, 2, c, device="cuda")
@@ -617,3 +631,4 @@ def test_f32_fused_norm_matches_plain_on_card(b, hh, ww, c, act, layout, mean):
     with _NoTF32():
         want = pfn.gn_act_proj_plain(x, gamma, beta, w, bias, 32, act=act)
     assert got.dtype == torch.float32 and got.shape == (b, hh, ww, c) and _f32_over(got, want) <= 1.0
+    assert torch.equal(got, pfn.gn_act_proj(x, gamma, beta, w, bias, 32, act=act))
