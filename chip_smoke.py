@@ -2312,8 +2312,9 @@ def phase_f32_unet_kernels(smi):
     flash_bwd_dkv_f32 (K6) at the trainer's shapes and a masked tail at
     D160 and Lq != Lk; gn_act_proj_f32 (K7) at the four SpatialTransformer
     entries of a 512px pass at batch 8 in both layouts, its statistics held
-    to group_stats_plain. The forward modes and K7 are run twice and must
-    repeat bit for bit (no atomics; K7's split sums add in a fixed order).
+    to group_stats_plain. The forward modes, K5, K6 and K7 are run twice and
+    must repeat bit for bit (no atomics; K7's split sums add in a fixed
+    order).
     With CUDA-event and device times, the plain version's, the library's
     (sdpa's float32 forward or backward; F.group_norm + 1x1 F.conv2d) and
     the bound. These launches are not the main path's."""
@@ -2383,6 +2384,12 @@ def phase_f32_unet_kernels(smi):
         delta = fa.attention_delta(do, o)
         dk, dv = fa.flash_bwd_dkv_f32(q, k, v, do, lse, delta, qs)
         torch.cuda.synchronize()
+        # no atomics: a second call gives the same dq, delta, dk and dv bit for bit
+        again = (*fa.flash_bwd_dq_f32(q, k, v, do, o, lse, qs), *fa.flash_bwd_dkv_f32(q, k, v, do, lse, delta, qs))
+        for label, a, b_ in zip(("dq", "delta", "dk", "dv"), (dq, delta_k, dk, dv), again):
+            if not torch.equal(a, b_):
+                failed.append(f"{'K5' if label in ('dq', 'delta') else 'K6'} float32 {name}: a repeated call's {label} differs")
+        del again
         delta_err = float(((delta_k - delta).abs() / (do * o).abs().sum(-1)).max())
         if not delta_err <= DELTA_RTOL:
             failed.append(f"K5 float32 {name}: delta differs from attention_delta by {delta_err:.3g} of sum|dO o|")
@@ -2613,7 +2620,9 @@ def phase_train_f32(smi):
     backward at the seed's weights with the float32 kernels against the same
     through the plain attention (level-0 to_q/to_k/to_v gradients); 3 steps
     through train_step, each launching the float32 lse mode, K5 and K6 10
-    times and no bf16 kernel; warm step ms and peak memory."""
+    times and no bf16 kernel; warm step ms and peak memory; then a warm
+    step's device busy time from a trace of two more steps and the part of
+    it in the lse mode, K5 and K6 (their launches are not counted)."""
     import torch
 
     from diffmining_tpu_torch.models import unet as unet_mod
@@ -2684,12 +2693,24 @@ def phase_train_f32(smi):
     log(f"train f32: {n_steps} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; launches {launches}; step times "
         f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, warm median {warm_ms:.1f} ms = "
         f"{batch / warm_ms * 1e3:.2f} images/s; peak allocated {peak_gib:.2f} GiB on {smi}")
+
+    # a warm step's device busy time and the float32 attention kernels' part of it
+    def step():
+        tr.state, _ = tr.train_step(tr.state, *batches[0], args.seed)
+
+    parts = {"lse mode": "flash_fwd_f32_kernel", "K5": "flash_bwd_dq_f32_kernel", "K6": "flash_bwd_dkv_f32_kernel"}
+    kernel_sum_ms, busy_ms, _, part_ms = device_busy(step, calls=2, parts=tuple(parts.values()))
+    split = {kind: part_ms.get(name) for kind, name in parts.items()}
+    log(f"train f32: a warm step's device busy time {fmt(busy_ms, '.2f')} ms (kernel times summed "
+        f"{fmt(kernel_sum_ms, '.2f')}), of which " + ", ".join(f"{kind} {fmt(ms, '.2f')}" for kind, ms in split.items())
+        + f" ms (10 launches each) on {smi}")
     del tr, batches
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return dict(steps=n_steps, batch=batch, px=px, losses=losses, step_ms=[x * 1e3 for x in step_s],
                 warm_step_ms=warm_ms, images_per_s=batch / warm_ms * 1e3, peak_gib=peak_gib, launches=launches,
-                grad_rel_l2=rel, card=smi)
+                grad_rel_l2=rel, step_busy_ms=busy_ms, step_kernel_sum_ms=kernel_sum_ms, step_attention_ms=split,
+                card=smi)
 
 
 def phase_clip(smi, mining_work, dift_sd):

@@ -134,22 +134,4 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2], __nv_bfloa
   }
 }
 
-// The 1-D map of n contiguous fp32 values, cut in boxes of `rows`: the
-// per-q-row lse or delta of all heads end to end (a 2-D map would need the
-// row length to be a multiple of 4). A box must start on a 16-byte
-// boundary, a multiple of 4 rows: the caller rounds the start down and
-// reads past the rows it rounded over.
-inline cudaError_t flat_map(CUtensorMap* map, const float* base, long long n, int rows) {
-  const auto encode = tensor_map_encoder();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[1] = {(cuuint64_t)n};
-  const cuuint64_t strides[1] = {4};  // not read for one dimension
-  const cuuint32_t box[1] = {(cuuint32_t)rows};
-  const cuuint32_t elem[1] = {1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 }  // namespace

@@ -74,7 +74,6 @@
 //     for 132 slots), a block takes 4 warps (64 rows): 288 blocks.
 
 #include "flash_f32.cuh"
-#include "hopper.cuh"
 
 namespace {
 
@@ -85,15 +84,14 @@ constexpr int BK = TILE;  // keys a K/V tile (F32_BLOCK_K: the online mode's max
 
 template <int D>
 struct FwdCfg {
-  static_assert(D % 8 == 0 && D <= 256, "a lane holds D/8 columns; a TMA box row holds at most 256");
-  static constexpr int MAX_WARPS = 8;  // 16 q rows each; a launch takes 8 or 4 (fwd_warps)
+  static constexpr int MAX_WARPS = 8;  // 16 q rows each; a launch takes 8 or 4
   static constexpr int THREADS = 32 * MAX_WARPS;
   static constexpr int NSK = D == 40 || D == 80 ? 2 : 1;  // stages of the K ring
   static constexpr int NSV = NSK;                         // and of the V ring
   static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
-  static constexpr int J = D / 32;          // 16-byte column groups a lane holds in O
-  static constexpr int R = D % 32 / 8;      // and single columns past them (0, 1 or 2)
-  static constexpr int CPL = 4 * J + R;     // columns a lane holds: D / 8
+  static constexpr int J = Cols<D>::J;      // 16-byte column groups a lane holds in O
+  static constexpr int R = Cols<D>::R;      // and single columns past them (0, 1 or 2)
+  static constexpr int CPL = Cols<D>::N;    // columns a lane holds: D / 8
   static constexpr int KV_FLOATS = BK * D;  // a K stage [D/4][BK][4] or a V stage [BK][D]
   static constexpr int P_FLOATS = 16 * BK;  // a warp's P slab [16][BK], 16-byte groups swizzled by row
   // bytes of shared memory at `warps` warps: q [D/4][16 warps][4], the rings, the slabs, the barriers
@@ -101,19 +99,7 @@ struct FwdCfg {
     return (16 * warps * D + (NSK + NSV) * KV_FLOATS + warps * P_FLOATS) * 4 +
            (NSK + NSV) * int(sizeof(uint64_t) + sizeof(int));
   }
-  static_assert(CPL * 8 == D, "no padded column");
 };
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0, int c1, int c2,
-                                            int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
-      "[%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int e) { return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w; }
 
 // over the 8 lanes of a row group (lane = 8r + c)
 __device__ __forceinline__ float group_max(float x) {
@@ -365,57 +351,6 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
   }
 }
 
-// The TMA maps of a strided [B, H, L, D] float32 view (element strides sb,
-// sh, sl; the head dim contiguous) cut in 64-row tiles; rows past L read as
-// zeros. K's is 5-D, (4 elements, L, D/4 chunks, H, B), so a tile lands
-// chunk-major [D/4][64][4]; V's 4-D, (D, L, H, B), a row-major [64][D].
-cudaError_t encode_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                       const cuuint64_t* strides, const cuuint32_t* box) {
-  const auto encode = tensor_map_encoder();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(base), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-cudaError_t k_map(CUtensorMap* map, const void* base, int B, int H, int L, int D, long long sb, long long sh,
-                  long long sl) {
-  const cuuint64_t dims[5] = {4, (cuuint64_t)L, (cuuint64_t)(D / 4), (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[4] = {(cuuint64_t)sl * 4, 16, (cuuint64_t)sh * 4, (cuuint64_t)sb * 4};
-  const cuuint32_t box[5] = {4, BK, (cuuint32_t)(D / 4), 1, 1};
-  return encode_map(map, base, 5, dims, strides, box);
-}
-
-cudaError_t v_map(CUtensorMap* map, const void* base, int B, int H, int L, int D, long long sb, long long sh,
-                  long long sl) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sl * 4, (cuuint64_t)sh * 4, (cuuint64_t)sb * 4};
-  const cuuint32_t box[4] = {(cuuint32_t)D, BK, 1, 1};
-  return encode_map(map, base, 4, dims, strides, box);
-}
-
-int sm_count() {
-  static int counts[MAX_DEVICES];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return 132;
-  if (!counts[dev] && cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    counts[dev] = 132;
-  return counts[dev];
-}
-
-// Warps a block: 8 (128 q rows), or 4 where 8 would leave the card a
-// second wave of blocks less than half full (B2 H8 L1100: 144 blocks of 8
-// warps for 132 block slots at D = 80 and 160, 288 of 4 in 2.2 waves). A
-// warp's work is its 16 rows whatever the block, and 5 to 7 warps put two
-// warps on some of an SM's four schedulers: at D = 160 a block of 5 ran as
-// long as one of 8 (0.588 ms there against 0.508 with 4, on an H100).
-int fwd_warps(int BH, int Lq, int slots) {
-  const long long blocks = static_cast<long long>(BH) * ((Lq + 127) / 128);
-  return blocks > slots && 2 * blocks <= 3LL * slots ? 4 : 8;
-}
-
 template <int D, int MODE>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Lq, int Lk,
            const Strides& st, float q_scale, cudaStream_t stream) {
@@ -424,10 +359,17 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   static bool ready[MAX_DEVICES];
   cudaError_t err = prepare(kernel, C::smem(C::MAX_WARPS), ready);
   CUtensorMap mk, mv;
-  if (err == cudaSuccess) err = k_map(&mk, k, B, H, Lk, D, st.s[3], st.s[4], st.s[5]);
-  if (err == cudaSuccess) err = v_map(&mv, v, B, H, Lk, D, st.s[6], st.s[7], st.s[8]);
+  if (err == cudaSuccess) err = chunk_map(&mk, k, B, H, Lk, D, st.s[3], st.s[4], st.s[5], BK);
+  if (err == cudaSuccess) err = row_map(&mv, v, B, H, Lk, D, st.s[6], st.s[7], st.s[8], BK);
   if (err != cudaSuccess) return err;
-  const int warps = fwd_warps(B * H, Lq, C::MIN_BLOCKS * sm_count());
+  // 8 warps (128 q rows), or 4 where 8 would leave the card a second wave
+  // of blocks less than half full (B2 H8 L1100: 144 blocks of 8 warps for
+  // 132 block slots at D = 80 and 160, 288 of 4 in 2.2 waves). 5 to 7 warps
+  // put two warps on some of an SM's four schedulers: at D = 160 a block of
+  // 5 ran as long as one of 8 (0.588 ms there against 0.508 with 4, on an
+  // H100).
+  const int warps =
+      wave_warps(static_cast<long long>(B) * H * ((Lq + 127) / 128), C::MIN_BLOCKS * sm_count(), C::MAX_WARPS);
   const int rows = 16 * warps;
   const long long blocks = static_cast<long long>(B) * H * ((Lq + rows - 1) / rows);
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;

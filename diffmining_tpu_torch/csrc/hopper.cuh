@@ -2,8 +2,8 @@
 // matrix descriptors, wgmma issue and synchronisation, mbarriers and TMA
 // tile copies, and the async-proxy fence that makes generic shared-memory
 // writes visible to wgmma; on the host, the tensor-map encoder, the tile
-// map of a strided [B, H, L, D] view, and `prepare`, which sets a kernel's
-// attributes once per card.
+// map of a strided [B, H, L, D] view, the 1-D map of per-row values, and
+// `prepare`, which sets a kernel's attributes once per card.
 //
 // Every operand tile of the flash kernels uses wgmma's no-swizzle
 // ("interleave") canonical layout, built from core matrices of 8 rows x 16 bytes (8 bf16) stored as
@@ -129,7 +129,16 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const void* map, uint64_t
       : "memory");
 }
 
-// 3-D and 2-D tile copies, as tma_load_5d.
+// 4-D, 3-D and 2-D tile copies, as tma_load_5d.
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t* bar, int c0, int c1, int c2) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
@@ -379,6 +388,24 @@ cudaError_t bhld_map(CUtensorMap* map, const void* base, int B, int H, int L, lo
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box,
                             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The 1-D map of n contiguous fp32 values, cut in boxes of `rows`: the
+// per-q-row lse or delta of all heads end to end (a 2-D map would need the
+// row length to be a multiple of 4). A box must start on a 16-byte
+// boundary, a multiple of 4 rows: the caller rounds the start down and
+// reads past the rows it rounded over.
+inline cudaError_t flat_map(CUtensorMap* map, const float* base, long long n, int rows) {
+  const auto encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {4};  // not read for one dimension
+  const cuuint32_t box[1] = {(cuuint32_t)rows};
+  const cuuint32_t elem[1] = {1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

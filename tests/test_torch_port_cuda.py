@@ -502,13 +502,23 @@ def test_f32_forward_modes_match_plain_at_the_unet_head_dims_on_card(mode, d, b,
     assert torch.equal(got, again)
 
 
-def _f32_backward(q, k, v, g):
-    """The float32 backward through the wrappers, and its plain versions on
-    the kernel forward's o and lse."""
-    o, lse = pfa.flash_fwd_lse(q, k, v)
+def _f32_backward_kernels(q, k, v, g, o, lse):
+    """(dq, delta, dk, dv) of the float32 backward through the wrappers."""
     qs = pfa.prescaled_q(q)
     dq, delta = pfa.flash_bwd_dq(q, k, v, g, o, lse, qs)
     dk, dv = pfa.flash_bwd_dkv(q, k, v, g, lse, delta, qs)
+    return dq, delta, dk, dv
+
+
+def _f32_backward(q, k, v, g, repeat=False):
+    """The float32 backward through the wrappers, and its plain versions on
+    the kernel forward's o and lse. With ``repeat`` the kernels run a second
+    time and must give the same dq, delta, dk and dv bit for bit (no
+    atomics: the sums over keys and q rows are taken in a fixed order)."""
+    o, lse = pfa.flash_fwd_lse(q, k, v)
+    dq, delta, dk, dv = first = _f32_backward_kernels(q, k, v, g, o, lse)
+    if repeat:
+        assert all(torch.equal(a, b) for a, b in zip(first, _f32_backward_kernels(q, k, v, g, o, lse)))
     gc = g.contiguous()
     with _NoTF32():
         delta_plain = pfa.attention_delta(gc, o)
@@ -519,22 +529,23 @@ def _f32_backward(q, k, v, g):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [40, 64, 80, 160])
-@pytest.mark.parametrize("lq,lk", [(1024, 1024), (1000, 1100), (1100, 300), (70, 65)])
+@pytest.mark.parametrize("lq,lk", [(1024, 1024), (1000, 1100), (1100, 300), (70, 65), (1025, 1025)])
 def test_f32_backward_matches_plain_on_card(d, lq, lk):
     """flash_bwd_dq_f32 (with delta) and flash_bwd_dkv_f32 against their
     plain versions in float32 on the UNet's [B, L, H*D] views: partial q
     and key tiles, Lq != Lk both ways, less than one q tile beside one key
-    tile and a key. (With a single key p is 1 and dq and dk are exactly 0:
-    both sides read rounding residues there, which no relative bound
-    holds.)"""
+    tile and a key, and a grid whose ragged last tiles (one q row, one key)
+    come after the whole ones; a second call repeats the first bit for bit.
+    (With a single key p is 1 and dq and dk are exactly 0: both sides read
+    rounding residues there, which no relative bound holds.)"""
     _needs_gpu()
     q, _, _ = _f32_operands(2, 4, lq, lq, d, seed=lq)
     _, k, v = _f32_operands(2, 4, lk, lk, d, seed=lk + 1)
     (g,) = _f32_operands(2, 4, lq, lq, d, seed=lq + 2)[:1]
     before = [f.launches for f in (pfa.flash_bwd_dq, pfa.flash_bwd_dkv, pfa.flash_bwd_dq_f32, pfa.flash_bwd_dkv_f32)]
-    got, want, delta_ratio = _f32_backward(q, k, v, g)
+    got, want, delta_ratio = _f32_backward(q, k, v, g, repeat=True)
     after = [f.launches for f in (pfa.flash_bwd_dq, pfa.flash_bwd_dkv, pfa.flash_bwd_dq_f32, pfa.flash_bwd_dkv_f32)]
-    assert [a - b_ for a, b_ in zip(after, before)] == [0, 0, 1, 1]
+    assert [a - b_ for a, b_ in zip(after, before)] == [0, 0, 2, 2]
     assert delta_ratio <= 1.0
     assert all(a.dtype == torch.float32 and a.shape == w.shape and _f32_over(a, w) <= 1.0 for a, w in zip(got, want))
 

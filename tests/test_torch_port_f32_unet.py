@@ -125,6 +125,36 @@ def test_f32_kernels_are_built_from_their_sources():
         assert isinstance(fn.launches, int)
 
 
+def _code(path):
+    """A CUDA source without its comments."""
+    return re.sub(r"//[^\n]*", "", re.sub(r"/\*.*?\*/", "", path.read_text(), flags=re.S))
+
+
+# a C parameter's type as the ctypes argtype that passes it
+_C_TYPES = {"void*": pfa._P, "long long*": pfa._P, "int": pfa._I, "float": pfa._F, "long long": pfa._LL}
+_ATOMIC_OR_MMA = re.compile(r"\batomic\w*|\batom\.|\bred\.|\bw?gmma\b|\bmma\b|\bmma\.")
+
+
+@pytest.mark.parametrize("name", ["flash_bwd_dq_f32", "flash_bwd_dkv_f32"])
+def test_f32_backward_sources_keep_the_design_rules(name):
+    """The float32 backward kernels' code holds no atomic operation (no dq,
+    dk, dv or delta is summed through one, so a call repeats bit for bit)
+    and no tensor-core instruction (fp32 FMA only); their one atomic is the
+    shared header's count of the warps done with a ring stage
+    (``release_stage``), which only picks the warp that issues a copy. Their
+    C entry points take what ``ARGTYPES`` passes. (The
+    header's tile, the plain versions' ``F32_BLOCK_K``, is pinned by
+    ``test_f32_kernels_are_built_from_their_sources``.)"""
+    code = _code(pfa.CSRC / f"{name}.cu")
+    assert not _ATOMIC_OR_MMA.search(code)
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', code).group(1).split(",")
+    types = [re.sub(r"\s*\*\s*", "*", re.sub(r"\s*\w+$", "", re.sub(r"\bconst\b", "", p).strip())).strip()
+             for p in params]
+    assert [_C_TYPES[t] for t in types] == pfa.ARGTYPES[name]
+    header = _code(pfa.CSRC / "flash_f32.cuh")
+    assert _ATOMIC_OR_MMA.findall(header) == ["atomicAdd"] and "atomicAdd(done, 1)" in header
+
+
 # Lq 200: three full 64-row q tiles and a tail of 8; Lk 300: four full
 # 64-key tiles and a tail of 44 keys
 LQ, LK = 200, 300
