@@ -6,7 +6,8 @@
 Phases (any failure raises and the script exits non-zero; nothing falls
 back to the CPU):
   1. environment: versions, the card's name and power limit; TF32 off for
-     the float32 references;
+     the float32 references (phases 14, 17 and 19 set PyTorch's defaults
+     again before the port's float32 set-up, which must turn both off);
   2. build: compile every kernel source in this checkout, one nvcc each, all
      started together; ptxas registers and spills of each instantiation;
      the HGMMA (wgmma) instructions in the SASS of every library;
@@ -152,12 +153,29 @@ back to the CPU):
      level-0 to_q/to_k/to_v gradients with the float32 kernels against the
      plain attention (relative L2 <= 1e-4); 3 steps, 10 launches each of the
      float32 lse mode, K5 and K6 a step and none of a bf16 kernel; warm step
-     ms and peak memory.
+     ms and peak memory;
+ 17, 19 also: the float32 UNet pass at batch 8 (event and device busy
+     time) and the float32 train step with cuDNN's TF32 on (PyTorch's
+     default, where the float32 CLIs left it before the port turned it off)
+     and off, in turns, one call unmeasured after each switch; how far TF32
+     moves the sweep's artifacts;
+ 20. sweep dp (run after phase 16, on phase 12's SD-v1.5-width export):
+     the typicality CLI in bf16 over 2 labels x 4 synthetic 512x512 PNGs at
+     N=4 as a process, plain and as an NCCL group of one: artifacts
+     bit-equal (or at most one fp16 ulp, the difference printed), K1
+     launches; xray --mesh_dp 1 under torchrun, an NCCL group of one, over
+     2 synthetic 1024px images: maps gathered over NCCL and written by rank
+     0, K2 and K1 launches; two ranks of a gloo group on the card (dp 2,
+     --dtype fp32, the library) against the plain CLI: every artifact
+     written by one rank, within one fp16 ulp of one process at a rank's
+     batch and within rtol 2e-3, atol 1e-4 of one at batch 4, the TF32
+     flags after each process's set-up, the float32 no-max launches on each
+     rank.
 Then one JSON line each for the slice, the float32 sweep, the training run,
 the float32 training run, the mining runs,
-X-ray, sampling, PnP, train_lora_8bit, parallel, clip, doersch and
-verify_checkpoint, one of per-kernel numbers, and as the last line
-{"ok": true, "device": {...}}.
+X-ray, sampling, PnP, train_lora_8bit, parallel, clip, doersch,
+verify_checkpoint and the sweep over dp, one of per-kernel numbers, and as
+the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -576,8 +594,21 @@ def assert_no_tf32():
         raise AssertionError("TF32 must be off for float32 matmuls and convolutions (the float32 references)")
 
 
+def pytorch_default_tf32():
+    """PyTorch's own defaults (matmul TF32 off, cuDNN TF32 on): what a fresh
+    process of the port's CLIs starts from, so a phase that sets them before
+    it builds the port's float32 bundle, trainer or ranker reads in
+    assert_no_tf32 what the port's own set-up did."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+
+
 def phase_environment():
     import torch
+
+    from diffmining_tpu_torch.utils.device import exact_float32
 
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
     smi = subprocess.run(
@@ -593,9 +624,9 @@ def phase_environment():
     ).stdout.strip().splitlines()[0])
     log(f"{SM_COUNT} SMs, maximum SM clock {SM_MAX_MHZ:.0f} MHz: exp2 at "
         f"{EXP2_PER_CLOCK_PER_SM * SM_COUNT * SM_MAX_MHZ * 1e6:.4g} a second on the special-function units")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("TF32 off for float32 matmuls and convolutions (the float32 references)")
+    exact_float32()
+    log("TF32 off for float32 matmuls and convolutions (the float32 references); phases 14, 17 and 19 restore "
+        "PyTorch's defaults before the port's float32 set-up, which turns both off itself")
     return smi
 
 
@@ -2259,7 +2290,9 @@ def phase_f32_kernels():
     import torch.nn.functional as F
 
     from diffmining_tpu_torch.ops import flash_attention as fa
+    from diffmining_tpu_torch.utils.device import exact_float32
 
+    exact_float32()  # the plain versions and sdpa's float32 forward in full float32, whatever ran before
     assert_no_tf32()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -2323,7 +2356,9 @@ def phase_f32_unet_kernels(smi):
 
     from diffmining_tpu_torch.ops import flash_attention as fa
     from diffmining_tpu_torch.ops import fused_norm as fn
+    from diffmining_tpu_torch.utils.device import exact_float32
 
+    exact_float32()  # the plain versions and the library's float32 calls in full float32, whatever ran before
     assert_no_tf32()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -2495,9 +2530,9 @@ def phase_f32_sweep(smi):
     from diffmining_tpu_torch.ops import fused_norm as fn
     from diffmining_tpu_torch.ops.attention import kernel_route, sdpa, sdpa_plain
     from diffmining_tpu_torch.typicality.compute import SD, Typicality
+    from diffmining_tpu_torch.utils.device import exact_float32
     from diffmining_tpu_torch.utils.images import array_from_uint8
 
-    assert_no_tf32()
     labels, per_label, px, N, batch_images = ["1920", "1960"], 4, 512, 4, 4
     work = os.path.join(ROOT, "build", "chip_smoke_f32")
     shutil.rmtree(work, ignore_errors=True)
@@ -2511,11 +2546,13 @@ def phase_f32_sweep(smi):
             open(path, "wb").close()  # a name for the work queue; never decoded
             arrays[path] = array_from_uint8(rng.randint(0, 256, (px, px, 3), dtype=np.uint8))
     t0 = time.perf_counter()
+    pytorch_default_tf32()
     sd = SD.init_random("ftt", labels, SD15_UNET, SD15_VAE, CLIP_VIT_L_TEXT, seed=SEED, dtype=torch.float32,
                         device="cuda")
+    assert_no_tf32()  # the float32 bundle's own set-up turned both off
     torch.cuda.synchronize()
     log(f"f32 sweep: SD-v1.5 widths, random weights (seed {SEED}), float32 (--dtype fp32), built in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; from PyTorch's TF32 defaults, the bundle turned both flags off")
     typ = Typicality("ftt", None, data, out, t_min=0.1, t_max=0.9, sd=sd, N=N, batch_images=batch_images, chunk=1,
                      dtype=torch.float32, device="cuda")
     typ.make_submission(data, subs, sub_split=1)
@@ -2543,6 +2580,24 @@ def phase_f32_sweep(smi):
     imgs_hr = len(arrays) / dt * 3600.0
     log(f"f32 sweep: {len(arrays)} artifacts [{N}, 2, 4, {px // 8}, {px // 8}] fp16, all finite; launches {launches} "
         f"(10 a UNet pass x {n_passes} passes); {imgs_hr:.1f} imgs/hr at N={N} ({dt:.2f} s, first run) on {smi}")
+    # the same sweep with cuDNN's TF32 on (PyTorch's default, where the
+    # float32 CLIs left it before the port turned it off): how far it moves
+    # the artifacts
+    tree_on = os.path.join(work, "tf32_on")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        Typicality("ftt", None, data, tree_on, t_min=0.1, t_max=0.9, sd=sd, N=N, batch_images=batch_images, chunk=1,
+                   dtype=torch.float32, device="cuda").compute_submission(os.path.join(subs, "0.txt"),
+                                                                          load=arrays.__getitem__)
+        torch.cuda.synchronize()
+    finally:
+        exact_float32()
+    pairs = [(np.load(os.path.join(tree_on, c, f"img{i}.npy")), np.load(os.path.join(out, c, f"img{i}.npy")))
+             for c in labels for i in range(per_label)]
+    tf32 = dict(max_abs=max(float(np.abs(a.astype(np.float32) - b.astype(np.float32)).max()) for a, b in pairs),
+                max_ulps=max(fp16_ulps(a, b) for a, b in pairs), bit_equal=sum(bool(np.array_equal(a, b)) for a, b in pairs))
+    log(f"f32 sweep: cuDNN TF32 on moved the artifacts by up to {tf32['max_abs']:.4g} ({tf32['max_ulps']:.1f} fp16 "
+        f"ulps), {tf32['bit_equal']}/{len(arrays)} bit-equal")
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 27)
@@ -2560,6 +2615,17 @@ def phase_f32_sweep(smi):
         # a pass (kernels that overlap their neighbours), so the sum is no
         # busy time; both are printed, with the largest kernels
         kernel_sum_ms, busy_ms, top, _ = device_busy(unet_pass)
+        # the pass with cuDNN's TF32 on (PyTorch's default, where the float32
+        # CLIs left it) and off (the port's set-up now), in turns off, on, on,
+        # off; after each switch one pass unmeasured (cuDNN picks its
+        # algorithms anew), then the event time and the device busy time
+        tf32_pass = {tag: {"ms": [], "busy_ms": []} for tag in ("off", "on")}
+        for tag in ("off", "on", "on", "off"):
+            torch.backends.cudnn.allow_tf32 = tag == "on"
+            unet_pass()
+            tf32_pass[tag]["ms"].append(cuda_time_ms(unet_pass, reps=5, warmup=1))
+            tf32_pass[tag]["busy_ms"].append(device_busy(unet_pass)[1])
+        exact_float32()
         unet_mod.sdpa = sdpa_plain  # the reference: the same float32 pass through the plain attention
         try:
             eps_plain = unet_pass()
@@ -2600,17 +2666,31 @@ def phase_f32_sweep(smi):
         + f"; under DIFFMINING_FUSED_NORM=1: {k7[0]} launches of the float32 K7, relative L2 {rel_fused:.4g} from "
         f"the module path; that pass {fused_ms:.2f} ms, device busy {fmt(fused_busy_ms, '.2f')} ms, of which the "
         f"float32 K7 {fmt(k7_pass_ms, '.2f')} ms (statistics and projection, 16 launches), on {smi}")
+    log(f"f32 sweep: the UNet pass (B={batch_images}x2, 512px) with cuDNN TF32 in turns off, on, on, off: on "
+        + ", ".join(f"{ms:.2f} ms (busy {fmt(b, '.2f')})" for ms, b in zip(*tf32_pass["on"].values())) + "; off "
+        + ", ".join(f"{ms:.2f} ms (busy {fmt(b, '.2f')})" for ms, b in zip(*tf32_pass["off"].values()))
+        + f", on {smi}")
     log("f32 sweep: the pass's largest kernels (ms a pass, summed): "
         + "; ".join(f"{ms:.2f} {name[:70]}" for name, ms in top))
     del sd, typ, eps, eps_plain, eps_fused
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     return dict(images=len(arrays), N=N, batch_images=batch_images, imgs_per_hr_n4=imgs_hr, launches=launches,
+                unet_pass_tf32=tf32_pass, tf32_artifacts=tf32,
                 unet_pass_ms=pass_ms, unet_pass_busy_ms=busy_ms, busy_share=busy_share,
                 unet_pass_kernel_sum_ms=kernel_sum_ms, top_kernels=top,
                 unet_pass_nomax_f32_ms=None if k_ms is None else 10 * k_ms, rel_l2_vs_plain=rel,
                 fused_norm_launches=k7[0], fused_norm_rel_l2=rel_fused, fused_norm_pass_ms=fused_ms,
                 fused_norm_pass_busy_ms=fused_busy_ms, fused_norm_k7_ms=k7_pass_ms, card=smi)
+
+
+def fp16_ulps(got, want) -> float:
+    """Largest |got - want| of two fp16 arrays in fp16 ulps of the larger
+    magnitude of each pair."""
+    import numpy as np
+
+    ulp = np.spacing(np.maximum(np.abs(got), np.abs(want))).astype(np.float32)
+    return float((np.abs(got.astype(np.float32) - want.astype(np.float32)) / ulp).max())
 
 
 def phase_train_f32(smi):
@@ -2628,13 +2708,15 @@ def phase_train_f32(smi):
     from diffmining_tpu_torch.models import unet as unet_mod
     from diffmining_tpu_torch.ops import flash_attention as fa
     from diffmining_tpu_torch.ops.attention import kernel_route, sdpa, sdpa_plain
+    from diffmining_tpu_torch.utils.device import exact_float32
 
-    assert_no_tf32()
     batch, px, n_images, n_steps = 2, 512, 4, 3
     work = os.path.join(ROOT, "build", "chip_smoke_train_f32")
     t0 = time.perf_counter()
+    pytorch_default_tf32()
     tr, args, batches = places_trainer(work, batch, px, n_images, max_train_steps=n_steps,
                                        extra=("--mixed_precision", "no"))
+    assert_no_tf32()  # the trainer's --mixed_precision no set-up turned both off
     torch.cuda.synchronize()
     if tr.builder.mixed_precision:
         raise AssertionError("train f32: --mixed_precision no left autocast on")
@@ -2698,6 +2780,25 @@ def phase_train_f32(smi):
     def step():
         tr.state, _ = tr.train_step(tr.state, *batches[0], args.seed)
 
+    # before and after the repair, in turns off, on, on, off: cuDNN's TF32
+    # on (PyTorch's default, where --mixed_precision no left it) and off
+    # (the trainer's set-up now); after each switch one step unmeasured
+    # (cuDNN picks its algorithms anew), then five timed steps
+    tf32_ms = {"off": [], "on": []}
+    for tag in ("off", "on", "on", "off"):
+        torch.backends.cudnn.allow_tf32 = tag == "on"
+        step()
+        torch.cuda.synchronize()
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            tf32_ms[tag].append((time.perf_counter() - t0) * 1e3)
+    exact_float32()
+    log(f"train f32, cuDNN TF32 in turns off, on, on, off (one step unmeasured after each switch, five timed): on "
+        f"{', '.join(f'{x:.1f}' for x in tf32_ms['on'])} ms, median {statistics.median(tf32_ms['on']):.1f}; off "
+        f"{', '.join(f'{x:.1f}' for x in tf32_ms['off'])} ms, median {statistics.median(tf32_ms['off']):.1f}, on {smi}")
+
     parts = {"lse mode": "flash_fwd_f32_kernel", "K5": "flash_bwd_dq_f32_kernel", "K6": "flash_bwd_dkv_f32_kernel"}
     kernel_sum_ms, busy_ms, _, part_ms = device_busy(step, calls=2, parts=tuple(parts.values()))
     split = {kind: part_ms.get(name) for kind, name in parts.items()}
@@ -2709,7 +2810,8 @@ def phase_train_f32(smi):
     torch.cuda.empty_cache()
     return dict(steps=n_steps, batch=batch, px=px, losses=losses, step_ms=[x * 1e3 for x in step_s],
                 warm_step_ms=warm_ms, images_per_s=batch / warm_ms * 1e3, peak_gib=peak_gib, launches=launches,
-                grad_rel_l2=rel, step_busy_ms=busy_ms, step_kernel_sum_ms=kernel_sum_ms, step_attention_ms=split,
+                step_ms_tf32_off=tf32_ms["off"], step_ms_tf32_on=tf32_ms["on"], grad_rel_l2=rel, step_busy_ms=busy_ms,
+                step_kernel_sum_ms=kernel_sum_ms, step_attention_ms=split,
                 card=smi)
 
 
@@ -2750,7 +2852,10 @@ def phase_clip(smi, mining_work, dift_sd):
 
     for f in kernels:
         f.launches = 0
+    pytorch_default_tf32()
     dev = ranker("cache_device")
+    assert_no_tf32()  # the float32 ranker's own set-up (its device, resolve_device) turned both off
+    log("clip: from PyTorch's TF32 defaults, the ranker's set-up turned both flags off")
     imgs = [dev.load_image(p) for p in dev.get_seeds(countries[0])[:batch_images]]
     dev._project_device(imgs)  # warm
     torch.cuda.synchronize()
@@ -3187,8 +3292,252 @@ def phase_verify_checkpoint(smi, pipeline_dir):
         raise AssertionError(f"verify_checkpoint: exit {rc}, no {missing}")
     log(f"verify_checkpoint on the SD-v1.5-width export of phase 12: exit 0, {len(need)} stages PASS in {wall:.1f} s "
         f"on {smi}")
-    shutil.rmtree(pipeline_dir, ignore_errors=True)
     return dict(rc=rc, stages=[line for line in lines if line.startswith("[")], wall_s=wall, card=smi)
+
+
+# One process of phase 20, written to a file so that torchrun can start it.
+# argv: OUT MODE ARGS. MODE "cli": the typicality CLI's main(ARGS); "xray":
+# the xray command (under torchrun); "gloo": ARGS[0] is a JSON config, and
+# the process is one rank of a gloo group on this card driving the library
+# (Typicality with a mesh). Writes to OUT the artifacts the typicality sweep
+# wrote, the kernel launches the process made, the backend of each
+# gather_object, the TF32 flags after the port's set-up and what it printed.
+SWEEP_DP_RANK = r"""
+import contextlib, datetime, io, json, os, sys
+import torch
+import torch.distributed as dist
+from diffmining_tpu_torch.ops import flash_attention as fa
+from diffmining_tpu_torch.parallel import mesh as pm
+from diffmining_tpu_torch.typicality import compute
+out, mode, args = sys.argv[1], sys.argv[2], sys.argv[3:]
+written, gathers = [], []
+save, gather = compute.atomic_save_npy, dist.gather_object
+compute.atomic_save_npy = lambda path, a: (written.append(path), save(path, a))
+dist.gather_object = lambda *a, **k: (gathers.append(dist.get_backend()), gather(*a, **k))[1]
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    if mode == "cli":
+        compute.main(args)
+    elif mode == "xray":
+        from diffmining_tpu_torch.__main__ import main
+        main(["xray", *args])
+    else:
+        cfg = json.loads(args[0])
+        # NCCL refuses two ranks on one card: the group is gloo's, made here
+        dist.init_process_group("gloo", init_method=f"tcp://{cfg['address']}", world_size=cfg["world"],
+                                rank=cfg["rank"], timeout=datetime.timedelta(minutes=5))
+        mesh = pm.make_mesh(dp=cfg["world"])
+        typ = compute.Typicality("ftt", cfg["pipe"], cfg["data"], cfg["tree"], t_min=0.1, t_max=0.9, N=cfg["N"],
+                                 batch_images=cfg["batch_images"], dtype=torch.float32, device="cuda", mesh=mesh)
+        if mesh.rank == 0:
+            typ.make_submission(cfg["data"], cfg["subs"], sub_split=1)
+        pm.host_barrier("submission")
+        typ.compute_submission(os.path.join(cfg["subs"], "0.txt"))
+        pm.destroy()
+kernels = (fa.flash_fwd_nomax, fa.flash_fwd_nomax_f32, fa.flash_fwd_online, fa.flash_fwd_online_f32)
+with open(out, "w") as f:
+    json.dump(dict(written=written, launches={k.__name__: k.launches for k in kernels}, gathers=gathers,
+                   printed=printed.getvalue(),
+                   tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]), f)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_sweep_dp(smi, pipeline_dir):
+    """The sweep over dp on one card, from phase 12's SD-v1.5-width export,
+    each run a process of its own. (a) The typicality CLI in bf16 over 2
+    labels x 4 synthetic 512x512 PNGs at N=4, batch_images 4, plain and
+    under --distributed as an NCCL group of one (--coordinator_address):
+    the artifacts bit-equal, or the largest difference printed and at most
+    one fp16 ulp; K1 launches. (b) xray --mesh_dp 1 under torchrun
+    (--nproc_per_node 1), an NCCL group of one, over 2 synthetic 1024x1024
+    Cardiomegaly images at N=2, chunk 1, groups of 2: its maps go through
+    gather_object over NCCL to rank 0, which writes them, report.json and
+    auc.json; maps finite and of the image's shape, 5 K2 + 10 K1 launches a
+    UNet pass. (c) Two ranks of a gloo group on this card (NCCL refuses two
+    ranks on one GPU) driving the library at float32, dp 2 (two images a
+    rank a group), against the plain CLI at --dtype fp32: every real
+    artifact written by exactly one rank; each within one fp16 ulp of one
+    process sweeping two images a group (a rank's batch); against one
+    process at batch_images 4, the largest difference in fp16 ulps printed
+    and each element within the fp16 artifact bound of the CPU tests (rtol
+    2e-3, atol 1e-4): at another UNet batch cuDNN takes other algorithms,
+    and (pred - noise)^2 loses the relative precision of a small
+    difference, so a float32 rounding can move an fp16 loss by more than
+    one ulp; the bit-equal ones counted; the TF32 flags each process's port
+    set-up left; the float32 no-max launches on each rank. (b) runs beside
+    (c). Every process starts cold, so the rate a CLI prints counts its
+    start-up and first calls: it is kept as a cold-process rate, not a
+    throughput."""
+    import glob
+
+    import numpy as np
+    from PIL import Image
+
+    labels, per_label, px, N, batch_images = ["1920", "1960"], 4, 512, 4, 4
+    work = os.path.join(ROOT, "build", "chip_smoke_sweep_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "ftt")
+    rng = np.random.RandomState(SEED + 31)
+    names = []
+    for c in labels:
+        os.makedirs(os.path.join(data, c))
+        for i in range(per_label):
+            # names unique across labels: an image's draws key on its file name
+            Image.fromarray(rng.randint(0, 256, (px, px, 3), dtype=np.uint8)).save(
+                os.path.join(data, c, f"{c}_{i}.png"), compress_level=1)
+            names.append(os.path.join(c, f"{c}_{i}.npy"))
+    xray_diseases, xray_per, xray_px, xray_N, xray_batch = ["Cardiomegaly"], 2, 1024, 2, 2
+    cxr = os.path.join(work, "CXR8")
+    xray_data(cxr, xray_diseases, xray_per, xray_px, SEED + 32)
+    script = os.path.join(work, "rank.py")
+    with open(script, "w") as f:
+        f.write(SWEEP_DP_RANK)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+
+    def run(tag, mode, args, launcher=()):
+        out = os.path.join(work, f"{tag}.json")
+        return subprocess.Popen([sys.executable, *launcher, script, out, mode, *args], cwd=ROOT, env=env), out
+
+    def wait(procs):
+        results = []
+        try:
+            for p, out in procs:
+                p.wait(timeout=600)
+                if p.returncode != 0:
+                    raise AssertionError(f"sweep dp: {p.args[-20:]} exited {p.returncode}")
+                with open(out) as f:
+                    results.append(json.load(f))
+        finally:
+            for p, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return results
+
+    def cli_run(tag, dtype, b, extra=()):
+        return run(tag, "cli", ["--which", "ftt", "-i", data, "-c", os.path.join(work, tag), "-s",
+                                os.path.join(work, f"{tag}_subs"), "-m", pipeline_dir, "--make_submission", "--N",
+                                str(N), "--batch_images", str(b), "--dtype", dtype, *extra])
+
+    def cli_result(tag, r, t0):
+        r["wall_s"] = time.perf_counter() - t0
+        rates = re.findall(r"typicality: (\d+)/(\d+) images \(([\d,.]+) imgs/hr\)", r["printed"])
+        if not rates or rates[-1][0] != rates[-1][1]:
+            raise AssertionError(f"sweep dp {tag}: no final progress line in {r['printed'][-500:]!r}")
+        r["cold_imgs_per_hr"] = float(rates[-1][2].replace(",", ""))
+        r["artifacts"] = {n: np.load(os.path.join(work, tag, n)) for n in names}
+        return r
+
+    def compare(got, want):
+        equal = sum(bool(np.array_equal(got[n], want[n])) for n in names)
+        worst = max(fp16_ulps(got[n], want[n]) for n in names)
+        diff = max(float(np.abs(got[n].astype(np.float32) - want[n].astype(np.float32)).max()) for n in names)
+        return equal, worst, diff
+
+    # (a) bf16: the plain CLI, then the CLI as an NCCL group of one
+    t0 = t = time.perf_counter()
+    plain = cli_result("plain_bf16", *wait([cli_run("plain_bf16", "bf16", batch_images)]), t)
+    t = time.perf_counter()
+    group = cli_result("nccl1_bf16", *wait([cli_run("nccl1_bf16", "bf16", batch_images, (
+        "--distributed", "--coordinator_address", f"127.0.0.1:{free_port()}", "--num_processes", "1",
+        "--process_id", "0"))]), t)
+    equal, worst, diff = compare(group["artifacts"], plain["artifacts"])
+    passes = len(labels) * N  # one group a label, N passes each; 10 gated attentions a pass
+    for r, tag in ((plain, "plain"), (group, "nccl1")):
+        if sorted(os.path.relpath(p, os.path.join(work, f"{tag}_bf16")) for p in r["written"]) != sorted(names) \
+                or r["launches"]["flash_fwd_nomax"] != 10 * passes:
+            raise AssertionError(f"sweep dp (a) {tag}: wrote {r['written']}, launches {r['launches']}")
+    if worst > 1.0:
+        raise AssertionError(f"sweep dp (a): the NCCL group of one {worst:.2f} fp16 ulps (|d| {diff:.4g}) off the plain CLI")
+    log(f"sweep dp (a): typicality CLI, bf16, {len(names)} images at N={N}: plain {plain['wall_s']:.1f} s of process "
+        f"(cold-process rate {plain['cold_imgs_per_hr']:.1f} imgs/hr), NCCL group of one {group['wall_s']:.1f} s "
+        f"({group['cold_imgs_per_hr']:.1f}); artifacts " + ("bit-equal" if equal == len(names) else
+                                                           f"{equal}/{len(names)} bit-equal, largest difference "
+                                                           f"{diff:.4g} ({worst:.2f} fp16 ulps)")
+        + f"; K1 launches {plain['launches']['flash_fwd_nomax']} and {group['launches']['flash_fwd_nomax']}, on {smi}")
+
+    # (b) beside (c): xray under torchrun as an NCCL group of one; (c) float32:
+    # two gloo ranks of the library on this card, and beside them the plain
+    # CLI at batch_images 4 and at a rank's 2 (no time is read from them)
+    xray_out = os.path.join(work, "xray_out")
+    address, tree, subs = f"127.0.0.1:{free_port()}", os.path.join(work, "gloo2_fp32"), os.path.join(work, "gloo2_subs")
+    t1 = time.perf_counter()
+    xr, ref, ref2, *ranks = wait(
+        [run("xray_nccl1", "xray", ["-i", cxr, "-o", xray_out, "-m", pipeline_dir, "--N", str(xray_N), "--chunk", "1",
+                                    "--batch_images", str(xray_batch), "--mesh_dp", "1"],
+             launcher=("-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1")),
+         cli_run("plain_fp32", "fp32", batch_images), cli_run("plain_fp32_b2", "fp32", batch_images // 2)]
+        + [run(f"gloo2_rank{r}", "gloo", [json.dumps(dict(
+            address=address, world=2, rank=r, pipe=pipeline_dir, data=data, tree=tree,
+            subs=subs, N=N, batch_images=batch_images))]) for r in range(2)])
+    together_s = time.perf_counter() - t1
+
+    xray_groups = len(xray_diseases) * math.ceil(xray_per / xray_batch)  # one gather_object a group
+    xray_passes = xray_groups * xray_N  # chunk 1
+    maps = sorted(glob.glob(os.path.join(xray_out, "*", "typicality", "*.npy")))
+    report, auc = (json.load(open(os.path.join(xray_out, n))) for n in ("report.json", "auc.json"))
+    bad = [m for m in maps if not ((a := np.load(m)).shape == (xray_px, xray_px) and np.isfinite(a).all())]
+    if xr["launches"]["flash_fwd_nomax"] != 15 * xray_passes or xr["gathers"] != ["nccl"] * xray_groups \
+            or len(maps) != xray_per or bad or not all(
+                len(t[d]) == xray_per and all(math.isfinite(x) for x in t[d].values())
+                for t in (report, auc) for d in xray_diseases):
+        raise AssertionError(f"sweep dp (b): xray under torchrun: launches {xr['launches']}, gathers {xr['gathers']}, "
+                             f"maps {maps} (not finite or not [{xray_px}, {xray_px}]: {bad}), report {report}, "
+                             f"auc {auc}")
+    log(f"sweep dp (b): xray --mesh_dp 1 under torchrun --nproc_per_node 1 (an NCCL group of one), "
+        f"{xray_per} {xray_px}px images at N={xray_N}: flash_fwd_nomax launched {xr['launches']['flash_fwd_nomax']} "
+        f"times = 5 K2 + 10 K1 per UNet pass x {xray_passes} passes; gather_object over {xr['gathers']}; "
+        f"{len(maps)} pixel maps [{xray_px}, {xray_px}] finite, report.json and auc.json finite, written by rank 0")
+
+    ref, ref2 = cli_result("plain_fp32", ref, t1), cli_result("plain_fp32_b2", ref2, t1)
+    written = [os.path.relpath(p, tree) for r in ranks for p in r["written"]]
+    if sorted(written) != sorted(names):
+        raise AssertionError(f"sweep dp (c): the ranks wrote {written}, expected each of {names} once")
+    got_b = {n: np.load(os.path.join(tree, n)) for n in names}
+    equal_b, worst_b, diff_b = compare(got_b, ref2["artifacts"])
+    equal_4, worst_4, diff_4 = compare(got_b, ref["artifacts"])
+    beyond_4 = sum(int((np.abs(got_b[n].astype(np.float32) - w) > 2e-3 * np.abs(w) + 1e-4).sum())
+                   for n, w in ((n, ref["artifacts"][n].astype(np.float32)) for n in names))
+    launches_b = [r["launches"] for r in ranks]  # a rank sweeps two images of each label's group, N passes each
+    flags = [r["tf32"] for r in (*ranks, ref, ref2)]
+    if worst_b > 1.0 or beyond_4 or any(f != [False, False] for f in flags) \
+            or any(l["flash_fwd_nomax_f32"] != 10 * passes or l["flash_fwd_nomax"] for l in launches_b):
+        raise AssertionError(f"sweep dp (c): {worst_b:.2f} fp16 ulps off one process at a rank's batch; {beyond_4} "
+                             f"elements beyond rtol 2e-3, atol 1e-4 of one process at batch 4 ({worst_4:.2f} ulps); "
+                             f"TF32 flags {flags}; launches {launches_b}")
+    log(f"sweep dp (c): two gloo ranks on this card, --dtype fp32, dp 2: {len(written)} artifacts, each written once "
+        f"({len(ranks[0]['written'])} by rank 0, {len(ranks[1]['written'])} by rank 1); against one process at a "
+        f"rank's batch (batch_images 2) {equal_b}/{len(names)} bit-equal, largest difference {diff_b:.4g} "
+        f"({worst_b:.2f} fp16 ulps); against one process at batch_images 4 {equal_4}/{len(names)} bit-equal, largest "
+        f"difference {diff_4:.4g} ({worst_4:.2f} fp16 ulps), all within rtol 2e-3, atol 1e-4; float32 no-max launches "
+        f"{[l['flash_fwd_nomax_f32'] for l in launches_b]} a rank ({ref['launches']['flash_fwd_nomax_f32']} in one "
+        f"process); TF32 off after each process's set-up; (b) and (c)'s five processes together {together_s:.1f} s, "
+        f"on {smi}")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(images=len(names), N=N, batch_images=batch_images,
+                nccl_group_of_one=dict(cold_imgs_per_hr=group["cold_imgs_per_hr"], wall_s=group["wall_s"],
+                                       plain_cold_imgs_per_hr=plain["cold_imgs_per_hr"], plain_wall_s=plain["wall_s"],
+                                       bit_equal=equal, max_fp16_ulps=worst, max_abs=diff,
+                                       k1_launches=group["launches"]["flash_fwd_nomax"],
+                                       plain_k1_launches=plain["launches"]["flash_fwd_nomax"]),
+                xray_nccl_group_of_one=dict(images=xray_per, px=xray_px, N=xray_N, passes=xray_passes,
+                                            launches=xr["launches"]["flash_fwd_nomax"], gathers=xr["gathers"]),
+                gloo_dp2_fp32=dict(bit_equal_at_rank_batch=equal_b, max_fp16_ulps_at_rank_batch=worst_b,
+                                   max_abs_at_rank_batch=diff_b, bit_equal_at_batch4=equal_4,
+                                   max_fp16_ulps_at_batch4=worst_4, max_abs_at_batch4=diff_4,
+                                   written_per_rank=[len(r["written"]) for r in ranks],
+                                   nomax_f32_launches_per_rank=[l["flash_fwd_nomax_f32"] for l in launches_b],
+                                   one_process_nomax_f32_launches=ref["launches"]["flash_fwd_nomax_f32"],
+                                   tf32_after_setup=[r["tf32"] for r in ranks]),
+                together_s=together_s, wall_s=time.perf_counter() - t0, card=smi)
 
 
 TRAIN_KERNELS = {
@@ -3332,14 +3681,20 @@ def main() -> int:
     done("clip")
     doersch = phase_doersch(smi)
     done("doersch")
-    verify = phase_verify_checkpoint(smi, lora.pop("export_dir"))
+    export_dir = lora.pop("export_dir")
+    verify = phase_verify_checkpoint(smi, export_dir)
     done("verify_checkpoint")
+    sweep_dp = phase_sweep_dp(smi, export_dir)
+    shutil.rmtree(export_dir, ignore_errors=True)
+    done("sweep dp")
     shutil.rmtree(pnp_work, ignore_errors=True)
     shutil.rmtree(mining_work["root"], ignore_errors=True)
 
     by_path = {"sweep": launches, "xray": xray["launches"], "sampling": sampling["launches"],
                "train preview": train["preview_launches"], "pnp": pnp["launches"], "parallel": parallel["launches"],
-               "clip+dift-161": clip["launches"]["flash_fwd_nomax"]}
+               "clip+dift-161": clip["launches"]["flash_fwd_nomax"],
+               "sweep dp": sweep_dp["nccl_group_of_one"]["k1_launches"]
+               + sweep_dp["xray_nccl_group_of_one"]["launches"]}
     nomax = kernel_entry(
         "flash_fwd_nomax", "diffmining_tpu_torch/csrc/flash_fwd_nomax.cu",
         "diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot); "
@@ -3359,7 +3714,8 @@ def main() -> int:
     f32_paths = {
         "online": {"clip crop 448": large["crop448"]["launches"]["flash_fwd_online_f32"]},
         "nomax": {"clip crop 896": large["crop896"]["launches"]["flash_fwd_nomax_f32"],
-                  "f32 sweep": sweep_f32["launches"]["flash_fwd_nomax_f32"]},
+                  "f32 sweep": sweep_f32["launches"]["flash_fwd_nomax_f32"],
+                  "sweep dp": sum(sweep_dp["gloo_dp2_fp32"]["nomax_f32_launches_per_rank"])},
         "lse": {"train f32": train_f32["launches"]["flash_fwd_lse_f32"]},
         "K5": {"train f32": train_f32["launches"]["flash_bwd_dq_f32"]},
         "K6": {"train f32": train_f32["launches"]["flash_bwd_dkv_f32"]},
@@ -3385,6 +3741,7 @@ def main() -> int:
     print(json.dumps({"clip": clip}))
     print(json.dumps({"doersch": doersch}))
     print(json.dumps({"verify_checkpoint": verify}))
+    print(json.dumps({"sweep_dp": sweep_dp}))
     print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

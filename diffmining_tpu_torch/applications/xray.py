@@ -21,6 +21,14 @@ multi-block no-max kernel). Pixel maps are cached as
 ``{name}_loss_pixel.npy``, as the reference caches them. The random draws
 follow the sweep's contract: ``draws(uid, latent_shape) -> (posterior eps,
 noise, t)``, default ``SeededDraws``; tests pass the JAX package's.
+
+``--mesh_dp k`` shards each group over k processes, one a GPU, under
+torchrun (``parallel/mesh.py``): each rank sweeps its rows, rank 0 gathers
+the maps and writes the caches, ``report.json`` and ``auc.json``. Under
+torchrun every process joins the group, and ``--mesh_dp`` defaults to
+the world size.
+
+    torchrun --nproc_per_node 2 -m diffmining_tpu_torch xray -i CXR8 -o OUT -m PIPE --mesh_dp 2
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import torch
 from PIL import Image
 
 from diffmining_tpu_torch.ops import pool
+from diffmining_tpu_torch.parallel.mesh import Mesh, destroy, host_barrier, initialize_distributed, make_mesh
 from diffmining_tpu_torch.typicality.compute import DTYPES, SD, sweep_images
 from diffmining_tpu_torch.typicality.engine import SeededDraws, TypicalityEngine
 from diffmining_tpu_torch.utils.artifacts import atomic_save_npy
@@ -138,19 +147,21 @@ class XRayTypicality:
     """Pixel maps and box metrics of every disease's images. ``chunk=3``
     with ``batch_images=4`` is the JAX package's measured 1024px grouping
     (UNet batch 24); the engine snaps ``chunk`` to the largest divisor of
-    ``N`` (2 at N=100)."""
+    ``N`` (2 at N=100). With a ``mesh`` every rank runs ``main`` alike; each
+    sweeps its rows of a group and rank 0 writes what the run writes."""
 
     def __init__(self, sd: SD, gt_path: str, output_path: str, diseases: Sequence[str] = DISEASES,
                  seed: int = 42, N: int = 100, blur: bool = False, chunk: int = 3,
-                 draws: Optional[Callable] = None):
+                 draws: Optional[Callable] = None, mesh: Optional[Mesh] = None):
         self.sd = sd
+        self.mesh = mesh
         self.output_path = output_path
         self.diseases = sorted(diseases)
         self.seed = seed
         self.N = N
         self.blur = blur
         self.parent = load_paths(gt_path, self.diseases, seed)
-        self.engine = TypicalityEngine(unet=sd.unet, schedule=sd.schedule, n_samples=N, chunk=chunk)
+        self.engine = TypicalityEngine(unet=sd.unet, schedule=sd.schedule, n_samples=N, chunk=chunk, mesh=mesh)
         self.draws = draws or SeededDraws(seed, N, 0.0, 1.0, sd.schedule.num_train_timesteps, sd.device)
         # every prompt embedded once: "no finding", the null prompt, the diseases
         names = ["no finding", ""] + self.diseases
@@ -163,24 +174,39 @@ class XRayTypicality:
         """float32 pixel maps of SAME-SHAPE images through one batched sweep
         (the reference loops one image at a time, xray/compute.py:296-311).
         Each image's draws come from its own uid, so a map does not depend
-        on its group."""
-        imgs = [Image.open(p).convert("RGB") for p in paths]
-        images = torch.from_numpy(np.stack([array_from_uint8(np.asarray(im)) for im in imgs])).permute(0, 3, 1, 2)
-        ctx = torch.stack([self.embeds[disease], self.embeds[""]])
-        losses = sweep_images(self.sd, self.engine, self.draws, images, [image_uid(p) for p in paths], ctx)
+        on its group. Over a mesh each rank sweeps its rows of the group
+        (padded to a multiple of dp) and rank 0 gathers every rank's maps:
+        it returns the group's maps in order, the other ranks none."""
+        group, rows = self.engine.shard(paths)
+        local = group[rows]
         out = []
-        for b, im in enumerate(imgs):
-            w, h = im.size
-            dm = pool.pixel_typicality_map(losses[b], h, w)
-            if self.blur:
-                dm = pool.gaussian_blur(dm)
-            out.append(dm.cpu().numpy())
-        return out
+        if local:
+            imgs = [Image.open(p).convert("RGB") for p in local]
+            images = torch.from_numpy(np.stack([array_from_uint8(np.asarray(im)) for im in imgs])).permute(0, 3, 1, 2)
+            ctx = torch.stack([self.embeds[disease], self.embeds[""]])
+            losses = sweep_images(self.sd, self.engine, self.draws, images, [image_uid(p) for p in local], ctx)
+            for b, im in enumerate(imgs):
+                w, h = im.size
+                dm = pool.pixel_typicality_map(losses[b], h, w)
+                if self.blur:
+                    dm = pool.gaussian_blur(dm)
+                out.append(dm.cpu().numpy())
+        if self.mesh is None or not torch.distributed.is_initialized():
+            return out[:len(paths)]
+        # host objects, not tensors: gloo does not carry every CUDA collective
+        gathered = [None] * self.mesh.world if self.mesh.rank == 0 else None
+        torch.distributed.gather_object(out, gathered, dst=0)
+        if self.mesh.rank != 0:
+            return []
+        return [dm for part in gathered for dm in part][:len(paths)]
 
     def pixel_map(self, disease: str, path: str) -> np.ndarray:
         return self.pixel_maps(disease, [path])[0]
 
     def main(self, batch_images: int = 4) -> Tuple[Dict, Dict]:
+        """Every disease's maps (cached), box metrics, report.json and
+        auc.json; over a mesh the ranks other than 0 return empty dicts."""
+        writer = self.mesh is None or self.mesh.rank == 0
         report, auc = {}, {}
         for disease in self.diseases:
             report[disease], auc[disease] = {}, {}
@@ -197,6 +223,8 @@ class XRayTypicality:
                 if not os.path.isfile(cache_path(fpath)):
                     with Image.open(fpath) as im:
                         pending[im.size].append(fpath)
+            # every rank has listed the uncached images before rank 0 writes one
+            host_barrier("xray_pending")
             for group in pending.values():
                 for start in range(0, len(group), batch_images):
                     chunk = group[start:start + batch_images]
@@ -205,6 +233,8 @@ class XRayTypicality:
                     padded = chunk + [chunk[-1]] * (batch_images - len(chunk))
                     for fpath, dm in zip(chunk, self.pixel_maps(disease, padded)):
                         atomic_save_npy(cache_path(fpath), dm)
+            if not writer:
+                continue
 
             for fpath, bbox in self.parent[disease]:
                 dm = np.load(cache_path(fpath))
@@ -214,6 +244,8 @@ class XRayTypicality:
             if not report[disease]:
                 del report[disease]
                 del auc[disease]
+        if not writer:
+            return {}, {}
         with open(join(self.output_path, "report.json"), "w") as f:
             json.dump(report, f, indent=4)
         with open(join(self.output_path, "auc.json"), "w") as f:
@@ -356,7 +388,8 @@ def main(argv=None):
     p.add_argument("--blur", action="store_true")
     p.add_argument("--compare", nargs=2, default=None, metavar=("PT", "FT"))
     p.add_argument("--mesh_dp", type=int, default=None,
-                   help="shard the sweep over a device mesh (multi-GPU: not ported yet, ROADMAP A12)")
+                   help="shard each group's sweep over this many processes, one GPU each; above 1, launch "
+                        "under torchrun --nproc_per_node MESH_DP")
     p.add_argument("--dtype", type=str, default="bf16", choices=sorted(DTYPES),
                    help="compute dtype: bf16 (default), or fp32 for validation runs; both run on the GPU "
                         "(float32 flash kernels) and with --device cpu")
@@ -366,18 +399,34 @@ def main(argv=None):
     if args.compare:
         compare_json_files(*args.compare)
         return
-    if args.mesh_dp is not None:
-        raise SystemExit("--mesh_dp: multi-GPU X-ray sweeps are not ported yet (ROADMAP A12)")
+    # the JAX command has no --distributed: under torchrun's environment the
+    # process joins its group (NCCL even for a group of one), and the mesh
+    # takes every rank unless --mesh_dp says otherwise
+    if "RANK" in os.environ:
+        initialize_distributed(device=args.device)
+        if args.mesh_dp is None:
+            args.mesh_dp = torch.distributed.get_world_size()
+    elif args.mesh_dp is not None and args.mesh_dp > 1:
+        raise SystemExit(
+            f"xray --mesh_dp {args.mesh_dp} runs one process a GPU (ROADMAP A12a): launch it as "
+            f"`torchrun --nproc_per_node {args.mesh_dp} -m diffmining_tpu_torch xray ... --mesh_dp {args.mesh_dp}`"
+        )
+    try:
+        mesh = make_mesh(dp=args.mesh_dp) if args.mesh_dp is not None else None
+        model_path = args.model_path
+        if not os.path.isfile(join(model_path, "model_index.json")):
+            from diffmining_tpu_torch.finetuning.export import export_model
 
-    model_path = args.model_path
-    if not os.path.isfile(join(model_path, "model_index.json")):
-        from diffmining_tpu_torch.finetuning.export import export_model
-
-        model_path = export_model("xray", model_path, device=args.device)
-    sd = SD.from_pipeline_dir("xray", model_path, [], dtype=DTYPES[args.dtype], device=args.device)
-    XRayTypicality(
-        sd, args.gt_path, args.output_path, DISEASES, N=args.N, blur=args.blur, chunk=args.chunk,
-    ).main(batch_images=args.batch_images)
+            if mesh is None or mesh.rank == 0:  # one writer; the others read its export
+                export_model("xray", model_path, device=args.device)
+            host_barrier("xray_export")
+            model_path = export_model("xray", model_path, device=args.device)
+        sd = SD.from_pipeline_dir("xray", model_path, [], dtype=DTYPES[args.dtype], device=args.device)
+        XRayTypicality(
+            sd, args.gt_path, args.output_path, DISEASES, N=args.N, blur=args.blur, chunk=args.chunk, mesh=mesh,
+        ).main(batch_images=args.batch_images)
+    finally:
+        destroy()
 
 
 if __name__ == "__main__":

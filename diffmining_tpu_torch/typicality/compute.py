@@ -12,6 +12,13 @@ interoperate.
 
 ``-m`` may also name a finetuning checkpoint (``checkpoint-N``), which is
 exported to ``checkpoint-N-export`` first (finetuning/export.py).
+
+Over several GPUs, one process each (``parallel/mesh.py``): every rank walks
+the same shard file and forms the same groups, sweeps its contiguous rows of
+each group (VAE encode included) and writes their artifacts; an image's
+draws come from its uid, so its artifact does not depend on the rank.
+
+    torchrun --nproc_per_node 4 -m diffmining_tpu_torch typicality ... --distributed
 """
 from __future__ import annotations
 
@@ -35,11 +42,13 @@ from diffmining_tpu_torch.models.clip import CLIP_VIT_L_TEXT, CLIPTextConfig, CL
 from diffmining_tpu_torch.models.tokenizer import CLIPTokenizer, tiny_tokenizer
 from diffmining_tpu_torch.models.unet import SD15_UNET, UNet2DCondition, UNetConfig
 from diffmining_tpu_torch.models.vae import SD15_VAE, AutoencoderKL, VAEConfig, sample_latent
+from diffmining_tpu_torch.parallel.mesh import Mesh, destroy, host_barrier, initialize_distributed, make_mesh
 from diffmining_tpu_torch.typicality.engine import SeededDraws, TypicalityEngine, losses_to_reference_layout
 from diffmining_tpu_torch.typicality.templates import get_decade, typicality_prompts
 from diffmining_tpu_torch.utils.artifacts import atomic_save_npy
 from diffmining_tpu_torch.utils.device import resolve_device
 from diffmining_tpu_torch.utils.images import image_uid, load_image
+from diffmining_tpu_torch.utils.observability import Timer, annotate, trace
 from diffmining_tpu_torch.utils.weights import load_pipeline_dir, load_state
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -189,7 +198,8 @@ class D:
 
     ``draws(uid, latent_shape) -> (posterior_eps, noise, t)`` supplies the
     random stream (default ``SeededDraws``); tests pass the JAX package's
-    draws through it."""
+    draws through it. With a ``mesh`` this rank sweeps and writes only its
+    rows of each group (``TypicalityEngine.shard``)."""
 
     def __init__(
         self,
@@ -206,8 +216,10 @@ class D:
         bucket_size: Optional[int] = None,
         native_res: bool = False,
         draws: Optional[Callable] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.sd = sd
+        self.mesh = mesh
         self.typicality_path = typicality_path
         self.which = which
         self.seed = seed
@@ -227,7 +239,7 @@ class D:
             if self.sd is None:
                 raise RuntimeError("a model-free D can only read artifacts")
             self._engine = TypicalityEngine(
-                unet=self.sd.unet, schedule=self.sd.schedule, n_samples=self.N, chunk=self.chunk
+                unet=self.sd.unet, schedule=self.sd.schedule, n_samples=self.N, chunk=self.chunk, mesh=self.mesh
             )
         return self._engine
 
@@ -315,41 +327,52 @@ class D:
         self._save_group(*self._dispatch_group(group))
 
     def _dispatch_group(self, group: Sequence[Tuple[str, str, np.ndarray]]):
-        """Encode, draw and sweep one same-shape group; the fetch to the host
-        is queued behind the sweep and awaited in ``_save_group``."""
+        """Encode, draw and sweep this rank's rows of one same-shape group;
+        the fetch to the host is queued behind the sweep and awaited in
+        ``_save_group``. Returns the paths this rank writes (its real rows),
+        the group's count of real images and the fetch."""
         n_real = len(group)
         # pad partial groups to the full batch by repeating the last item, so
         # every sweep runs the same batch and artifacts do not depend on how
         # the work queue grouped them (compute.py:364-373)
         if n_real < self.batch_images:
             group = list(group) + [group[-1]] * (self.batch_images - n_real)
-        sd = self.sd
-        paths = [g[0] for g in group]
-        uids = [image_uid(p) for p in paths]
-        images = torch.from_numpy(np.stack([g[2] for g in group])).permute(0, 3, 1, 2)
-        ctx = torch.stack([self._ctx_pair(g[1]) for g in group])
-        losses = sweep_images(sd, self.engine, self.draws, images, uids, ctx)  # [B,N,2,C,h,w]
-        host = losses[:n_real].to("cpu", non_blocking=True)
+        group, rows = self.engine.shard(group)
+        local = group[rows]
+        if not local:  # a rank outside the mesh
+            return [], n_real, (None, None)
+        # the real rows among this rank's: each real image is written once
+        # across the ranks (the JAX package's multi-host rule, compute.py:405-416)
+        mine = local[:max(0, n_real - rows.start)]
+        paths = [g[0] for g in local]
+        images = torch.from_numpy(np.stack([g[2] for g in local])).permute(0, 3, 1, 2)
+        ctx = torch.stack([self._ctx_pair(g[1]) for g in local])
+        with annotate("typicality group"):
+            losses = sweep_images(self.sd, self.engine, self.draws, images, [image_uid(p) for p in paths], ctx)
+        host = losses[:len(mine)].to("cpu", non_blocking=True)  # [b, N, 2, C, h, w]
         done = None
         if losses.is_cuda:
             done = torch.cuda.Event()
             done.record()
-        return paths, n_real, (host, done)
+        return [g[0] for g in mine], n_real, (host, done)
 
     def _save_group(self, paths, n_real: int, fetched) -> int:
-        """Wait for one dispatched group's fetch and write its artifacts."""
+        """Wait for one dispatched group's fetch and write the artifacts of
+        ``paths``; returns the group's count of real images."""
         host, done = fetched
         if done is not None:
             done.synchronize()
         os.makedirs(self.typicality_path, exist_ok=True)
-        for b, path in enumerate(paths[:n_real]):
+        for b, path in enumerate(paths):
             atomic_save_npy(self.get_path(path), losses_to_reference_layout(host[b]))
         return n_real
 
 
 class Typicality:
     """Dataset scanning + submission work queue + sweep driver
-    (reference compute.py:210-341)."""
+    (reference compute.py:210-341). ``mesh`` shards every group's sweep
+    over the process group's ranks; every rank runs ``compute_submission``
+    on the same shard file."""
 
     def __init__(
         self,
@@ -368,8 +391,10 @@ class Typicality:
         dtype=torch.bfloat16,
         device="cuda",
         draws: Optional[Callable] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.which = which
+        self.mesh = mesh
         self.native_res = native_res
         load = {
             "geo": self.load_paths_geo,
@@ -385,7 +410,7 @@ class Typicality:
             c: D(
                 self.sd, join(typicality_path, c), which=which, t_min=t_min, t_max=t_max,
                 N=N, batch_images=batch_images, chunk=chunk,
-                bucket_size=bucket_size, native_res=native_res, draws=draws,
+                bucket_size=bucket_size, native_res=native_res, draws=draws, mesh=mesh,
             )
             for c in self.categories()
         }
@@ -464,7 +489,8 @@ class Typicality:
 
     def compute_submission(self, path: str, load: Optional[Loader] = None) -> None:
         """Execute one shard file, batching per category; prints progress and
-        throughput. ``load`` replaces image decoding (see D.compute_batch)."""
+        throughput (rank 0 of a mesh only). ``load`` replaces image decoding
+        (see D.compute_batch)."""
         with open(path, "r") as f:
             lines = [l.strip() for l in f.readlines() if l.strip()]
         by_cat: Dict[str, List[Tuple[str, str]]] = defaultdict(list)
@@ -472,10 +498,17 @@ class Typicality:
             p, country = line.split(",")
             by_cat[country].append((p, country))
         todo = {c: [it for it in items if not self.D[c].exists(it[0])] for c, items in by_cat.items()}
+        # every rank has read which artifacts exist before any writes one:
+        # a late rank would otherwise skip images an early rank just wrote,
+        # form other groups and wait at another barrier for good
+        host_barrier("typicality_todo")
         total = sum(len(v) for v in todo.values())
         state = {"done": 0, "t0": time.perf_counter()}
+        quiet = self.mesh is not None and self.mesh.rank != 0
 
         def progress(n):
+            if quiet:
+                return
             state["done"] += n
             dt = time.perf_counter() - state["t0"]
             rate = state["done"] / dt * 3600.0 if dt > 0 else 0.0
@@ -544,14 +577,40 @@ def main(argv=None):
     parser.add_argument("--native_res", action="store_true",
                         help="sweep at the dataset's original resolution instead of the "
                         "reference's cars-256/places-512 downscale")
+    parser.add_argument("--mesh_dp", type=int, default=None,
+                        help="shard each group's sweep over this many ranks of the process group, one GPU "
+                             "each (default under --distributed: every rank)")
+    # several processes, one a GPU (or CPU processes over gloo): a process
+    # group from torchrun's environment, or from an explicit address
+    parser.add_argument("--distributed", action="store_true",
+                        help="join a process group (torchrun's environment unless --coordinator_address)")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="host:port of process 0 (implies --distributed)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--dont_compute", action="store_false")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="write a torch.profiler trace of the sweep to DIR/trace_rank{r}.json "
+                             "(Chrome trace format)")
     parser.add_argument("--dtype", type=str, default="bf16", choices=sorted(DTYPES),
                         help="compute dtype: bf16 (default), or fp32 for validation runs and "
-                             "cross-topology comparisons; both run on the GPU (float32 flash kernels) "
-                             "and with --device cpu")
+                             "cross-topology comparisons (no TF32); both run on the GPU (float32 flash "
+                             "kernels) and with --device cpu")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--countries", nargs="*", default=None)  # reference CLI parity; unused there too
     args = parser.parse_args(argv)
+    try:
+        _run(args)
+    finally:
+        destroy()
+
+
+def _run(args) -> None:
+    if args.distributed or args.coordinator_address is not None:
+        initialize_distributed(args.coordinator_address, args.num_processes, args.process_id, device=args.device)
+        if args.mesh_dp is None:
+            args.mesh_dp = torch.distributed.get_world_size()  # every rank by default
+    mesh = make_mesh(dp=args.mesh_dp) if args.mesh_dp is not None else None
 
     model_path = args.model_path
     if model_path is not None and not os.path.isfile(join(model_path, "model_index.json")):
@@ -562,6 +621,9 @@ def main(argv=None):
             )
         from diffmining_tpu_torch.finetuning.export import export_model
 
+        if mesh is None or mesh.rank == 0:  # one writer; the others read its export
+            export_model(args.which, model_path, device=args.device)
+        host_barrier("typicality_export")
         model_path = export_model(args.which, model_path, device=args.device)
     if args.target_path is None:
         args.target_path = args.dataset_path
@@ -571,14 +633,23 @@ def main(argv=None):
         t_min=args.t_min, t_max=args.t_max, N=args.N,
         batch_images=args.batch_images, chunk=args.chunk,
         bucket_size=args.bucket_size, native_res=args.native_res,
-        dtype=DTYPES[args.dtype], device=args.device,
+        dtype=DTYPES[args.dtype], device=args.device, mesh=mesh,
     )
     if args.make_submission:
-        typ.make_submission(args.target_path, args.submission_path, sub_split=args.sub_split)
+        # one writer for the shard files, then a barrier so no rank reads a
+        # half-written one (compute.py:720-727)
+        if mesh is None or mesh.rank == 0:
+            typ.make_submission(args.target_path, args.submission_path, sub_split=args.sub_split)
+        host_barrier("typicality_submission")
     if args.dont_compute:
         if model_path is None:
             raise SystemExit("computing typicality needs --model_path")
-        typ.compute_submission(join(args.submission_path, f"{args.split_id}.txt"))
+        sub_file = join(args.submission_path, f"{args.split_id}.txt")
+        if args.profile:
+            with trace(args.profile), Timer("typicality sweep (traced)"):
+                typ.compute_submission(sub_file)
+        else:
+            typ.compute_submission(sub_file)
 
 
 if __name__ == "__main__":

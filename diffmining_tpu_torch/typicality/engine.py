@@ -15,13 +15,14 @@ from (seed, image uid), so an image's draws do not depend on its group.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from diffmining_tpu_torch.diffusion.schedule import Schedule, add_noise
 from diffmining_tpu_torch.models.unet import UNet2DCondition
+from diffmining_tpu_torch.parallel.mesh import Mesh, host_local_batch_slice, pad_to_multiple
 
 _M64 = (1 << 64) - 1
 
@@ -118,12 +119,15 @@ def sweep_losses(
 @dataclasses.dataclass
 class TypicalityEngine:
     """The sweep over one latent-shape bucket. The UNet is already in its
-    compute dtype (cast once by the SD bundle)."""
+    compute dtype (cast once by the SD bundle). With a ``mesh`` each rank
+    sweeps its own rows of a group (``shard``)."""
 
     unet: UNet2DCondition
     schedule: Schedule
     n_samples: int = 100
     chunk: int = 10
+    mesh: Optional[Mesh] = None
+    _warned_pad: bool = dataclasses.field(default=False, init=False, repr=False)
 
     def __post_init__(self):
         # the loop needs chunk | n_samples; snap to the largest divisor
@@ -132,6 +136,27 @@ class TypicalityEngine:
             while self.n_samples % c != 0:
                 c -= 1
             self.chunk = c
+
+    def shard(self, group: Sequence) -> Tuple[List, slice]:
+        """``group`` padded to a multiple of dp by repeating its last item,
+        and the slice of it this rank sweeps (all of it without a mesh).
+        Every rank forms the same groups, so the ranks' slices cover each
+        row once (engine.py:190-206 of the JAX package pads the same way
+        rather than run unsharded)."""
+        group = list(group)
+        if self.mesh is None:
+            return group, slice(0, len(group))
+        padded = pad_to_multiple(len(group), self.mesh.dp)
+        if padded > len(group):
+            if not self._warned_pad and self.mesh.rank == 0:
+                print(
+                    f"typicality: padding sweep batch {len(group)} -> {padded} to shard "
+                    f"over dp={self.mesh.dp}; set batch_images to a multiple of dp to "
+                    f"avoid the padded work"
+                )
+            self._warned_pad = True
+            group += [group[-1]] * (padded - len(group))
+        return group, host_local_batch_slice(len(group), self.mesh)
 
     def compute(self, latents: torch.Tensor, ctx: torch.Tensor, noises: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
         """latents [B,C,h,w], ctx [B,n_cond,L,D] (or [n_cond,L,D] shared),
