@@ -170,12 +170,24 @@ back to the CPU):
      written by one rank, within one fp16 ulp of one process at a rank's
      batch and within rtol 2e-3, atol 1e-4 of one at batch 4, the TF32
      flags after each process's set-up, the float32 no-max launches on each
-     rank.
+     rank;
+ 21. mining dp (run after phase 20, on its images and bf16 tree and phase
+     12's export, before the export is removed): five processes on the card
+     together: the cluster command in bf16 (DIFT-161, E=8), plain and as
+     `cluster --mesh_dp 1` under torchrun, an NCCL group of one whose DIFT
+     goes through the all-reduce: embeddings and ranked clusters bit-equal,
+     K1 launches; two ranks of a gloo group (dp 2, float32, the library,
+     four draws a rank) against one process at float32: each embedding
+     within rtol 1e-3, atol 2e-4, every pickle written once by rank 0, the
+     TF32 flags, the float32 no-max launches on each rank; in the same
+     processes ParallelCluster's DIFT over the mesh and dense_search at K =
+     5 (padded to 6) over the two ranks against one process; DIFT images/s
+     of each process (cold, five processes sharing the card).
 Then one JSON line each for the slice, the float32 sweep, the training run,
 the float32 training run, the mining runs,
 X-ray, sampling, PnP, train_lora_8bit, parallel, clip, doersch,
-verify_checkpoint and the sweep over dp, one of per-kernel numbers, and as
-the last line {"ok": true, "device": {...}}.
+verify_checkpoint, the sweep over dp and mining over dp, one of per-kernel
+numbers, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -183,6 +195,7 @@ import dataclasses
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -3375,7 +3388,8 @@ def phase_sweep_dp(smi, pipeline_dir):
     set-up left; the float32 no-max launches on each rank. (b) runs beside
     (c). Every process starts cold, so the rate a CLI prints counts its
     start-up and first calls: it is kept as a cold-process rate, not a
-    throughput."""
+    throughput. The images and the plain bf16 tree stay for phase 21, which
+    removes them (``work``)."""
     import glob
 
     import numpy as np
@@ -3521,8 +3535,8 @@ def phase_sweep_dp(smi, pipeline_dir):
         f"{[l['flash_fwd_nomax_f32'] for l in launches_b]} a rank ({ref['launches']['flash_fwd_nomax_f32']} in one "
         f"process); TF32 off after each process's set-up; (b) and (c)'s five processes together {together_s:.1f} s, "
         f"on {smi}")
-    shutil.rmtree(work, ignore_errors=True)
-    return dict(images=len(names), N=N, batch_images=batch_images,
+    return dict(work=work, data=data, tree=os.path.join(work, "plain_bf16"), images=len(names), N=N,
+                batch_images=batch_images,
                 nccl_group_of_one=dict(cold_imgs_per_hr=group["cold_imgs_per_hr"], wall_s=group["wall_s"],
                                        plain_cold_imgs_per_hr=plain["cold_imgs_per_hr"], plain_wall_s=plain["wall_s"],
                                        bit_equal=equal, max_fp16_ulps=worst, max_abs=diff,
@@ -3538,6 +3552,268 @@ def phase_sweep_dp(smi, pipeline_dir):
                                    one_process_nomax_f32_launches=ref["launches"]["flash_fwd_nomax_f32"],
                                    tf32_after_setup=[r["tf32"] for r in ranks]),
                 together_s=together_s, wall_s=time.perf_counter() - t0, card=smi)
+
+
+# One process of phase 21, written to a file so that torchrun can start it.
+# argv: OUT MODE ARGS. MODE "cli": the cluster command's main(ARGS); "gloo":
+# ARGS[0] is a JSON config, and the process is one rank of a gloo group on
+# this card driving the library over dp (Cluster, then ParallelCluster's
+# DIFT, then dense_search); "one": the same library calls in one process,
+# without a mesh. Writes to OUT the pickles the process wrote, the kernel
+# launches of the clustering run and of the ParallelCluster DIFT pass, each
+# DIFT pass's seconds, the TF32 flags after the port's set-up and the
+# feature of the ParallelCluster pass and the dense search's lists.
+MINING_DP_RANK = r"""
+import datetime, json, os, pickle, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from diffmining_tpu_torch.applications import parallel
+from diffmining_tpu_torch.baselines import doersch
+from diffmining_tpu_torch.ops import flash_attention as fa
+from diffmining_tpu_torch.parallel import mesh as pm
+from diffmining_tpu_torch.typicality import cluster, dift
+out, mode, args = sys.argv[1], sys.argv[2], sys.argv[3:]
+written, passes = [], []
+save = cluster.atomic_save_pickle
+cluster.atomic_save_pickle = lambda path, obj: (written.append(path), save(path, obj))
+forward = dift.SDFeaturizer.forward
+
+
+def timed(self, *a, **k):
+    t = time.perf_counter()
+    feat = forward(self, *a, **k)  # host numpy: synchronised
+    passes.append(time.perf_counter() - t)
+    return feat
+
+
+dift.SDFeaturizer.forward = timed
+kernels = (fa.flash_fwd_nomax, fa.flash_fwd_nomax_f32)
+result = {}
+t0 = time.perf_counter()
+if mode == "cli":
+    from diffmining_tpu_torch.__main__ import main
+    main(["cluster", *args])
+else:
+    cfg = json.loads(args[0])
+    mesh = None
+    if mode == "gloo":
+        # NCCL refuses two ranks on one card: the group is gloo's, made here
+        dist.init_process_group("gloo", init_method=f"tcp://{cfg['address']}", world_size=2, rank=cfg["rank"],
+                                timeout=datetime.timedelta(minutes=5))
+        mesh = pm.make_mesh(dp=2)
+    cl = cluster.Cluster("ftt", cfg["tree"], cfg["data"], cfg["cache"], model_path=cfg["pipe"], device="cuda",
+                         dtype=torch.float32, mesh=mesh)
+    cl.clustering("dift-161", k=1000, num_clusters=cfg["num_clusters"])
+    result["launches"] = {k.__name__: k.launches for k in kernels}
+    result["passes"] = list(passes)
+    # ParallelCluster's DIFT over the same mesh: one image, the France prompt
+    pc = parallel.ParallelCluster(cfg["geo"], cfg["geo"], cfg["cache"] + "_parallel", dift_sd=cl.dift.sd, mesh=mesh,
+                                  device="cuda", dtype=torch.float32)
+    pc.init_dift()
+    for k in kernels:
+        k.launches = 0
+    img = np.load(cfg["img"])
+    result["parallel_feat"] = pc.dift.forward(img, "France", t=161, uid=7).tolist()
+    result["parallel_launches"] = {k.__name__: k.launches for k in kernels}
+    if mesh is not None:
+        # dense_search over the two ranks at K = 5 (padded to 6)
+        store = doersch.FeatureStore(cfg["hog"], cfg["shards"], device="cuda", mesh=mesh)
+        shards = store.build_shards(cfg["hog_images"], "mining_dp", num_splits=2, batch_size=2)
+        ws = np.random.RandomState(5).randn(5, 2112).astype(np.float32) * 0.02
+        result["shards"], result["ws"] = shards, ws.tolist()
+        result["search"] = doersch.dense_search(ws, shards, top_k=5, mesh=mesh, device="cuda")
+        pm.destroy()
+result.setdefault("launches", {k.__name__: k.launches for k in kernels})
+result.setdefault("passes", passes)
+result.update(written=written, wall_s=time.perf_counter() - t0,
+              tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32])
+with open(out, "wb") as f:
+    pickle.dump(result, f)
+"""
+
+
+def phase_mining_dp(smi, pipeline_dir, sweep_dp):
+    """Mining over dp on one card, from phase 12's SD-v1.5-width export and
+    phase 20's images and plain bf16 typicality tree (2 labels x 4 512x512
+    PNGs at N=4), each run a process of its own, all five together. (a) The
+    cluster command in bf16 (DIFT-161, E=8, 4 clusters a label), plain and
+    as ``cluster --mesh_dp 1`` under ``torchrun --nproc_per_node 1``, an
+    NCCL group of one whose DIFT goes through the all-reduce: embeddings
+    and ranked clusters bit-equal; K1 launches (10 a 512px pass). (b) Two
+    ranks of a gloo group on this card (NCCL refuses two ranks on one GPU)
+    driving Cluster at float32 over dp 2, four draws a rank, against one
+    process at float32: each embedding within the CPU tests' feature
+    tolerance (rtol 1e-3, atol 2e-4), the largest difference printed; every
+    pickle written once, by rank 0; the TF32 flags after each process's
+    set-up; the float32 no-max launches on each rank. In the same
+    processes, ParallelCluster's DIFT of one image over the same mesh,
+    against one process within that tolerance; and dense_search at K = 5
+    (padded to 6) over the two ranks on HOG shards of the images, against
+    one process here: the same (bbox, path) lists, scores within 1e-4.
+    DIFT images/s of each process, over its passes: every process starts
+    cold and five share the card, so the rates are cold rates of processes
+    sharing one card, the gloo ranks' not a speed-up."""
+    import numpy as np
+    import torch
+
+    from diffmining_tpu_torch.baselines import doersch
+
+    work = os.path.join(ROOT, "build", "chip_smoke_mining_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "geo"))
+    labels, num_clusters = ["1920", "1960"], 4
+    per_pass = 10  # the gated self-attentions of a 512px UNet pass
+    data, tree = sweep_dp["data"], sweep_dp["tree"]
+    images = sorted(os.path.join(data, c, f) for c in labels for f in os.listdir(os.path.join(data, c)))
+    script = os.path.join(work, "rank.py")
+    with open(script, "w") as f:
+        f.write(MINING_DP_RANK)
+    from PIL import Image
+
+    img = np.asarray(Image.open(images[0]).convert("RGB"), np.float32) / 127.5 - 1.0
+    np.save(os.path.join(work, "img.npy"), img)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+
+    def run(tag, mode, args, launcher=()):
+        out = os.path.join(work, f"{tag}.pkl")
+        return subprocess.Popen([sys.executable, *launcher, script, out, mode, *args], cwd=ROOT, env=env), out
+
+    def cli_args(tag, dtype):
+        return ["-w", "ftt", "-d", data, "-t", tree, "-c", os.path.join(work, tag), "-m", pipeline_dir, "--cluster",
+                "--num_clusters", str(num_clusters), "--dtype", dtype]
+
+    def lib_cfg(tag, **extra):
+        return json.dumps(dict(tree=tree, data=data, cache=os.path.join(work, tag), pipe=pipeline_dir,
+                               num_clusters=num_clusters, geo=os.path.join(work, "geo"),
+                               img=os.path.join(work, "img.npy"), **extra))
+
+    address = f"127.0.0.1:{free_port()}"
+    procs = [run("plain_bf16", "cli", cli_args("plain_bf16", "bf16")),
+             run("nccl1_bf16", "cli", cli_args("nccl1_bf16", "bf16") + ["--mesh_dp", "1"],
+                 launcher=("-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1")),
+             run("one_fp32", "one", [lib_cfg("one_fp32")])]
+    procs += [run(f"gloo2_rank{r}", "gloo", [lib_cfg("gloo2_fp32", address=address, rank=r,
+                                                     hog=os.path.join(work, "hog"), shards=os.path.join(work, "shards"),
+                                                     hog_images=images)]) for r in range(2)]
+    t0 = time.perf_counter()
+    results = []
+    try:
+        for p, out in procs:
+            p.wait(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"mining dp: {p.args[-6:]} exited {p.returncode}")
+            with open(out, "rb") as f:
+                results.append(pickle.load(f))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    together_s = time.perf_counter() - t0
+    plain, group, one, *ranks = results
+
+    def embeddings(tag):
+        d = os.path.join(work, tag, "embeddings", "dift-161")
+        return {n: pickle.load(open(os.path.join(d, n), "rb")) for n in sorted(os.listdir(d))}
+
+    def crops(tag, member=True):
+        """Each label's member crops, {rank}-{member}-{num_clusters}_{id}.png;
+        without the member index (its order by distance to the centre) as
+        (rank, id)."""
+        names = {c: sorted(os.listdir(os.path.join(work, tag, "images", "clusters", "ranked", "dift-161", c)))
+                 for c in labels}
+        return names if member else {c: sorted((n.split("-")[0], n.split("_", 1)[1]) for n in v)
+                                     for c, v in names.items()}
+
+    def rates(r):
+        p = r["passes"]
+        return dict(passes=len(p), cold_images_per_s=len(p) / sum(p),
+                    warm_images_per_s=(len(p) - 1) / sum(p[1:]) if len(p) > 1 else None, first_pass_s=p[0],
+                    wall_s=r["wall_s"])
+
+    # (a) the NCCL group of one against the plain process, bf16
+    e_plain, e_group = embeddings("plain_bf16"), embeddings("nccl1_bf16")
+    n_patches = sum(len(pickle.load(open(os.path.join(work, "plain_bf16", "clusters", f"{c}.pkl"), "rb"))[0])
+                    for c in labels)  # every top patch (k_per_image 5 an image) is clustered
+    equal = sum(bool(np.array_equal(e_group[n], e_plain[n])) for n in e_plain) if set(e_plain) == set(e_group) else 0
+    k1 = [r["launches"]["flash_fwd_nomax"] for r in (plain, group)]
+    if len(e_plain) != n_patches or equal != len(e_plain) or crops("plain_bf16") != crops("nccl1_bf16") \
+            or k1 != [per_pass * len(plain["passes"])] * 2 or len(group["passes"]) != len(images):
+        raise AssertionError(f"mining dp (a): {equal}/{len(e_plain)} embeddings of the NCCL group of one bit-equal to "
+                             f"the plain process's ({len(e_group)} written), crops equal "
+                             f"{crops('plain_bf16') == crops('nccl1_bf16')}, K1 launches {k1} over "
+                             f"{len(plain['passes'])} and {len(group['passes'])} DIFT passes")
+    ra, rg = rates(plain), rates(group)
+    log(f"mining dp (a): cluster, bf16, DIFT-161 E=8 over {len(images)} 512px images ({n_patches} patches, "
+        f"{num_clusters} clusters a label): cluster --mesh_dp 1 under torchrun --nproc_per_node 1 (an NCCL group of "
+        f"one, its DIFT through the all-reduce) against the plain process: {equal}/{len(e_plain)} embeddings and the "
+        f"ranked clusters bit-equal; K1 launches {k1[1]} and {k1[0]} ({per_pass} a pass); DIFT {rg['cold_images_per_s']:.2f}"
+        f" and {ra['cold_images_per_s']:.2f} images/s cold (warm passes {rg['warm_images_per_s']:.2f} and "
+        f"{ra['warm_images_per_s']:.2f}; five processes sharing the card), on {smi}")
+
+    # (b) two gloo ranks at float32 against one process
+    e_one, e_gloo = embeddings("one_fp32"), embeddings("gloo2_fp32")
+    diffs = {n: float(np.abs(e_gloo[n] - e_one[n]).max()) for n in e_one if n in e_gloo}
+    beyond = [n for n in diffs if not np.allclose(e_gloo[n], e_one[n], rtol=1e-3, atol=2e-4)]
+    cache = os.path.join(work, "gloo2_fp32")
+    written = [[os.path.relpath(p, cache) for p in r["written"]] for r in ranks]
+    want_written = sorted([os.path.join("clusters", f"{c}.pkl") for c in labels]
+                          + [os.path.join("embeddings", "dift-161", n) for n in e_gloo])
+    f32 = [r["launches"]["flash_fwd_nomax_f32"] for r in ranks]
+    flags = [r["tf32"] for r in (*ranks, one)]
+    pf = [np.asarray(r["parallel_feat"], np.float32) for r in (*ranks, one)]
+    pf_diff = float(np.abs(pf[0] - pf[2]).max())
+    pf_rel = pf_diff / float(np.abs(pf[2]).max())
+    if set(e_gloo) != set(e_one) or len(e_one) != n_patches or beyond or sorted(written[0]) != want_written \
+            or written[1] or any(f != [False, False] for f in flags) \
+            or f32 != [per_pass * len(images)] * 2 or one["launches"]["flash_fwd_nomax_f32"] != per_pass * len(images) \
+            or any(r["launches"]["flash_fwd_nomax"] for r in (*ranks, one)) \
+            or not np.array_equal(pf[0], pf[1]) or not np.allclose(pf[0], pf[2], rtol=1e-3, atol=2e-4) \
+            or [r["parallel_launches"]["flash_fwd_nomax_f32"] for r in ranks] != [per_pass] * 2:
+        raise AssertionError(f"mining dp (b): embeddings {sorted(e_gloo)} against {sorted(e_one)}, beyond rtol 1e-3, "
+                             f"atol 2e-4: {beyond} (largest difference {max(diffs.values(), default=0):.3g}); rank 0 "
+                             f"wrote {sorted(written[0])}, rank 1 {written[1]}; TF32 flags {flags}; launches "
+                             f"{[r['launches'] for r in (*ranks, one)]}; ParallelCluster DIFT off by {pf_diff:.3g}, "
+                             f"launches {[r['parallel_launches'] for r in ranks]}")
+    same_clusters = crops("gloo2_fp32", member=False) == crops("one_fp32", member=False)
+    same_order = crops("gloo2_fp32") == crops("one_fp32")
+    # dense_search over the two ranks against one process here, on rank 0's shards
+    want = doersch.dense_search(np.asarray(ranks[0]["ws"], np.float32), ranks[0]["shards"], top_k=5, device="cuda")
+    got = ranks[0]["search"]
+    search_diff = max(abs(g[0] - w[0]) for gl, wl in zip(got, want) for g, w in zip(gl, wl))
+    if len(got) != 5 or len(want) != 5 or ranks[1]["search"] != got or search_diff > 1e-4 \
+            or [[h[1:] for h in l] for l in got] != [[h[1:] for h in l] for l in want]:
+        raise AssertionError(f"mining dp (b): dense_search over two ranks {got} against one process {want}")
+    r0, r1, ro = (rates(r) for r in (*ranks, one))
+    log(f"mining dp (b): two gloo ranks on this card, float32, dp 2 (four draws a rank): {len(e_gloo)} embeddings, "
+        f"written once by rank 0 ({len(written[0])} pickles; rank 1 none), within rtol 1e-3, atol 2e-4 of one "
+        f"process, largest difference {max(diffs.values()):.3g}; ranked clusters "
+        + ("the same" if same_clusters else "not the same (near-equal distances)")
+        + (", members in the same order" if same_order else ", members in another order (near-equal distances)")
+        + f"; float32 no-max launches {f32} a rank ({one['launches']['flash_fwd_nomax_f32']} in one process); TF32 "
+        f"{flags[0]} after each set-up; ParallelCluster's DIFT over the mesh {pf_diff:.3g} off one process "
+        f"({pf_rel:.3g} of its largest element), "
+        f"{ranks[0]['parallel_launches']['flash_fwd_nomax_f32']} launches a rank; dense_search at K=5 (padded to 6) "
+        f"the same lists as one process, scores within {search_diff:.3g}; DIFT images/s cold {r0['cold_images_per_s']:.2f}"
+        f" and {r1['cold_images_per_s']:.2f} (two ranks sharing one card with three other processes, not a speed-up; "
+        f"warm passes {r0['warm_images_per_s']:.2f} and {r1['warm_images_per_s']:.2f}), one process "
+        f"{ro['cold_images_per_s']:.2f} ({ro['warm_images_per_s']:.2f} warm); five processes together "
+        f"{together_s:.1f} s, on {smi}")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(sweep_dp["work"], ignore_errors=True)
+    return dict(images=len(images), patches=n_patches, num_clusters=num_clusters,
+                nccl_group_of_one=dict(bit_equal=equal, k1_launches=k1[1], plain_k1_launches=k1[0],
+                                       dift=rg, plain_dift=ra),
+                gloo_dp2_fp32=dict(max_abs=max(diffs.values()), same_clusters=same_clusters, same_member_order=same_order,
+                                   written_per_rank=[len(w) for w in written],
+                                   nomax_f32_launches_per_rank=f32,
+                                   one_process_nomax_f32_launches=one["launches"]["flash_fwd_nomax_f32"],
+                                   tf32_after_setup=flags, parallel_dift_max_abs=pf_diff, parallel_dift_max_rel=pf_rel,
+                                   parallel_dift_launches_per_rank=[r["parallel_launches"]["flash_fwd_nomax_f32"]
+                                                                     for r in ranks],
+                                   dense_search_max_abs=search_diff, dift_per_rank=[r0, r1], one_process_dift=ro),
+                together_s=together_s, card=smi)
 
 
 TRAIN_KERNELS = {
@@ -3593,6 +3869,29 @@ def apps_bundle():
     log(f"apps: SD-v1.5 widths (UNet, VAE with its decoder, CLIP ViT-L text), random weights (seed {SEED}), bf16, "
         f"built in {time.perf_counter() - t0:.1f} s")
     return sd
+
+
+def sd15_pipeline_dir():
+    """A pipeline dir of SD-v1.5-width random weights from SEED, float32, in
+    place of phase 12's export when phases 16, 20 and 21 run alone:
+    ``d = s.sd15_pipeline_dir(); sweep = s.phase_sweep_dp(smi, d);
+    s.phase_mining_dp(smi, d, sweep)``."""
+    import torch
+
+    from diffmining_tpu_torch.models.clip import CLIP_VIT_L_TEXT
+    from diffmining_tpu_torch.models.unet import SD15_UNET
+    from diffmining_tpu_torch.models.vae import SD15_VAE
+    from diffmining_tpu_torch.typicality.compute import SD
+    from diffmining_tpu_torch.utils.export import save_pipeline_dir
+
+    out = os.path.join(ROOT, "build", "chip_smoke_export")
+    shutil.rmtree(out, ignore_errors=True)
+    sd = SD.init_random("ftt", [], SD15_UNET, SD15_VAE, CLIP_VIT_L_TEXT, seed=SEED, dtype=torch.float32, device="cuda")
+    save_pipeline_dir(out, sd.unet.config, sd.unet.state_dict(), sd.vae.config, sd.vae.state_dict(), sd.clip.config,
+                      sd.clip.state_dict(), sd.schedule)
+    del sd
+    torch.cuda.empty_cache()
+    return out
 
 
 def geo_bundle():
@@ -3685,8 +3984,12 @@ def main() -> int:
     verify = phase_verify_checkpoint(smi, export_dir)
     done("verify_checkpoint")
     sweep_dp = phase_sweep_dp(smi, export_dir)
-    shutil.rmtree(export_dir, ignore_errors=True)
     done("sweep dp")
+    mining_dp = phase_mining_dp(smi, export_dir, sweep_dp)
+    for k in ("work", "data", "tree"):
+        sweep_dp.pop(k)
+    shutil.rmtree(export_dir, ignore_errors=True)
+    done("mining dp")
     shutil.rmtree(pnp_work, ignore_errors=True)
     shutil.rmtree(mining_work["root"], ignore_errors=True)
 
@@ -3694,7 +3997,8 @@ def main() -> int:
                "train preview": train["preview_launches"], "pnp": pnp["launches"], "parallel": parallel["launches"],
                "clip+dift-161": clip["launches"]["flash_fwd_nomax"],
                "sweep dp": sweep_dp["nccl_group_of_one"]["k1_launches"]
-               + sweep_dp["xray_nccl_group_of_one"]["launches"]}
+               + sweep_dp["xray_nccl_group_of_one"]["launches"],
+               "mining dp": mining_dp["nccl_group_of_one"]["k1_launches"]}
     nomax = kernel_entry(
         "flash_fwd_nomax", "diffmining_tpu_torch/csrc/flash_fwd_nomax.cu",
         "diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot); "
@@ -3715,7 +4019,8 @@ def main() -> int:
         "online": {"clip crop 448": large["crop448"]["launches"]["flash_fwd_online_f32"]},
         "nomax": {"clip crop 896": large["crop896"]["launches"]["flash_fwd_nomax_f32"],
                   "f32 sweep": sweep_f32["launches"]["flash_fwd_nomax_f32"],
-                  "sweep dp": sum(sweep_dp["gloo_dp2_fp32"]["nomax_f32_launches_per_rank"])},
+                  "sweep dp": sum(sweep_dp["gloo_dp2_fp32"]["nomax_f32_launches_per_rank"]),
+                  "mining dp": sum(mining_dp["gloo_dp2_fp32"]["nomax_f32_launches_per_rank"])},
         "lse": {"train f32": train_f32["launches"]["flash_fwd_lse_f32"]},
         "K5": {"train f32": train_f32["launches"]["flash_bwd_dq_f32"]},
         "K6": {"train f32": train_f32["launches"]["flash_bwd_dkv_f32"]},
@@ -3742,6 +4047,7 @@ def main() -> int:
     print(json.dumps({"doersch": doersch}))
     print(json.dumps({"verify_checkpoint": verify}))
     print(json.dumps({"sweep_dp": sweep_dp}))
+    print(json.dumps({"mining_dp": mining_dp}))
     print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

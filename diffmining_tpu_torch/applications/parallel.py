@@ -23,7 +23,13 @@ The reference's quirk is kept behind ``faithful_centers=True``: the cluster
 (np.argmax, reference cluster.py:281). The score maps and DIFT run on
 ``device`` (the card unless the caller asks for the CPU).
 
+With a mesh (``--mesh_dp`` under torchrun, one process a GPU) the compute
+stage is typicality's sweep over dp and the cluster stage's DIFT ensemble
+shards over dp; rank 0 alone writes the shared files, and every rank
+decides what is cached before any rank writes.
+
     python -m diffmining_tpu_torch parallel -i PARALLEL -t TREE -c CACHE -m PIPELINE_DIR --cluster
+    torchrun --nproc_per_node 2 -m diffmining_tpu_torch parallel ... --cluster --mesh_dp 2
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import pickle
 import random
 from collections import defaultdict
 from os.path import join
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -42,9 +48,11 @@ from PIL import Image
 
 from diffmining_tpu_torch.ops.kmeans import KMeans
 from diffmining_tpu_torch.ops.pool import top_patches, typicality_map
+from diffmining_tpu_torch.parallel.mesh import Mesh, cli_mesh, destroy, host_barrier, is_writer
 from diffmining_tpu_torch.typicality.cluster import Cluster, mean_agg, median_agg
 from diffmining_tpu_torch.typicality.compute import DTYPES, SD, D, Typicality
 from diffmining_tpu_torch.typicality.dift import SDFeaturizer
+from diffmining_tpu_torch.utils.artifacts import atomic_save_pickle
 from diffmining_tpu_torch.utils.device import resolve_device
 from diffmining_tpu_torch.utils.figures import add_border, hcat, vcat
 from diffmining_tpu_torch.utils.images import array_from_uint8, image_uid
@@ -58,10 +66,11 @@ class ParallelTypicality(Typicality):
     parallel-dataset/compute.py:186-263)."""
 
     def __init__(self, model_path, dataset_path, typicality_path, sd=None, N=100, t_min=0.0, t_max=1.0,
-                 batch_images=8, dtype=torch.bfloat16, device="cuda", draws: Optional[Callable] = None):
+                 batch_images=8, dtype=torch.bfloat16, device="cuda", draws: Optional[Callable] = None,
+                 mesh: Optional[Mesh] = None):
         super().__init__(
             "geo", model_path, dataset_path, typicality_path, t_min=t_min, t_max=t_max, sd=sd, N=N,
-            batch_images=batch_images, dtype=dtype, device=device, draws=draws,
+            batch_images=batch_images, dtype=dtype, device=device, draws=draws, mesh=mesh,
         )
 
     def get_seeds_(self, c: str) -> List[str]:
@@ -85,15 +94,14 @@ class ParallelCluster:
         faithful_centers: bool = True,
         clip_dir: Optional[str] = None,
         clip_bundle: Optional[dict] = None,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         device="cuda",
         dtype=torch.bfloat16,
         dift_draws: Optional[Callable] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("--mesh_dp (DIFT over a device mesh) is not ported yet (ROADMAP A12)")
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.mesh = mesh  # the DIFT ensemble over dp; rank 0 writes
         self.typ = ParallelTypicality(None, dataset_path, typicality_path, sd=sd, device=device)
         self.D = self.typ.D
         self.parallel = self.typ.parallel
@@ -175,34 +183,40 @@ class ParallelCluster:
             if sd is None:
                 assert self.model_path is not None, "DIFT features need a model"
                 sd = SD.from_pipeline_dir("geo", self.model_path, [], dtype=self.dtype, device=self.device)
-            self.dift = SDFeaturizer(sd, draws=self.dift_draws)
+            self.dift = SDFeaturizer(sd, mesh=self.mesh, draws=self.dift_draws)
 
-    def _cached(self, sub: str, idd: str, fn):
-        emb_dir = join(self.cache_path, "embeddings", sub)
-        os.makedirs(emb_dir, exist_ok=True)
-        pkl_file = join(emb_dir, f"{idd}.pkl")
-        if os.path.isfile(pkl_file):
+    def _pkl(self, sub: str, idd: str) -> str:
+        return join(self.cache_path, "embeddings", sub, f"{idd}.pkl")
+
+    def _cached(self, sub: str, idd: str, fn, hit: Optional[bool] = None):
+        """The embedding pickle of ``idd``, or ``fn()``, which rank 0 then
+        writes. ``hit`` is whether the pickle was there when every rank
+        listed the cache (``compute_embeddings``); None: look now."""
+        pkl_file = self._pkl(sub, idd)
+        if os.path.isfile(pkl_file) if hit is None else hit:
             with open(pkl_file, "rb") as f:
                 return pickle.load(f)
         out = fn()
-        with open(pkl_file, "wb") as f:
-            pickle.dump(out, f)
+        if is_writer(self.mesh):
+            atomic_save_pickle(pkl_file, out)
         return out
 
     def embed_batch(self, images: Sequence[Image.Image], t: Optional[int], idd: str, bbox,
-                    use_dift: bool = True, use_clip: bool = False) -> np.ndarray:
+                    use_dift: bool = True, use_clip: bool = False, hits: Optional[dict] = None) -> np.ndarray:
         """The per-country features of the same box in every translation,
         concatenated (reference cluster.py:152-190); bbox = (y0, x0, y1, x1).
         DIFT: the per-country patch features; CLIP: the per-country crop
-        embeddings (each L2-normalised); clip+dift: [clip | dift]."""
+        embeddings (each L2-normalised); clip+dift: [clip | dift]. ``hits``:
+        the cache listing of ``compute_embeddings``, {(sub, idd): cached}."""
         y0, x0, y1, x1 = bbox
+        hits = hits or {}
         parts = []
         if use_clip:
             def clip_feats():
                 self.init_clip()
                 return np.concatenate([self._clip_embed(pil.crop((y0, x0, y1, x1))) for pil in images])
 
-            parts.append(self._cached("clip", idd, clip_feats))
+            parts.append(self._cached("clip", idd, clip_feats, hits.get(("clip", idd))))
         if use_dift:
             def dift_feats():
                 self.init_dift()
@@ -212,22 +226,33 @@ class ParallelCluster:
                     for c, pil in zip(self.countries, images)
                 ])
 
-            parts.append(self._cached(f"dift-{t}", idd, dift_feats))
+            parts.append(self._cached(f"dift-{t}", idd, dift_feats, hits.get((f"dift-{t}", idd))))
         return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    @staticmethod
+    def _box(row) -> Tuple[int, int, int, int]:
+        return tuple(int(row[c]) for c in ["x_start", "y_start", "x_end", "y_end"])
 
     def compute_embeddings(self, df: pd.DataFrame, feature_which: str = "dift-261"):
         use_dift, use_clip, t = Cluster.parse_feature_which(feature_which)
         X, ids, pils, ds, origins = [], [], [], [], []
         for i in range(df.shape[0]):
             row = df.iloc[i]
+            x0, y0, x1, y1 = self._box(row)
+            ids.append(os.path.splitext(os.path.split(row["path_" + row["origin"]])[1])[0] + f"_{x0}-{y0}-{x1}-{y1}")
+        subs = (["clip"] if use_clip else []) + ([f"dift-{t}"] if use_dift else [])
+        hits = {(sub, idd): os.path.isfile(self._pkl(sub, idd)) for sub in subs for idd in ids}
+        # every rank has listed the cache before rank 0 writes: the ranks
+        # send the same boxes, in the same order, through the DIFT all-reduce
+        host_barrier("parallel_embeddings")
+        for i, idd in enumerate(ids):
+            row = df.iloc[i]
             ds.append(row["D"])
             origins.append(row["origin"])
             images = [Image.open(row["path_" + c]).convert("RGB") for c in self.countries]
-            x0, y0, x1, y1 = (int(row[c]) for c in ["x_start", "y_start", "x_end", "y_end"])
-            name = os.path.split(row["path_" + row["origin"]])[1]
-            idd = os.path.splitext(name)[0] + f"_{x0}-{y0}-{x1}-{y1}"
-            ids.append(idd)
-            X.append(self.embed_batch(images, t, idd, (y0, x0, y1, x1), use_dift=use_dift, use_clip=use_clip))
+            x0, y0, x1, y1 = self._box(row)
+            X.append(self.embed_batch(images, t, idd, (y0, x0, y1, x1), use_dift=use_dift, use_clip=use_clip,
+                                      hits=hits))
             bordered = [
                 add_border(img.crop((y0, x0, y1, x1)), "red" if c == row["origin"] else "transparent")
                 for c, img in zip(self.countries, images)
@@ -277,21 +302,24 @@ class ParallelCluster:
 
     def clustering(self, feature_which: str = "dift-161", k_per_image: int = 5, k: int = 1000,
                    num_clusters: int = 32, num_components: int = 32):
-        cache = join(self.cache_path, "clusters")
-        os.makedirs(cache, exist_ok=True)
-        fp = join(cache, "all.pkl")
-        if not os.path.isfile(fp) or self.recache:
-            dfs = self.df_PD(k_per_image=k_per_image)
-            with open(fp, "wb") as f:
-                pickle.dump(dfs, f)
-        with open(fp, "rb") as f:
-            df, _df_random = pickle.load(f)
+        fp = join(self.cache_path, "clusters", "all.pkl")
+        cached = os.path.isfile(fp) and not self.recache
+        host_barrier("parallel_tables")  # every rank has decided before rank 0 writes
+        if cached:
+            with open(fp, "rb") as f:
+                df, _df_random = pickle.load(f)
+        else:
+            df, _df_random = dfs = self.df_PD(k_per_image=k_per_image)
+            if is_writer(self.mesh):
+                atomic_save_pickle(fp, dfs)
         df = df.sort_values(by=["D"], ascending=False).reset_index(drop=True).iloc[:k]
         embs = self.compute_embeddings(df, feature_which=feature_which)
         if not embs[0]:
             return []
         num_clusters = min(num_clusters, len(embs[0]))
         clusters = self.cluster(*embs, num_clusters=num_clusters, num_components=num_components)
+        if not is_writer(self.mesh):
+            return clusters
         parent = join(self.cache_path, "images", "clusters", str(k), str(num_clusters), "ranked", feature_which)
         os.makedirs(parent, exist_ok=True)
         for i, (members, _score) in enumerate(clusters):
@@ -301,6 +329,8 @@ class ParallelCluster:
 
     def make_figure(self, figure_path: str, k: int, num_clusters: int, hard_limit: int = 6, top_k: int = 5,
                     min_im: int = 5, feature_which: str = "dift-161"):
+        if not is_writer(self.mesh):
+            return
         dirr = join(self.cache_path, "images", "clusters", str(k), str(num_clusters), "ranked", feature_which)
         if not os.path.isdir(dirr):
             return
@@ -367,22 +397,30 @@ def main(argv=None):
                    help="converted CLIPModel dir for the clip feature modes "
                    "(the reference's default is models/clip-vit-base-patch32)")
     p.add_argument("--mesh_dp", type=int, default=None,
-                   help="shard the sweep batch and the DIFT ensemble over GPUs (multi-GPU: not ported yet, "
-                   "ROADMAP A12)")
+                   help="shard the sweep batch and the DIFT ensemble over this many processes, one GPU each "
+                   "(default under torchrun: every rank); above 1, launch under torchrun --nproc_per_node MESH_DP")
     p.add_argument("--dtype", type=str, default="bf16", choices=sorted(DTYPES),
                    help="compute dtype: bf16 (default), or fp32 for validation runs; both run on the GPU "
                    "(float32 flash kernels) and with --device cpu")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
+    try:
+        _run(args)
+    finally:
+        destroy()
 
-    if args.mesh_dp is not None:
-        raise SystemExit("--mesh_dp: multi-GPU parallel mining is not ported yet (ROADMAP A12)")
 
+def _run(args) -> None:
+    mesh = cli_mesh("parallel", args.mesh_dp, args.device)
     if args.compute or args.make_submission:
         typ = ParallelTypicality(args.model_path, args.dataset_path, args.typicality_path, N=args.N,
-                                 t_min=args.t_min, t_max=args.t_max, dtype=DTYPES[args.dtype], device=args.device)
+                                 t_min=args.t_min, t_max=args.t_max, dtype=DTYPES[args.dtype], device=args.device,
+                                 mesh=mesh)
         if args.make_submission:
-            typ.make_submission(args.dataset_path, args.submission_path, sub_split=args.sub_split)
+            # one writer for the shard files, then a barrier so no rank reads a half-written one
+            if is_writer(mesh):
+                typ.make_submission(args.dataset_path, args.submission_path, sub_split=args.sub_split)
+            host_barrier("parallel_submission")
         if args.compute and not args.dont_compute:
             typ.compute_submission(join(args.submission_path, f"{args.split_id}.txt"))
         return
@@ -391,7 +429,7 @@ def main(argv=None):
     cl = ParallelCluster(
         args.typicality_path, args.dataset_path, args.cache_path, args.recache,
         model_path=args.model_path, aggregate=args.aggregate, kx=args.k, ky=args.k,
-        clip_dir=args.clip_dir, device=args.device, dtype=DTYPES[args.dtype],
+        clip_dir=args.clip_dir, mesh=mesh, device=args.device, dtype=DTYPES[args.dtype],
     )
     if args.cluster and not args.figures_only:
         cl.clustering(args.feature_which, k=k, num_clusters=args.num_clusters, num_components=args.num_components)

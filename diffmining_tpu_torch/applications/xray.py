@@ -46,7 +46,7 @@ import torch
 from PIL import Image
 
 from diffmining_tpu_torch.ops import pool
-from diffmining_tpu_torch.parallel.mesh import Mesh, destroy, host_barrier, initialize_distributed, make_mesh
+from diffmining_tpu_torch.parallel.mesh import Mesh, cli_mesh, destroy, host_barrier, is_writer
 from diffmining_tpu_torch.typicality.compute import DTYPES, SD, sweep_images
 from diffmining_tpu_torch.typicality.engine import SeededDraws, TypicalityEngine
 from diffmining_tpu_torch.utils.artifacts import atomic_save_npy
@@ -206,7 +206,7 @@ class XRayTypicality:
     def main(self, batch_images: int = 4) -> Tuple[Dict, Dict]:
         """Every disease's maps (cached), box metrics, report.json and
         auc.json; over a mesh the ranks other than 0 return empty dicts."""
-        writer = self.mesh is None or self.mesh.rank == 0
+        writer = is_writer(self.mesh)
         report, auc = {}, {}
         for disease in self.diseases:
             report[disease], auc[disease] = {}, {}
@@ -399,25 +399,13 @@ def main(argv=None):
     if args.compare:
         compare_json_files(*args.compare)
         return
-    # the JAX command has no --distributed: under torchrun's environment the
-    # process joins its group (NCCL even for a group of one), and the mesh
-    # takes every rank unless --mesh_dp says otherwise
-    if "RANK" in os.environ:
-        initialize_distributed(device=args.device)
-        if args.mesh_dp is None:
-            args.mesh_dp = torch.distributed.get_world_size()
-    elif args.mesh_dp is not None and args.mesh_dp > 1:
-        raise SystemExit(
-            f"xray --mesh_dp {args.mesh_dp} runs one process a GPU (ROADMAP A12a): launch it as "
-            f"`torchrun --nproc_per_node {args.mesh_dp} -m diffmining_tpu_torch xray ... --mesh_dp {args.mesh_dp}`"
-        )
     try:
-        mesh = make_mesh(dp=args.mesh_dp) if args.mesh_dp is not None else None
+        mesh = cli_mesh("xray", args.mesh_dp, args.device)
         model_path = args.model_path
         if not os.path.isfile(join(model_path, "model_index.json")):
             from diffmining_tpu_torch.finetuning.export import export_model
 
-            if mesh is None or mesh.rank == 0:  # one writer; the others read its export
+            if is_writer(mesh):  # one writer; the others read its export
                 export_model("xray", model_path, device=args.device)
             host_barrier("xray_export")
             model_path = export_model("xray", model_path, device=args.device)

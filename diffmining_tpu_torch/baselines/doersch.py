@@ -22,7 +22,16 @@ is ops/svm.py. It runs on ``device``, the card unless the caller asks for
 the CPU; the host merges per-block top-k lists as the JAX package does. A
 fold's masked search multiplies the scores by the mask as JAX does, so a
 masked position scores 0 and can win where every open score is negative.
-Multi-GPU dense search (``--mesh_dp``) is not ported yet (ROADMAP A12).
+
+With a mesh (``--mesh_dp`` under torchrun, one process a GPU) the dense
+search shards the detector axis over dp, padded to a multiple of dp with
+the last detector as JAX pads it (doersch.py:183-240): a rank searches its
+K/dp detectors and ``all_gather_rows`` hands every rank every detector's
+best score and position, so every rank walks the same heaps. The SVM
+training stays replicated, as in JAX. Rank 0 alone writes the HOG cache,
+the shards, the splits and the detectors, behind a barrier.
+
+    torchrun --nproc_per_node 2 -m diffmining_tpu_torch doersch ... --mesh_dp 2
 """
 from __future__ import annotations
 
@@ -43,12 +52,21 @@ from PIL import Image
 
 from diffmining_tpu_torch.ops.hog import hoglab_features, normalize_features
 from diffmining_tpu_torch.ops.svm import fit_linear_svm_batch, train_svm
+from diffmining_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    cli_mesh,
+    collective_rows,
+    destroy,
+    host_barrier,
+    is_writer,
+    pad_to_multiple,
+)
+from diffmining_tpu_torch.utils.artifacts import atomic_save_pickle
 from diffmining_tpu_torch.typicality.templates import get_decade
 from diffmining_tpu_torch.utils.device import resolve_device
 from diffmining_tpu_torch.utils.figures import add_border, hcat, vcat
 from diffmining_tpu_torch.utils.weights import read_safetensors, write_safetensors
-
-MESH_MESSAGE = "--mesh_dp (dense search over a device mesh) is not ported yet (ROADMAP A12)"
 
 
 def iou(a, b) -> float:
@@ -80,28 +98,42 @@ def search_block(feats: torch.Tensor, ws: torch.Tensor, mask: Optional[torch.Ten
 
 class FeatureStore:
     """Per-image fp16 .npy cache plus sharded .safetensors blocks of
-    same-shape feature maps, keyed by the ';;'-joined image paths."""
+    same-shape feature maps, keyed by the ';;'-joined image paths. With a
+    mesh, rank 0 builds and writes both and the other ranks read them."""
 
-    def __init__(self, cache_path: str, shard_path: str, device="cuda"):
+    def __init__(self, cache_path: str, shard_path: str, device="cuda", mesh: Optional[Mesh] = None):
         self.cache_path = cache_path
         self.shard_path = shard_path
         self.device = device
+        self.mesh = mesh
         os.makedirs(cache_path, exist_ok=True)
 
     def image_features(self, path: str) -> np.ndarray:
         key = os.path.abspath(path).replace("/", "_")
         fpath = join(self.cache_path, key + ".npy")
-        if not os.path.isfile(fpath):
+        if os.path.isfile(fpath):
+            feats = np.load(fpath)
+        else:
             img = np.asarray(Image.open(path).convert("RGB"))
-            np.save(fpath, hoglab_features(img, device=self.device).astype(np.float16))
-        return normalize_features(np.load(fpath).astype(np.float32))
+            feats = hoglab_features(img, device=self.device).astype(np.float16)
+            if is_writer(self.mesh):
+                np.save(fpath, feats)
+        return normalize_features(feats.astype(np.float32))
 
     def build_shards(self, paths: Sequence[str], tag: str, num_splits: int = 4, batch_size: int = 16) -> List[str]:
+        """The shard files of ``paths`` under ``tag``, listed in its manifest:
+        rank 0 builds them if the manifest is missing, and every rank reads
+        the manifest after a barrier."""
+        manifest = join(self.shard_path, tag, f"{tag}_paths.json")
+        if is_writer(self.mesh) and not os.path.isfile(manifest):
+            self._write_shards(paths, tag, num_splits, batch_size)
+        host_barrier("doersch_shards")
+        with open(manifest) as f:
+            return json.load(f)
+
+    def _write_shards(self, paths: Sequence[str], tag: str, num_splits: int, batch_size: int) -> None:
         shard_dir = join(self.shard_path, tag)
         manifest = join(shard_dir, f"{tag}_paths.json")
-        if os.path.isfile(manifest):
-            with open(manifest) as f:
-                return json.load(f)
         os.makedirs(shard_dir, exist_ok=True)
         by_shape: Dict[Tuple[int, int], List[str]] = defaultdict(list)
         for p in paths:
@@ -124,7 +156,6 @@ class FeatureStore:
             out_paths.append(fp)
         with open(manifest, "w") as f:
             json.dump(out_paths, f)
-        return out_paths
 
 
 def load_shard(path: str) -> Dict[str, np.ndarray]:
@@ -204,12 +235,16 @@ def dense_search(
 ) -> List[List[tuple]]:
     """For each detector, the top_k (score, bbox, path[, feature]) over all
     images; ``fold`` masks a deterministic random subset of grid positions
-    per shard."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_MESSAGE)
+    per shard. With a mesh, this rank searches its share of the detectors
+    (K padded to a multiple of dp by repeating the last one) and the ranks
+    gather every detector's best score and position."""
     dev = resolve_device(device)
     K = ws.shape[0]
-    ws_t = torch.as_tensor(np.asarray(ws, np.float32), device=dev)
+    ws = np.asarray(ws, np.float32)
+    pad = pad_to_multiple(K, 1 if mesh is None else mesh.dp) - K
+    if pad:
+        ws = np.concatenate([ws, np.repeat(ws[-1:], pad, axis=0)])
+    ws_t = torch.as_tensor(ws[collective_rows(K + pad, mesh)], device=dev)
     heaps: List[List[tuple]] = [[] for _ in range(K)]
     counter = 0
     for path_id, tensors in _prefetch_shards(shard_paths):
@@ -221,7 +256,8 @@ def dense_search(
             if fold is not None:
                 mask = torch.as_tensor(fold_mask(path_id, B, W * H, fold), device=dev)
             best_t, arg_t = search_block(feats, ws_t, mask)
-            best, arg = best_t.cpu().numpy(), arg_t.cpu().numpy()
+            best = all_gather_rows(best_t, mesh)[:K].cpu().numpy()
+            arg = all_gather_rows(arg_t, mesh)[:K].cpu().numpy()
             # only candidates that can enter a heap are visited in Python
             thresholds = np.asarray([h[0][0] if len(h) >= top_k else -np.inf for h in heaps], np.float32)
             gate = best > thresholds[:, None]
@@ -274,10 +310,9 @@ def random_sample(shard_paths: Sequence[str], fold=None, num_samples: int = 1000
 
 class Doersch:
     def __init__(self, main_dir: str, which: str, dataset_path: str, seed: int = 42,
-                 how_many: int = 25000, threshold: int = 50, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(MESH_MESSAGE)
+                 how_many: int = 25000, threshold: int = 50, mesh: Optional[Mesh] = None, device="cuda"):
         self.main_dir = main_dir
+        self.mesh = mesh  # the dense searches' detector axis over dp; rank 0 writes
         self.which = which
         self.seed = seed
         self.how_many = how_many
@@ -286,7 +321,7 @@ class Doersch:
         load = {"geo": self._load_geo, "ftt": self._load_ftt, "cars": self._load_cars}[which]
         load(dataset_path)
         self.store = FeatureStore(join(main_dir, which, "hog_cache"), join(main_dir, which, "safetensors"),
-                                  device=self.device)
+                                  device=self.device, mesh=mesh)
         self.paths = {c: list(self.get_seeds(c)) for c in self.categories()}
 
     # --- dataset loaders (the typicality protocols) ---
@@ -331,10 +366,9 @@ class Doersch:
 
     def _cached_shuffle(self, fname: str, build) -> List[str]:
         fp = join(self.main_dir, self.which, fname)
-        if not os.path.isfile(fp):
-            os.makedirs(os.path.dirname(fp), exist_ok=True)
-            with open(fp, "wb") as f:
-                pickle.dump(build(), f)
+        if is_writer(self.mesh) and not os.path.isfile(fp):
+            atomic_save_pickle(fp, build())
+        host_barrier("doersch_split")  # the other ranks read rank 0's file
         with open(fp, "rb") as f:
             return pickle.load(f)
 
@@ -423,7 +457,7 @@ class Doersch:
         for start in range(0, len(patches), batch_size):
             chunk = patches[start:start + batch_size]
             ws = self.detector_vectors(chunk)
-            results = dense_search(ws, shards, top_k=50, device=self.device)
+            results = dense_search(ws, shards, top_k=50, mesh=self.mesh, device=self.device)
             for j, bf in enumerate(results):
                 idx = start + j
                 meta["discriminative-20"][idx] = sum(1 for y in bf[:20] if y[-1] in pos_set)
@@ -465,15 +499,19 @@ class Doersch:
     def initialize_classifier(self, c: str, num_detectors: int = 1000):
         fp = join(self.main_dir, self.which, c,
                   f"init_ws_{self.seed}_{self.threshold}_{self.how_many}_{num_detectors}_hog.pkl")
-        if not os.path.isfile(fp):
-            os.makedirs(os.path.dirname(fp), exist_ok=True)
-            patches = self.init_patches(c, self.how_many)
-            stats = self.init_detectors(c, patches)
-            ranked = self.rank_init_detectors(num_detectors, stats, patches)
-            with open(fp, "wb") as f:
-                pickle.dump(ranked, f)
-        with open(fp, "rb") as f:
-            return pickle.load(f)
+        cached = os.path.isfile(fp)
+        # every rank has decided before rank 0 writes: all run the dense
+        # searches of the init together, or none does
+        host_barrier("doersch_init")
+        if cached:
+            with open(fp, "rb") as f:
+                return pickle.load(f)
+        patches = self.init_patches(c, self.how_many)
+        stats = self.init_detectors(c, patches)
+        ranked = self.rank_init_detectors(num_detectors, stats, patches)
+        if is_writer(self.mesh):
+            atomic_save_pickle(fp, ranked)
+        return ranked
 
     # --- iterative SVM clustering ---
 
@@ -521,18 +559,28 @@ class Doersch:
         neg_shards = self.store.build_shards(self.negative_paths(c), f"{c}-neg", num_splits=4)
 
         det_dir = join(self.main_dir, self.which, c, "detectors", str(self.threshold))
-        os.makedirs(det_dir, exist_ok=True)
+        writer = is_writer(self.mesh)
+        if writer:
+            os.makedirs(det_dir, exist_ok=True)
         data = []
         for start in range(0, len(init), batch_size):
             chunk = init[start:start + batch_size]
             fps = [join(det_dir, f"5_{start + j}.pkl") for j in range(len(chunk))]
-            if not all(os.path.isfile(fp) for fp in fps):
+            cached = all(os.path.isfile(fp) for fp in fps)
+            # as initialize_classifier: the chunk's searches run on every rank or on none
+            host_barrier("doersch_detectors")
+            if cached:
+                for fp in fps:
+                    with open(fp, "rb") as f:
+                        accuracy, _e, top_detections, _w = pickle.load(f)
+                    data.append((accuracy, top_detections[:top_elem]))
+            else:
                 ws = np.stack([w for _k, _p, w in chunk])
                 hard_negatives: List[List] = [[] for _ in range(len(chunk))]
                 use_batch = os.environ.get("DIFFMINING_DOERSCH_BATCH_SVM", "1") != "0"
                 for i in range(l):
                     positives = dense_search(ws, pos_shards, fold=(i + 1, l), top_k=5, ret_ws=True,
-                                             device=self.device)
+                                             mesh=self.mesh, device=self.device)
                     if use_batch:
                         ws, hard_negatives = self._train_chunk_batched(
                             positives, hard_negatives, neg_shards, fold=(i + 1, l), seed=i)
@@ -547,16 +595,13 @@ class Doersch:
                         new_ws.append(w)
                         hard_negatives[j] += negs
                     ws = np.stack(new_ws)
-                final = dense_search(ws, all_shards, top_k=100, device=self.device)
+                final = dense_search(ws, all_shards, top_k=100, mesh=self.mesh, device=self.device)
                 for j, (e, fp) in enumerate(zip(final, fps)):
                     accuracy = sum(1 for y in e if y[-1] in pos_set)
                     top_detections = [(bbox, path) for _s, bbox, path in e if path in pos_set]
-                    with open(fp, "wb") as f:
-                        pickle.dump((accuracy, e, top_detections, ws[j]), f)
-            for fp in fps:
-                with open(fp, "rb") as f:
-                    accuracy, _e, top_detections, _w = pickle.load(f)
-                data.append((accuracy, top_detections[:top_elem]))
+                    if writer:
+                        atomic_save_pickle(fp, (accuracy, e, top_detections, ws[j]))
+                    data.append((accuracy, top_detections[:top_elem]))
         return sorted(data, key=lambda x: x[0], reverse=True)[:top_k]
 
     def plot_detectors(self, c: str, max_rows: int = 32, max_elems: int = 30) -> Optional[Image.Image]:
@@ -587,6 +632,8 @@ class Doersch:
         if not rows:
             return None
         img = vcat(rows, vertical_spacing=2)
+        if not is_writer(self.mesh):
+            return img
         out_dir = join(self.main_dir, self.which, c, "plots", str(self.threshold), "detectors")
         os.makedirs(out_dir, exist_ok=True)
         img.save(join(out_dir, "init.png"))
@@ -600,6 +647,8 @@ class Doersch:
                 lines.append(hcat([Image.open(path).crop((b[0], b[1], b[0] + 64, b[1] + 64))
                                    for b, path in detections]))
         img = vcat(lines, vertical_spacing=4)
+        if not is_writer(self.mesh):
+            return img
         fname = join(self.main_dir, self.which, c, f"top_{self.seed}_{self.threshold}_{self.how_many}_hog_final.png")
         os.makedirs(os.path.dirname(fname), exist_ok=True)
         img.save(fname)
@@ -614,14 +663,17 @@ def main(argv=None):
     p.add_argument("--which", type=str, default="geo", choices=["ftt", "cars", "geo"])
     p.add_argument("--dataset_path", type=str, required=True)
     p.add_argument("--category", type=str, default="United States")
-    p.add_argument("--mesh_dp", type=int, default=None, help="not ported yet (ROADMAP A12)")
+    p.add_argument("--mesh_dp", type=int, default=None,
+                   help="shard each dense search's detectors over this many processes, one GPU each (default "
+                   "under torchrun: every rank); above 1, launch under torchrun --nproc_per_node MESH_DP")
     p.add_argument("--device", type=str, default="cuda", help="cuda (the default) or cpu")
     args = p.parse_args(argv)
-    if args.mesh_dp is not None:
-        raise NotImplementedError(MESH_MESSAGE)
-    d = Doersch(args.main_dir, args.which, args.dataset_path, how_many=args.how_many, threshold=args.threshold,
-                device=args.device)
-    d.get_top(c=args.category)
+    try:
+        d = Doersch(args.main_dir, args.which, args.dataset_path, how_many=args.how_many, threshold=args.threshold,
+                    mesh=cli_mesh("doersch", args.mesh_dp, args.device), device=args.device)
+        d.get_top(c=args.category)
+    finally:
+        destroy()
 
 
 if __name__ == "__main__":

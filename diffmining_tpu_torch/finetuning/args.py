@@ -63,10 +63,10 @@ def parser_base() -> argparse.ArgumentParser:
     p.add_argument("--enable_xformers_memory_efficient_attention", action="store_true")
     p.add_argument("--local_rank", type=int, default=-1)
     p.add_argument("--dataloader_num_workers", type=int, default=4, help="inert: one loader thread")
-    p.add_argument("--mesh_dp", type=int, default=None, help="data-parallel size; >1 not ported yet (ROADMAP A12)")
-    p.add_argument("--mesh_fsdp", type=int, default=1, help=">1 not ported yet (ROADMAP A12)")
-    p.add_argument("--distributed", action="store_true", help="not ported yet (ROADMAP A12)")
-    p.add_argument("--coordinator_address", type=str, default=None, help="not ported yet (ROADMAP A12)")
+    p.add_argument("--mesh_dp", type=int, default=None, help="data-parallel size; >1 not ported yet (ROADMAP A12c)")
+    p.add_argument("--mesh_fsdp", type=int, default=1, help=">1 not ported yet (ROADMAP A12c)")
+    p.add_argument("--distributed", action="store_true", help="not ported yet (ROADMAP A12c)")
+    p.add_argument("--coordinator_address", type=str, default=None, help="not ported yet (ROADMAP A12c)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     # lora
@@ -113,7 +113,7 @@ def check_supported(args) -> None:
     """Raise on a flag whose feature is not ported yet, naming its ROADMAP item."""
     missing = []
     if args.distributed or args.coordinator_address is not None or (args.mesh_dp or 1) > 1 or args.mesh_fsdp > 1:
-        missing.append("multi-GPU training (--distributed, --mesh_dp/--mesh_fsdp > 1): ROADMAP A12")
+        missing.append("multi-GPU training (--distributed, --mesh_dp/--mesh_fsdp > 1): ROADMAP A12c")
     if missing:
         raise NotImplementedError("not ported to the PyTorch package yet: " + "; ".join(missing))
 

@@ -14,10 +14,18 @@ caller asks for the CPU); suppression and top-k are host numpy.
 The feature modes are ``dift-{t}``, ``clip`` (the CLIP image embedding of
 the patch crop, L2-normalised; the reference's openai/clip-vit-base-patch32
 from ``--clip_dir``) and ``clip+dift-{t}`` (their concatenation, [clip |
-dift]). Not yet: ``--mesh_dp`` (multi-GPU, ROADMAP A12) raises.
+dift]).
+
+With a mesh (``--mesh_dp`` under torchrun, one process a GPU) the DIFT
+ensemble shards over dp (typicality/dift.py). Every rank mines the same
+patch tables and clusters the same features; rank 0 alone writes the
+pickles, crops and figures, and every rank decides what is cached before
+any rank writes, so that all send the same images through the
+all-reduce.
 
     python -m diffmining_tpu_torch cluster -w ftt -d DATA -t TREE -c CACHE \\
         -m PIPELINE_DIR --cluster
+    torchrun --nproc_per_node 2 -m diffmining_tpu_torch cluster ... --mesh_dp 2
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from diffmining_tpu_torch.ops.pool import (
     top_patches,
     typicality_map,
 )
+from diffmining_tpu_torch.parallel.mesh import Mesh, cli_mesh, destroy, host_barrier, is_writer
 from diffmining_tpu_torch.typicality.compute import DTYPES, SD, D, Typicality
 from diffmining_tpu_torch.typicality.dift import SDFeaturizer
 from diffmining_tpu_torch.typicality.templates import dift_prompt
@@ -129,20 +138,18 @@ class Cluster(Typicality):
         cache_features: bool = True,
         dift_sd: Optional[SD] = None,
         native_res: bool = False,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         device="cuda",
         dtype=torch.bfloat16,
         dift_draws: Optional[Callable] = None,
         clip_dir: Optional[str] = None,
         clip_bundle: Optional[dict] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("--mesh_dp (DIFT over a device mesh) is not ported yet (ROADMAP A12)")
         # model-free init: score maps only need the artifacts (reference
         # cluster.py:58 passes model_path=None to Typicality)
         super().__init__(
             which=which, model_path=None, dataset_path=dataset_path,
-            typicality_path=typicality_path, native_res=native_res, device=device,
+            typicality_path=typicality_path, native_res=native_res, device=device, mesh=mesh,
         )
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -250,18 +257,26 @@ class Cluster(Typicality):
     def _cluster_cache(self, country: str) -> str:
         return join(self.cache_path, "clusters", country + ".pkl")
 
-    def patch_tables(self, k_per_image: int = 5) -> Dict[str, Tuple[pd.DataFrame, pd.DataFrame]]:
+    def _cached_tables(self, fps: Dict[str, str], build: Callable) -> dict:
+        """Per category, the pickle at ``fps[c]`` or ``build(c)``, which rank
+        0 then writes there. Every rank reads which exist before any
+        writes."""
+        cached = {c: os.path.isfile(fp) and not self.recache for c, fp in fps.items()}
+        host_barrier("cluster_tables")
         out = {}
-        for country in self.categories():
-            fp = self._cluster_cache(country)
-            if os.path.isfile(fp) and not self.recache:
+        for c, fp in fps.items():
+            if cached[c]:
                 with open(fp, "rb") as f:
-                    out[country] = pickle.load(f)
+                    out[c] = pickle.load(f)
             else:
-                dfs = self.df_D(country, k_per_image=k_per_image)
-                atomic_save_pickle(fp, dfs)
-                out[country] = dfs
+                out[c] = build(c)
+                if is_writer(self.mesh):
+                    atomic_save_pickle(fp, out[c])
         return out
+
+    def patch_tables(self, k_per_image: int = 5) -> Dict[str, Tuple[pd.DataFrame, pd.DataFrame]]:
+        return self._cached_tables({c: self._cluster_cache(c) for c in self.categories()},
+                                   lambda c: self.df_D(c, k_per_image=k_per_image))
 
     def get_top_k(
         self, df: pd.DataFrame, key: str = "D", k: int = 1000, randomize: bool = False,
@@ -306,7 +321,7 @@ class Cluster(Typicality):
             if sd is None:
                 assert self.model_path is not None, "DIFT features need a model"
                 sd = SD.from_pipeline_dir(self.which, self.model_path, [], dtype=self.dtype, device=self.device)
-            self.dift = SDFeaturizer(sd, draws=self.dift_draws)
+            self.dift = SDFeaturizer(sd, mesh=self.mesh, draws=self.dift_draws)
 
     def init_clip(self):
         """The CLIP image embedder of the clip modes (reference cluster.py:
@@ -371,7 +386,6 @@ class Cluster(Typicality):
         X, ids, pils, ds, orig_path = [], [], [], [], []
         todo = []
         emb_dir = join(self.cache_path, "embeddings", feature_which)
-        os.makedirs(emb_dir, exist_ok=True)
         for i in range(df.shape[0]):
             row = df.iloc[i]
             pil = self.load_image(row["seed"])
@@ -392,6 +406,10 @@ class Cluster(Typicality):
             else:
                 X.append(None)
                 todo.append((row["seed"], i, (x0, y0, x1, y1), pkl_file, patch))
+        # every rank has listed what is cached before rank 0 writes: the
+        # ranks send the same images, in the same order, through the DIFT
+        # all-reduce
+        host_barrier("cluster_embeddings")
         if todo and use_dift:
             self.init_dift()
         if todo and use_clip:
@@ -404,7 +422,7 @@ class Cluster(Typicality):
                 arr = array_from_uint8(np.asarray(self.load_image(seed).convert("RGB")))
                 parts.append(self.dift.patch_feature(arr, dift_prompt(self.which, c), box, t=t, uid=image_uid(seed)))
             X[i] = parts[0] if len(parts) == 1 else np.concatenate(parts)
-            if self.cache_features:
+            if self.cache_features and is_writer(self.mesh):
                 atomic_save_pickle(pkl_file, X[i])
         return X, ids, pils, ds, orig_path
 
@@ -447,6 +465,8 @@ class Cluster(Typicality):
             embs = self.compute_embeddings(dfs[country], c=country, to_add_border=not only_gt, feature_which=feature_which)
             ranked = self.cluster(*embs, country=country, num_clusters=num_clusters, project=project)
             results[country] = ranked
+            if not is_writer(self.mesh):
+                continue
             local_dir = join("images", "clusters", "ranked", feature_which, country)
             parent = join(self.cache_path, local_dir)
             os.makedirs(parent, exist_ok=True)
@@ -458,17 +478,9 @@ class Cluster(Typicality):
     def compute_least(self, k_per_image: int = 5) -> Dict[str, pd.DataFrame]:
         """Least-typical patch tables (reference cluster.py:382-396:
         df_D with ascending=True, cached per category)."""
-        out = {}
-        for country in self.categories():
-            fp = join(self.cache_path, "clusters", country + "-gt_least.pkl")
-            if os.path.isfile(fp) and not self.recache:
-                with open(fp, "rb") as f:
-                    out[country], _ = pickle.load(f)
-            else:
-                dfs = self.df_D(country, k_per_image=k_per_image, ascending=True)
-                atomic_save_pickle(fp, dfs)
-                out[country] = dfs[0]
-        return out
+        fps = {c: join(self.cache_path, "clusters", c + "-gt_least.pkl") for c in self.categories()}
+        tables = self._cached_tables(fps, lambda c: self.df_D(c, k_per_image=k_per_image, ascending=True))
+        return {c: dfs[0] for c, dfs in tables.items()}
 
     def plot_top_k(self, k_per_image: int = 5, k: int = 200, overlays: bool = False) -> None:
         """Save the top-k patch crops per category for D / random / D_least
@@ -482,6 +494,8 @@ class Cluster(Typicality):
         dfs_least = {
             c: self.get_top_k(t, k=k, ascending=True) for c, t in self.compute_least(k_per_image).items()
         }
+        if not is_writer(self.mesh):
+            return
         for name, dfs_ in zip(["D", "random", "D_least"], [dfs, dfs_random, dfs_least]):
             for c, df in dfs_.items():
                 outdir = join(self.cache_path, "images", "topk", name, c)
@@ -521,6 +535,8 @@ class Cluster(Typicality):
         return out
 
     def extract_top_k_images(self, output_dir: str, k: int = 5):
+        if not is_writer(self.mesh):
+            return
         for country in self.categories():
             os.makedirs(join(output_dir, "ordered"), exist_ok=True)
             data = self.rank_images(country, gt_only=True)
@@ -538,6 +554,8 @@ class Cluster(Typicality):
         feature_which: Optional[str] = None, grid_sep_x: int = 2, grid_sep_y: int = 2,
     ):
         """Cluster grids from saved member crops (reference cluster.py:439-510)."""
+        if not is_writer(self.mesh):
+            return
         dirr = join(self.cache_path, "images", "clusters")
         if not os.path.isdir(dirr):
             return
@@ -568,6 +586,8 @@ class Cluster(Typicality):
     def make_topk_figure(self, figure_path: str, max_elems: int = 7) -> None:
         """hcat strips of the saved top-k crops, filtered for near-black/white
         (reference cluster.py:497-510)."""
+        if not is_writer(self.mesh):
+            return
         root = join(self.cache_path, "images", "topk")
         if not os.path.isdir(root):
             return
@@ -639,22 +659,27 @@ def main(argv=None):
     )
     parser.add_argument(
         "--mesh_dp", type=int, default=None,
-        help="shard the DIFT ensemble axis over a device mesh (multi-GPU: not ported yet, ROADMAP A12)",
+        help="shard the DIFT ensemble over this many processes, one GPU each (default under torchrun: every "
+        "rank); above 1, launch under torchrun --nproc_per_node MESH_DP",
     )
     parser.add_argument("--dtype", type=str, default="bf16", choices=sorted(DTYPES),
                         help="DIFT compute dtype: bf16 (default), or fp32 for validation runs; both "
                              "run on the GPU (float32 flash and fused-norm kernels) and with --device cpu")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    try:
+        _run(args)
+    finally:
+        destroy()
 
-    if args.mesh_dp is not None:
-        raise SystemExit("--mesh_dp: multi-GPU mining is not ported yet (ROADMAP A12)")
 
+def _run(args) -> None:
     cluster = Cluster(
         args.which, args.typicality_path, args.dataset_path, args.cache_path, args.recache,
         model_path=args.model_path, aggregate=args.aggregate, kx=args.k, ky=args.k,
         cache_features=args.cache_features, clip_dir=args.clip_dir,
-        native_res=args.native_res, device=args.device, dtype=DTYPES[args.dtype],
+        native_res=args.native_res, mesh=cli_mesh("cluster", args.mesh_dp, args.device), device=args.device,
+        dtype=DTYPES[args.dtype],
     )
     if not args.figures_only:
         if args.topk:

@@ -42,7 +42,7 @@ from diffmining_tpu_torch.models.clip import CLIP_VIT_L_TEXT, CLIPTextConfig, CL
 from diffmining_tpu_torch.models.tokenizer import CLIPTokenizer, tiny_tokenizer
 from diffmining_tpu_torch.models.unet import SD15_UNET, UNet2DCondition, UNetConfig
 from diffmining_tpu_torch.models.vae import SD15_VAE, AutoencoderKL, VAEConfig, sample_latent
-from diffmining_tpu_torch.parallel.mesh import Mesh, destroy, host_barrier, initialize_distributed, make_mesh
+from diffmining_tpu_torch.parallel.mesh import Mesh, cli_mesh, destroy, host_barrier, is_writer
 from diffmining_tpu_torch.typicality.engine import SeededDraws, TypicalityEngine, losses_to_reference_layout
 from diffmining_tpu_torch.typicality.templates import get_decade, typicality_prompts
 from diffmining_tpu_torch.utils.artifacts import atomic_save_npy
@@ -606,11 +606,9 @@ def main(argv=None):
 
 
 def _run(args) -> None:
-    if args.distributed or args.coordinator_address is not None:
-        initialize_distributed(args.coordinator_address, args.num_processes, args.process_id, device=args.device)
-        if args.mesh_dp is None:
-            args.mesh_dp = torch.distributed.get_world_size()  # every rank by default
-    mesh = make_mesh(dp=args.mesh_dp) if args.mesh_dp is not None else None
+    mesh = cli_mesh("typicality", args.mesh_dp, args.device, distributed=args.distributed,
+                    coordinator_address=args.coordinator_address, num_processes=args.num_processes,
+                    process_id=args.process_id)
 
     model_path = args.model_path
     if model_path is not None and not os.path.isfile(join(model_path, "model_index.json")):
@@ -621,7 +619,7 @@ def _run(args) -> None:
             )
         from diffmining_tpu_torch.finetuning.export import export_model
 
-        if mesh is None or mesh.rank == 0:  # one writer; the others read its export
+        if is_writer(mesh):  # one writer; the others read its export
             export_model(args.which, model_path, device=args.device)
         host_barrier("typicality_export")
         model_path = export_model(args.which, model_path, device=args.device)
@@ -638,7 +636,7 @@ def _run(args) -> None:
     if args.make_submission:
         # one writer for the shard files, then a barrier so no rank reads a
         # half-written one (compute.py:720-727)
-        if mesh is None or mesh.rank == 0:
+        if is_writer(mesh):
             typ.make_submission(args.target_path, args.submission_path, sub_split=args.sub_split)
         host_barrier("typicality_submission")
     if args.dont_compute:

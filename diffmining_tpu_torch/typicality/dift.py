@@ -10,6 +10,12 @@ cluster.py:253). The random draws are arguments: ``draws(uid,
 latent_shape, ensemble_size) -> (vae_eps [C,h,w], noise [E,C,h,w])``,
 default ``DiftDraws`` (one ``torch.Generator`` per image and stream); the
 tests pass the JAX package's draws through it.
+
+With a mesh the E draws shard over dp, as JAX shards them (dift.py:30-104):
+every rank draws all E and runs the UNet on its E/dp, and the ranks'
+float32 sums of the taps meet in ``all_reduce_sum``; the VAE encode and the
+CLIP context are computed on every rank, and the per-image cache is each
+rank's own (every rank walks the same images in the same order).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from diffmining_tpu_torch.diffusion.schedule import add_noise
 from diffmining_tpu_torch.models.vae import sample_latent
+from diffmining_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, collective_rows
 from diffmining_tpu_torch.typicality.compute import SD
 from diffmining_tpu_torch.typicality.engine import derive_seed
 
@@ -47,12 +54,11 @@ class SDFeaturizer:
     """Prompt-conditioned one-step UNet feature extractor. ``n_passes``
     counts the UNet passes (one per image not in the cache)."""
 
-    def __init__(self, sd: SD, seed: int = 42, image_cache_size: int = 8, mesh=None,
+    def __init__(self, sd: SD, seed: int = 42, image_cache_size: int = 8, mesh: Optional[Mesh] = None,
                  draws: Optional[Callable] = None):
-        if mesh is not None:
-            raise NotImplementedError("DIFT over a device mesh is not ported yet (ROADMAP A12, multi-GPU)")
         self.sd = sd
         self.seed = seed
+        self.mesh = mesh
         self.draws = draws or DiftDraws(seed, sd.device)
         # per-image feature maps: the reference recomputes the whole image's
         # ensemble for every patch (cluster.py:291-299); the top patches of
@@ -66,6 +72,9 @@ class SDFeaturizer:
                 ensemble_size: int = 8, uid: Optional[int] = None) -> np.ndarray:
         """img_array [H, W, 3] in [-1, 1] -> feature map [h_f, w_f, C_f] fp32."""
         sd = self.sd
+        dp = 1 if self.mesh is None else self.mesh.dp
+        if ensemble_size % dp:
+            raise ValueError(f"ensemble_size={ensemble_size} must divide over dp={dp} (no unsharded fallback)")
         uid = 0 if uid is None else uid
         img = torch.as_tensor(np.asarray(img_array, np.float32)).permute(2, 0, 1)[None]
         mean, logvar = sd.encode_moments(img)
@@ -73,13 +82,16 @@ class SDFeaturizer:
         latent = sample_latent(mean, logvar, vae_eps[None], sd.vae.config.scaling_factor)[0]
         ids = torch.from_numpy(np.asarray(sd.tokenizer([prompt]))).long().to(sd.device)
         ctx = sd.clip(ids)[0].float()
-        ts = torch.full((ensemble_size,), int(t), dtype=torch.long, device=sd.device)
-        lat = latent[None].expand(ensemble_size, *latent.shape)
+        # every rank drew all E noises; it runs the UNet on its own E/dp
+        noise = noise[collective_rows(ensemble_size, self.mesh)]
+        ts = torch.full((noise.shape[0],), int(t), dtype=torch.long, device=sd.device)
+        lat = latent[None].expand(noise.shape[0], *latent.shape)
         noisy = add_noise(sd.schedule, lat, noise, ts).to(sd.dtype)
-        ctx_b = ctx[None].expand(ensemble_size, *ctx.shape).to(sd.dtype)
+        ctx_b = ctx[None].expand(noise.shape[0], *ctx.shape).to(sd.dtype)
         out = sd.unet(noisy, ts, ctx_b, up_ft_indices=(up_ft_index,))
         self.n_passes += 1
-        feat = out["up_ft"][up_ft_index].float().mean(dim=0)  # [C_f, h_f, w_f]
+        taps = out["up_ft"][up_ft_index].float().sum(dim=0)  # [C_f, h_f, w_f]
+        feat = all_reduce_sum(taps, self.mesh) / ensemble_size
         return feat.permute(1, 2, 0).cpu().numpy()
 
     def patch_feature(self, img_array: np.ndarray, prompt: str, box: Tuple[int, int, int, int], t: int = 261,

@@ -230,5 +230,5 @@ def test_doersch_command_on_the_cpu(mini_dataset, tmp_path):
     port_main(["doersch", "--dataset_path", mini_dataset, "--which", "ftt", "--category", "1990",
                "--how_many", "4", "--main_dir", main_dir, "--device", "cpu"])
     assert os.path.isfile(join(main_dir, "ftt", "1990", "top_42_50_4_hog_final.png"))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):
         port_main(["doersch", "--dataset_path", mini_dataset, "--which", "ftt", "--mesh_dp", "2", "--device", "cpu"])

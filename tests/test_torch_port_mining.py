@@ -348,7 +348,7 @@ def test_unported_modes_raise(clusters, tree, tmp_path):
     from diffmining_tpu_torch.typicality.cluster import main
 
     root, typ, _, _, _ = tree
-    with pytest.raises(SystemExit, match="A12"):
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):
         main(["-w", "ftt", "-d", root, "-t", typ, "-c", str(tmp_path), "--mesh_dp", "2", "--device", "cpu"])
 
 

@@ -5,8 +5,9 @@ sweep's bound, rtol 2e-3, atol 1e-4), the groups, ``df_PD``'s median stack
 (rtol 1e-5, the boxes equal), the dift, clip and clip+dift embeddings (rtol
 1e-3, atol 2e-4: the UNet tests' framework-to-framework bound),
 ``clustering`` end to end (both k-means from JAX's k-means++ draws: the same
-ranked clusters), the CLI's --figures_only and aliases, --mesh_dp raising
-with its ROADMAP item, and the ``parallel`` command with --device cpu.
+ranked clusters), the CLI's --figures_only and aliases, --mesh_dp 2
+outside a process group naming torchrun, and the ``parallel`` command with
+--device cpu.
 """
 import itertools
 import os
@@ -213,7 +214,8 @@ def test_clustering_matches_jax(computed, tmp_path, monkeypatch):
 
 def test_cli_figures_only_aliases_and_mesh_dp(tmp_path, monkeypatch):
     """--figures_only regenerates figures without clustering, the compute
-    CLI's -i alias parses, and --mesh_dp names its ROADMAP item."""
+    CLI's -i alias parses, and --mesh_dp 2 outside a process group names
+    torchrun."""
     os.makedirs(tmp_path / "data" / "France")
     called = []
     monkeypatch.setattr(ppar.ParallelCluster, "clustering", lambda *a, **k: called.append("clustering"))
@@ -221,7 +223,7 @@ def test_cli_figures_only_aliases_and_mesh_dp(tmp_path, monkeypatch):
     common = ["-i", str(tmp_path / "data"), "-t", str(tmp_path / "typ"), "-c", str(tmp_path / "cache")]
     ppar.main([*common, "--cluster", "--figures_only", "--figure_path", str(tmp_path / "figs"), "--device", "cpu"])
     assert called == ["figure"]
-    with pytest.raises(SystemExit, match="A12"):
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):
         ppar.main([*common, "--cluster", "--mesh_dp", "2", "--device", "cpu"])
 
 
