@@ -84,7 +84,8 @@ back to the CPU):
  10. sampling: sample_ddim at 512px (2 prompts, 50 steps, CFG 7.5; 500
      launches of K1), the VAE decode, one latent's decode against float32;
  11. pnp: Generator over 2 synthetic 512px sources (one in France, one in
-     Japan): one inversion of the stack over 999 steps, the reconstruction,
+     Japan): one inversion of the stack over 100 steps (cut from the
+     reference's 999 for the script's time), the reconstruction,
      2 target prompts a source at 50 steps through the file protocol;
      launches of K1 and those on injected q/k counted; injection on against
      off; seconds per source image; K1 held on the injected q/k the path
@@ -182,12 +183,25 @@ back to the CPU):
      TF32 flags, the float32 no-max launches on each rank; in the same
      processes ParallelCluster's DIFT over the mesh and dense_search at K =
      5 (padded to 6) over the two ranks against one process; DIFT images/s
-     of each process (cold, five processes sharing the card).
+     of each process (cold, five processes sharing the card);
+ 22. train dp (run after phase 21, on phase 12's export, before the export
+     is removed): `finetune --mesh_dp 1` under torchrun, an NCCL group of
+     one (the gradients through the bucketed all-reduce), and the plain
+     finetune process, bf16, EMA, batch 4 at 512px, 6 steps, a checkpoint
+     and an export each: losses, final parameters and EMA bit-equal, 10
+     launches each of K4, K5 and K6 a step, warm step ms and the gradient
+     all-reduce's ms; two ranks of a
+     gloo group, float32, a global batch of 2, one step without a mesh,
+     over dp 2 and over dp 1 x fsdp 2 (the optimizer state and the EMA
+     sharded): dp 2 within 2·lr (99% within 1e-3·lr) of one process, fsdp 2
+     bit-equal to it or within the spread of two one-process runs; each
+     rank's state bytes and peak GiB.
 Then one JSON line each for the slice, the float32 sweep, the training run,
 the float32 training run, the mining runs,
 X-ray, sampling, PnP, train_lora_8bit, parallel, clip, doersch,
-verify_checkpoint, the sweep over dp and mining over dp, one of per-kernel
-numbers, and as the last line {"ok": true, "device": {...}}.
+verify_checkpoint, the sweep over dp, mining over dp and the trainer over
+dp, one of per-kernel numbers, and as the last line {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -219,6 +233,11 @@ TRACE_CALLS = 20  # calls device_split reads from a trace
 # whole run on an H100 retraced 219 times, 139 of them in phase 18; at 10, 35)
 TRACE_PAD = 10
 TRACE_ATTEMPTS = 5  # traces it takes before it gives up
+# Once every attempt of one measurement lost records, the profiler kept
+# losing them for the rest of the process (two H100 runs: every later trace,
+# 51 and 53 measurements; 164 retraces took 166 s of two phases): later
+# measurements fall back at once, without a trace.
+TRACES_LOST = False
 TRACE_SETTLE_S = 0.2  # host wait between starting a trace and its first call; doubled at each retry
 # kernel vs plain, elementwise: |got - want| <= RTOL |want| + ATOL_RMS rms(want).
 # Both round the same fp32 result to bf16, so they differ by at most one bf16
@@ -320,6 +339,10 @@ DOERSCH_GAP = 0.02
 # scores) within 1e-4 of its largest magnitude (the first card run read
 # 1.1e-5 absolute on weights of order 0.1, over an elementwise atol of 1e-5)
 SVM_CARD_RTOL = 1e-4
+# phase 11's inversion depth, cut from the reference's 999 for the script's
+# time (the inversion and the reconstruction each run a UNet pass a step,
+# about 49 ms on an H100, where the host sets the pace)
+PNP_INVERSION_STEPS = 100
 
 
 def log(msg: str) -> None:
@@ -386,7 +409,8 @@ def device_split(fn, name_part, launches=1, other=None):
     spins, one launch of the named kernel a call read per launch a call and
     a kernel count that is a multiple of TRACE_CALLS is logged and taken
     again. Where TRACE_ATTEMPTS traces lose records (they did late in a
-    run, after phase 6, with the same loss at every settle), a call's device
+    run, after phase 6, with the same loss at every settle), and for every
+    later call once they have (TRACES_LOST), a call's device
     time comes from CUDA events around TRACE_CALLS calls queued behind a
     spin kernel (``queued_device_ms``); that cannot split a call by kernel,
     so the named and ``other`` parts are then None ("not measured"), except
@@ -394,9 +418,10 @@ def device_split(fn, name_part, launches=1, other=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    global TRACES_LOST
     fn()
     torch.cuda.synchronize()
-    for attempt in range(TRACE_ATTEMPTS):
+    for attempt in range(0 if TRACES_LOST else TRACE_ATTEMPTS):
         settle = TRACE_SETTLE_S * 2**attempt
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -428,7 +453,9 @@ def device_split(fn, name_part, launches=1, other=None):
     busy = queued_device_ms(fn)
     named = busy if launches == 1 and other is None and name_part else None
     split = "" if named is not None else "; its split by kernel not measured"
-    log(f"  ({TRACE_ATTEMPTS} traces lost records: a call's device time by CUDA events around {TRACE_CALLS} calls "
+    lost = "earlier traces of this process" if TRACES_LOST else f"{TRACE_ATTEMPTS} traces"
+    TRACES_LOST = True
+    log(f"  ({lost} lost records: a call's device time by CUDA events around {TRACE_CALLS} calls "
         f"queued behind a spin kernel instead, {busy:.4f} ms{split})")
     return (busy, named) if other is None else (busy, named, None)
 
@@ -440,14 +467,15 @@ def device_busy(fn, calls=5, parts=()):
     kernel that starts before the last one ends counted once; the five
     kernels with the largest sums, names and ms a call; for each string of
     ``parts``, the ms a call of the kernels whose name holds it). Where
-    TRACE_ATTEMPTS traces lose a spin or hold a kernel count that is no
-    multiple of ``calls``, (None, None, [], {})."""
+    TRACE_ATTEMPTS traces (none once TRACES_LOST) lose a spin or hold a
+    kernel count that is no multiple of ``calls``, (None, None, [], {})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    global TRACES_LOST
     fn()
     torch.cuda.synchronize()
-    for attempt in range(TRACE_ATTEMPTS):
+    for attempt in range(0 if TRACES_LOST else TRACE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             time.sleep(TRACE_SETTLE_S * 2**attempt)
@@ -474,6 +502,7 @@ def device_busy(fn, calls=5, parts=()):
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         part_ms = {p: sum(ms for name, ms in by_name.items() if p in name) for p in parts}
         return sum(by_name.values()), union / calls / 1e3, top, part_ms
+    TRACES_LOST = True
     return None, None, [], {}
 
 
@@ -1931,9 +1960,9 @@ def phase_sampling(smi, sd):
 
 def phase_pnp(smi, sd):
     """PnP through Generator's file protocol: 2 synthetic 512px sources
-    inverted as one stack over 999 steps, reconstructed, and translated to 2
-    target prompts each at 50 steps; then K1 held on the injected q/k it
-    received."""
+    inverted as one stack over PNP_INVERSION_STEPS steps, reconstructed, and
+    translated to 2 target prompts each at 50 steps; then K1 held on the
+    injected q/k it received."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1960,7 +1989,7 @@ def phase_pnp(smi, sd):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        gen = Generator(sd, paths)  # 999 inversion steps, 50 translation steps
+        gen = Generator(sd, paths, inversion_steps=PNP_INVERSION_STEPS)  # and 50 translation steps
         torch.cuda.synchronize()
         invert_s = time.perf_counter() - t0
         gen.plotum(out, targets, batch_size=len(targets))
@@ -2392,7 +2421,7 @@ def phase_f32_unet_kernels(smi):
                                    library=library, bound_ms=bound, bound_by=by, **extra)
         log(f"kernel {kind} float32 {name}: max|err| {max_err:.3g} = {worst:.3g} x tolerance (rtol 2^-14, atol 2^-14 "
             f"rms)  ms {ms:.4f}  device {fmt(device_ms)}  plain {plain_ms:.3f}  {library} {fmt(lib_ms)} (device "
-            f"{fmt(lib_device)})  bound {bound:.4f} ({by})" + "".join(f"  {k} {v:.3g}" for k, v in extra.items()))
+            f"{fmt(lib_device)})  bound {bound:.4f} ({by})" + "".join(f"  {k} {fmt(v, '.3g')}" for k, v in extra.items()))
 
     fwd_cases = [("L4096 D40", (4, 8, 4096, 40)), ("L1024 D80", (4, 8, 1024, 80)), ("L1024 D160", (4, 8, 1024, 160)),
                  ("L16384 D40", (1, 8, 16384, 40)), ("masked tail L1000 D40", (2, 8, 1000, 40)),
@@ -3816,6 +3845,385 @@ def phase_mining_dp(smi, pipeline_dir, sweep_dp):
                 together_s=together_s, card=smi)
 
 
+# One process of phase 22, written to a file so that torchrun can start it.
+# argv: OUT MODE ARGS. MODE "cli": the finetune command's main(ARGS), with
+# each train step timed (synchronised) and its loss read, the seconds of
+# the set-up, the checkpoint and the export, and after the run a checksum
+# of the bits of every final parameter and EMA tensor, the kernels'
+# launches and the peak memory; "gloo": ARGS[0] is a JSON config, and the
+# process is one rank of a gloo group on this card running one float32 step
+# from the same weights and batch four times: twice without a mesh (the
+# spread of two one-process runs), over dp 2 and over dp 1 x fsdp 2, each
+# against the first.
+TRAIN_DP_RANK = r"""
+import datetime, json, os, sys, time
+import torch
+import torch.distributed as dist
+from diffmining_tpu_torch.finetuning import base, train
+from diffmining_tpu_torch.ops import flash_attention as fa
+from diffmining_tpu_torch.parallel import mesh as pm
+out, mode, args = sys.argv[1], sys.argv[2], sys.argv[3:]
+kernels = (fa.flash_fwd_lse, fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_fwd_lse_f32, fa.flash_bwd_dq_f32,
+           fa.flash_bwd_dkv_f32, fa.flash_fwd_nomax)
+result = {}
+
+
+def gate(point):
+    # at a named point: say so (create TRAIN_DP_<POINT>_SAY), then wait for TRAIN_DP_<POINT>_WAIT to exist
+    say, wait = (os.environ.get(f"TRAIN_DP_{point}_{k}") for k in ("SAY", "WAIT"))
+    if say:
+        open(say, "w").close()
+    t = time.perf_counter()
+    while wait and not os.path.exists(wait):
+        if time.perf_counter() - t > 900:
+            raise TimeoutError(f"no {wait} after 900 s")
+        time.sleep(0.05)
+
+
+def checksum(t):
+    # two sums of the bits as int32 words, plain and weighted by position (int64, wrapping)
+    w = t.detach().contiguous().view(torch.int32).reshape(-1).long()
+    pos = torch.arange(1, w.numel() + 1, device=w.device)
+    return [int(w.sum()), int((w * pos).sum())]
+
+
+if mode == "cli":
+    from diffmining_tpu_torch.__main__ import main
+    steps, losses, trainers, seconds = [], [], [], {}
+    build, end = train.TrainStepBuilder.build, base.BaseTrainer.end_training
+
+    def timed_method(cls, name):
+        method = getattr(cls, name)
+
+        def timed(self, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = method(self, *a, **k)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+            return r
+        setattr(cls, name, timed)
+
+    for name in ("__init__", "training_init", "save_checkpoint"):
+        timed_method(base.BaseTrainer, name)
+    save = base.BaseTrainer.save_checkpoint
+
+    def gated_save(self, *a, **k):
+        if "save_checkpoint" not in seconds:
+            gate("SAVE")
+        return save(self, *a, **k)
+
+    base.BaseTrainer.save_checkpoint = gated_save
+    reduce_ms, reduce = [], train.all_reduce_mean_
+
+    def timed_reduce(tensors, mesh):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reduce(tensors, mesh)
+        torch.cuda.synchronize()
+        if len(tensors) > 1:  # the gradients (the loss is a tensor alone)
+            reduce_ms.append((time.perf_counter() - t) * 1e3)
+
+    train.all_reduce_mean_ = timed_reduce
+
+    def timed_build(self):
+        step = build(self)
+
+        def timed(*a, **k):
+            if not steps:
+                gate("STEPS")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, loss = step(*a, **k)
+            losses.append(float(loss))  # synchronises
+            steps.append((time.perf_counter() - t) * 1e3)
+            return state, loss
+        return timed
+
+    def keep_trainer(self):
+        trainers.append(self)
+        return end(self)
+
+    train.TrainStepBuilder.build, base.BaseTrainer.end_training = timed_build, keep_trainer
+    timed_method(base.BaseTrainer, "end_training")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    main(["finetune", *args])
+    seconds["main"] = time.perf_counter() - t
+    tr = trainers[0]
+    result.update(steps_ms=steps, losses=losses, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  mesh=None if tr.mesh is None else [tr.mesh.dp, tr.mesh.fsdp, tr.mesh.world],
+                  params=[checksum(p) for p in tr.state.params.values()],
+                  ema=[checksum(e) for e in tr.builder.whole_ema(tr.state).values()], seconds=seconds,
+                  reduce_ms=reduce_ms)
+else:
+    cfg = json.loads(args[0])
+    lr = cfg["lr"]
+    # NCCL refuses two ranks on one card: the group is gloo's, made here
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://{cfg['address']}", world_size=2, rank=cfg["rank"],
+                            timeout=datetime.timedelta(minutes=5))
+    from diffmining_tpu_torch.finetuning.args import parse_args
+    targs = parse_args(["--base_name_or_path", cfg["pipe"], "--output_dir", cfg["work"], "--mixed_precision", "no",
+                        "--use_ema", "--learning_rate", str(lr), "--seed", str(cfg["seed"]), "--device", "cuda"])
+    tr = base.BaseTrainer("ftt", targs)  # no mesh flags: the models alone
+    initial = {k: p.detach().clone() for k, p in tr.unet.named_parameters()}
+    gate("RUNS")
+    g = torch.Generator().manual_seed(cfg["seed"])
+    images = (torch.rand((2, 3, cfg["px"], cfg["px"]), generator=g) * 2 - 1).cuda()
+    tokens = torch.from_numpy(tr.tokenizer(["A face portrait of the 1930s.", "A face portrait of the 1990s."])).cuda()
+    runs, one = {}, None
+
+    def stats(got, want):
+        # |got - want| over every element: the largest, and how many exceed 1e-3 lr or differ at all
+        worst, beyond, differ, n = 0.0, 0, 0, 0
+        for k, w in want.items():
+            d = (got[k].detach() - w).abs()
+            worst = max(worst, float(d.max()))
+            beyond += int((d > 1e-3 * lr).sum())
+            differ += int((d > 0).sum())
+            n += d.numel()
+        return dict(max_abs=worst, beyond_share=beyond / n, differ_share=differ / n, elements=n)
+
+    for name, mesh in (("one", None), ("one again", None), ("dp2", pm.make_mesh(dp=2)),
+                       ("fsdp2", pm.make_mesh(dp=1, fsdp=2))):
+        with torch.no_grad():
+            for k, p in tr.unet.named_parameters():
+                p.copy_(initial[k])
+        tr.mesh = mesh
+        b = tr._builder(train.make_optimizer(train.make_lr_schedule("constant", lr, 0)))
+        st = b.init_state()
+        rows = slice(None) if mesh is None else pm.host_local_batch_slice(2, mesh)
+        for f in kernels:
+            f.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        st, loss = b.build()(st, images[rows], tokens[rows], seed=cfg["seed"])
+        loss = float(loss)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        # the peak less what the comparisons keep on the card: the initial weights and the first run's results
+        kept = [initial] if one is None else [initial, *one]
+        peak = (torch.cuda.max_memory_allocated() - sum(v.numel() * v.element_size() for part in kept
+                                                          for v in part.values())) / 2**30
+        ema = b.whole_ema(st)
+        params = {k: p.detach() for k, p in st.params.items()}
+        state_bytes = dict(moments=sum(m.numel() * m.element_size() for m in (*st.opt_state.mu, *st.opt_state.nu)),
+                           ema=sum(e.numel() * e.element_size() for e in st.ema_params.values()))
+        runs[name] = dict(loss=loss, step_ms=step_ms, peak_gib=peak, state_bytes=state_bytes,
+                          launches={f.__name__: f.launches for f in kernels})
+        if one is None:  # the reference, kept on the card
+            one = ({k: v.clone() for k, v in params.items()}, {k: v.clone() for k, v in ema.items()})
+        else:
+            runs[name].update(params_vs_one=stats(params, one[0]), ema_vs_one=stats(ema, one[1]))
+        del st, b, ema, params
+        torch.cuda.empty_cache()
+    result.update(runs=runs, tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32])
+    pm.destroy()
+result["launches"] = {f.__name__: f.launches for f in kernels}
+with open(out, "w") as f:
+    json.dump(result, f)
+"""
+
+
+def phase_train_dp(smi, pipeline_dir):
+    """The trainer over dp and fsdp on one card, from phase 12's
+    SD-v1.5-width export at 512px, each run a process of its own. (a)
+    ``finetune --mesh_dp 1`` under torchrun (--nproc_per_node 1), an NCCL
+    group of one (the gradients through the bucketed all-reduce), and the
+    plain finetune process on the same flags, loading together and stepping
+    one after the other: bf16 autocast, EMA, batch 4 of 8 synthetic
+    512x512 PNGs, 6 steps (5 warm ones to time), a checkpoint and an export
+    each; the losses, the final parameters and the EMA bit-equal (two
+    checksums of the bits of every tensor), 10 launches each of K4, K5 and
+    K6 a step, the warm step ms of both, the group's all-reduce ms and the
+    seconds of their set-up, checkpoint and export. (b) Two ranks of a gloo group
+    on this card (NCCL refuses two ranks on one GPU), float32
+    (--mixed_precision no), EMA, a global batch of 2 at 512px, one step
+    four times from the same weights: twice without a mesh, over dp 2 (a
+    rank's batch 1) and over dp 1 x fsdp 2 (the optimizer state and the
+    EMA sharded). dp 2 is held to one process within 2·lr everywhere and
+    1e-3·lr for 99% of the elements (the CPU tests' criterion); fsdp 2 is
+    bit-equal to one process, or, where the two one-process runs already
+    differ (the float32 backward does not repeat bit for bit on the card),
+    held to the CPU criterion and to twice their spread (the share of
+    elements beyond 1e-3·lr). Each rank's optimizer-state and EMA bytes and
+    peak GiB of each run; the float32 K4-K6 launches (10 each a step)."""
+    import numpy as np
+    from PIL import Image
+
+    work = os.path.join(ROOT, "build", "chip_smoke_train_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "ftt")
+    rng = np.random.RandomState(SEED + 41)
+    px, batch, n_steps, lr = 512, 4, 6, 1e-4
+    for c in ("1930", "1990"):
+        os.makedirs(os.path.join(data, c))
+        for i in range(4):
+            Image.fromarray(rng.randint(0, 256, (px, px, 3), dtype=np.uint8)).save(
+                os.path.join(data, c, f"{c}_{i}.png"), compress_level=1)
+    script = os.path.join(work, "rank.py")
+    with open(script, "w") as f:
+        f.write(TRAIN_DP_RANK)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+
+    def run(tag, mode, args, launcher=()):
+        out = os.path.join(work, f"{tag}.json")
+        return subprocess.Popen([sys.executable, *launcher, script, out, mode, *args], cwd=ROOT, env=env), out
+
+    def wait(procs):
+        results = []
+        try:
+            for p, out in procs:
+                p.wait(timeout=600)
+                if p.returncode != 0:
+                    raise AssertionError(f"train dp: {p.args[-12:]} exited {p.returncode}")
+                with open(out) as f:
+                    results.append(json.load(f))
+        finally:
+            for p, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        return results
+
+    def finetune(tag, *extra, launcher=()):
+        return run(tag, "cli", ["--which", "ftt", "--base_name_or_path", pipeline_dir, "--data_path", data,
+                                "--output_dir", os.path.join(work, tag), "--train_batch_size", str(batch),
+                                "--resolution", str(px), "--max_train_steps", str(n_steps), "--checkpointing_steps",
+                                str(n_steps), "--mixed_precision", "bf16", "--use_ema", "--seed", str(SEED),
+                                "--device", "cuda", *extra], launcher)
+
+    # The processes share the card in turns: (a)'s plain process and NCCL
+    # group of one start and load together; the plain process steps once
+    # the group has loaded, the group once the plain process has stepped,
+    # and both write their checkpoints and exports after that; (b)'s gloo
+    # ranks start when the group has stepped and run their steps once both
+    # of (a)'s processes have exited. So no process steps beside another's
+    # loading, stepping or writing (a step beside the other's checkpoint
+    # writes read 31% slower in one run).
+    t0 = time.perf_counter()
+    gates = {g: os.path.join(work, g) for g in ("plain_loaded", "group_loaded", "plain_stepped", "group_stepped",
+                                                "a_exited")}
+
+    def start(tag, points, *extra, **kw):
+        for point, (say, wait_for) in points.items():
+            env[f"TRAIN_DP_{point}_SAY"], env[f"TRAIN_DP_{point}_WAIT"] = say, wait_for
+        proc = finetune(tag, *extra, **kw) if tag in ("plain", "nccl1") else run(tag, "gloo", list(extra))
+        for point in points:
+            del env[f"TRAIN_DP_{point}_SAY"], env[f"TRAIN_DP_{point}_WAIT"]
+        return proc
+
+    first = start("plain", {"STEPS": (gates["plain_loaded"], gates["group_loaded"]),
+                            "SAVE": (gates["plain_stepped"], gates["group_stepped"])})
+    second = start("nccl1", {"STEPS": (gates["group_loaded"], gates["plain_stepped"]),
+                             "SAVE": (gates["group_stepped"], "")}, "--distributed", "--mesh_dp", "1",
+                   launcher=("-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"))
+    while not os.path.exists(gates["group_stepped"]) and first[0].poll() is None and second[0].poll() is None:
+        time.sleep(0.1)
+    # (b) two gloo ranks, float32: one process (twice), dp 2, dp 1 x fsdp 2
+    t1 = time.perf_counter()
+    address = f"127.0.0.1:{free_port()}"
+    gloo = [start(f"gloo_rank{r}", {"RUNS": ("", gates["a_exited"])}, json.dumps(dict(
+        address=address, rank=r, pipe=pipeline_dir, lr=lr, seed=SEED, px=px, work=os.path.join(work, f"g{r}"))))
+        for r in range(2)]
+    try:
+        plain, group = wait([first, second])
+    except BaseException:
+        for p, _ in gloo:
+            p.kill()
+            p.wait()
+        raise
+    finally:
+        open(gates["a_exited"], "w").close()
+    a_s = time.perf_counter() - t0
+    ranks = wait(gloo)
+    gloo_s = time.perf_counter() - t1
+    for r, tag in ((plain, "plain"), (group, "nccl1")):
+        r["written"] = sorted(os.listdir(os.path.join(work, tag)))
+        shutil.rmtree(os.path.join(work, tag), ignore_errors=True)
+    want = {"flash_fwd_lse": 10 * n_steps, "flash_bwd_dq": 10 * n_steps, "flash_bwd_dkv": 10 * n_steps}
+    for r, tag in ((plain, "plain"), (group, "nccl1")):
+        got = {k: r["launches"][k] for k in want}
+        if got != want or any(v for k, v in r["launches"].items() if k not in want) or \
+                r["written"] != [f"checkpoint-{n_steps}", "export", "logs", "trainer_args.json"]:
+            raise AssertionError(f"train dp (a) {tag}: launches {r['launches']} (expected {want}), wrote {r['written']}")
+    if plain["mesh"] is not None or group["mesh"] != [1, 1, 1]:
+        raise AssertionError(f"train dp (a): meshes {plain['mesh']} and {group['mesh']}")
+    equal = dict(losses=plain["losses"] == group["losses"], params=plain["params"] == group["params"],
+                 ema=plain["ema"] == group["ema"])
+    if not all(equal.values()):
+        raise AssertionError(f"train dp (a): the NCCL group of one is not bit-equal to the plain process: {equal}; "
+                             f"losses {plain['losses']} and {group['losses']}")
+    warm = {tag: statistics.median(r["steps_ms"][1:]) for r, tag in ((plain, "plain"), (group, "nccl1"))}
+    log(f"train dp (a): finetune, bf16, EMA, batch {batch} at {px}px, {n_steps} steps: the NCCL group of one under "
+        f"torchrun bit-equal to the plain process (losses {', '.join(f'{x:.6f}' for x in plain['losses'])}, "
+        f"{len(plain['params'])} parameter and {len(plain['ema'])} EMA tensors by checksum); K4, K5, K6 launched "
+        f"{want['flash_fwd_lse']} times each in each; step ms plain {', '.join(f'{x:.1f}' for x in plain['steps_ms'])}, "
+        f"group {', '.join(f'{x:.1f}' for x in group['steps_ms'])} (warm medians {warm['plain']:.1f} and "
+        f"{warm['nccl1']:.1f}, "
+        f"{warm['nccl1'] / warm['plain'] - 1:+.1%}); the group's bucketed gradient all-reduce "
+        f"{', '.join(f'{x:.2f}' for x in group['reduce_ms'])} ms a step, warm median "
+        f"{statistics.median(group['reduce_ms'][1:]):.2f} (synchronised on each side; the plain "
+        f"process's call returns at once: {', '.join(f'{x:.3f}' for x in plain['reduce_ms'])} ms); peak "
+        f"{plain['peak_gib']:.2f} and {group['peak_gib']:.2f} GiB; "
+        f"both processes {a_s:.1f} s (in-process seconds "
+        f"{json.dumps({k: round(v, 1) for k, v in plain['seconds'].items()})} and "
+        f"{json.dumps({k: round(v, 1) for k, v in group['seconds'].items()})}), on {smi}")
+
+    f32_want = {"flash_fwd_lse_f32": 10, "flash_bwd_dq_f32": 10, "flash_bwd_dkv_f32": 10}
+    bad = []
+    for i, r in enumerate(ranks):
+        for name, run_ in r["runs"].items():
+            got = {k: run_["launches"][k] for k in f32_want}
+            if got != f32_want or any(v for k, v in run_["launches"].items() if k not in f32_want) or \
+                    not math.isfinite(run_["loss"]):
+                bad.append(f"rank {i} {name}: launches {run_['launches']}, loss {run_['loss']}")
+        for name in ("dp2", "fsdp2"):
+            for part in ("params", "ema"):
+                s = r["runs"][name][f"{part}_vs_one"]
+                if s["max_abs"] > 2 * lr + 1e-6 or s["beyond_share"] > 0.01:
+                    bad.append(f"rank {i} {name} {part}: {s}")
+        for part in ("params", "ema"):
+            s, sp = r["runs"]["fsdp2"][f"{part}_vs_one"], r["runs"]["one again"][f"{part}_vs_one"]
+            if sp["differ_share"] == 0 and s["differ_share"] > 0:
+                bad.append(f"rank {i} fsdp2 {part}: not bit-equal to one process ({s}) where one process repeats")
+            if s["beyond_share"] > 2 * sp["beyond_share"] + 1e-6:
+                bad.append(f"rank {i} fsdp2 {part}: {s['beyond_share']:.3g} of the elements beyond 1e-3 lr, twice "
+                           f"the two one-process runs' {sp['beyond_share']:.3g}")
+        if r["tf32"] != [False, False]:
+            bad.append(f"rank {i}: TF32 flags {r['tf32']}")
+    if bad:
+        raise AssertionError("train dp (b): " + "; ".join(bad))
+    for i, r in enumerate(ranks):
+        log(f"train dp (b) rank {i}: " + "; ".join(
+            f"{name} loss {x['loss']:.6f}, step {x['step_ms']:.1f} ms, peak {x['peak_gib']:.2f} GiB, moments "
+            f"{x['state_bytes']['moments'] / 1e9:.3f} GB, EMA {x['state_bytes']['ema'] / 1e9:.3f} GB"
+            + ("" if name == "one" else f", params vs one: max |d| {x['params_vs_one']['max_abs']:.3g}, "
+               f"{x['params_vs_one']['differ_share']:.3g} differ, {x['params_vs_one']['beyond_share']:.3g} beyond "
+               f"1e-3 lr; EMA max |d| {x['ema_vs_one']['max_abs']:.3g}")
+            for name, x in r["runs"].items()))
+    log(f"train dp (b): the float32 K4, K5, K6 launched 10 times a run on each rank; two ranks {gloo_s:.1f} s, "
+        f"on {smi}")
+    shutil.rmtree(work, ignore_errors=True)
+    per_rank = {name: dict(peak_gib=[r["runs"][name]["peak_gib"] for r in ranks],
+                           step_ms=[r["runs"][name]["step_ms"] for r in ranks],
+                           moments_bytes=[r["runs"][name]["state_bytes"]["moments"] for r in ranks],
+                           ema_bytes=[r["runs"][name]["state_bytes"]["ema"] for r in ranks],
+                           params_vs_one=[r["runs"][name].get("params_vs_one") for r in ranks],
+                           ema_vs_one=[r["runs"][name].get("ema_vs_one") for r in ranks])
+                for name in ranks[0]["runs"]}
+    f32_launches = {k: sum(r["runs"][name]["launches"][k] for r in ranks for name in r["runs"]) for k in f32_want}
+    return dict(nccl_group_of_one=dict(bit_equal=equal, losses=group["losses"], steps_ms=group["steps_ms"],
+                                       plain_steps_ms=plain["steps_ms"], peak_gib=group["peak_gib"],
+                                       plain_peak_gib=plain["peak_gib"], launches=group["launches"],
+                                       plain_launches=plain["launches"], wall_s=a_s, seconds=group["seconds"],
+                                       plain_seconds=plain["seconds"], reduce_ms=group["reduce_ms"]),
+                gloo_fp32=dict(runs=per_rank, launches=f32_launches, wall_s=gloo_s),
+                wall_s=time.perf_counter() - t0, card=smi)
+
+
 TRAIN_KERNELS = {
     "K4": ("flash_fwd_lse", "diffmining_tpu_torch/csrc/flash_fwd_lse.cu",
            "diffmining_tpu/ops/flash_attention.py:37 (_flash_kernel, via _flash_forward(return_lse=True) :142)"),
@@ -3988,8 +4396,10 @@ def main() -> int:
     mining_dp = phase_mining_dp(smi, export_dir, sweep_dp)
     for k in ("work", "data", "tree"):
         sweep_dp.pop(k)
-    shutil.rmtree(export_dir, ignore_errors=True)
     done("mining dp")
+    train_dp = phase_train_dp(smi, export_dir)
+    shutil.rmtree(export_dir, ignore_errors=True)
+    done("train dp")
     shutil.rmtree(pnp_work, ignore_errors=True)
     shutil.rmtree(mining_work["root"], ignore_errors=True)
 
@@ -4007,7 +4417,9 @@ def main() -> int:
     nomax["launches_by_path"] = by_path
     entries = [nomax]
     for kind, (name, source, replaces) in TRAIN_KERNELS.items():
-        by_train = {"train": train["launches"][name], "train_lora_8bit": lora["launches"][name]}
+        by_train = {"train": train["launches"][name], "train_lora_8bit": lora["launches"][name],
+                    "train dp": train_dp["nccl_group_of_one"]["launches"][name]
+                    + train_dp["nccl_group_of_one"]["plain_launches"][name]}
         entry = kernel_entry(name, source, replaces, sum(by_train.values()), train_kern[kind], "L4096 D40")
         entry["launches_by_path"] = by_train
         entries.append(entry)
@@ -4021,9 +4433,12 @@ def main() -> int:
                   "f32 sweep": sweep_f32["launches"]["flash_fwd_nomax_f32"],
                   "sweep dp": sum(sweep_dp["gloo_dp2_fp32"]["nomax_f32_launches_per_rank"]),
                   "mining dp": sum(mining_dp["gloo_dp2_fp32"]["nomax_f32_launches_per_rank"])},
-        "lse": {"train f32": train_f32["launches"]["flash_fwd_lse_f32"]},
-        "K5": {"train f32": train_f32["launches"]["flash_bwd_dq_f32"]},
-        "K6": {"train f32": train_f32["launches"]["flash_bwd_dkv_f32"]},
+        "lse": {"train f32": train_f32["launches"]["flash_fwd_lse_f32"],
+                "train dp": train_dp["gloo_fp32"]["launches"]["flash_fwd_lse_f32"]},
+        "K5": {"train f32": train_f32["launches"]["flash_bwd_dq_f32"],
+               "train dp": train_dp["gloo_fp32"]["launches"]["flash_bwd_dq_f32"]},
+        "K6": {"train f32": train_f32["launches"]["flash_bwd_dkv_f32"],
+               "train dp": train_dp["gloo_fp32"]["launches"]["flash_bwd_dkv_f32"]},
         "K7": {"f32 sweep, DIFFMINING_FUSED_NORM=1 pass": sweep_f32["fused_norm_launches"]},
     }
     for mode, (name, source, replaces, main_case) in F32_KERNELS.items():
@@ -4048,6 +4463,7 @@ def main() -> int:
     print(json.dumps({"verify_checkpoint": verify}))
     print(json.dumps({"sweep_dp": sweep_dp}))
     print(json.dumps({"mining_dp": mining_dp}))
+    print(json.dumps({"train_dp": train_dp}))
     print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

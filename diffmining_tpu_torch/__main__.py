@@ -45,8 +45,12 @@ def main(argv=None) -> None:
                 parse_args(rest)  # argparse prints the trainer flags and exits
             raise SystemExit("finetune requires --which {cars,ftt,geo,places,xray}")
         from diffmining_tpu_torch.finetuning.base import BaseTrainer
+        from diffmining_tpu_torch.parallel.mesh import destroy
 
-        BaseTrainer(which, parse_args(rest)).train()
+        try:
+            BaseTrainer(which, parse_args(rest)).train()
+        finally:
+            destroy()
     elif cmd == "typicality":
         from diffmining_tpu_torch.typicality.compute import main as m
 

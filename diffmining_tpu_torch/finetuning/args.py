@@ -1,13 +1,16 @@
 """Training flags: the same surface as diffmining_tpu/finetuning/args.py (the
 reference's parser_base, diffmining/finetuning/args.py:4-254), plus
-``--device``. Flags whose feature the port does not have yet raise with
-the ROADMAP item that brings it (``check_supported``); the reference's dead
-and hub-only flags are accepted and inert, so its launch scripts parse.
+``--device``; ``trainer_mesh`` turns the mesh flags into the trainer's mesh
+(one process a GPU, under torchrun). The reference's dead and hub-only
+flags are accepted and inert, so its launch scripts parse.
 """
 from __future__ import annotations
 
 import argparse
 import os
+from typing import Optional
+
+from diffmining_tpu_torch.parallel.mesh import Mesh, cli_mesh
 
 
 def parser_base() -> argparse.ArgumentParser:
@@ -63,10 +66,14 @@ def parser_base() -> argparse.ArgumentParser:
     p.add_argument("--enable_xformers_memory_efficient_attention", action="store_true")
     p.add_argument("--local_rank", type=int, default=-1)
     p.add_argument("--dataloader_num_workers", type=int, default=4, help="inert: one loader thread")
-    p.add_argument("--mesh_dp", type=int, default=None, help="data-parallel size; >1 not ported yet (ROADMAP A12c)")
-    p.add_argument("--mesh_fsdp", type=int, default=1, help=">1 not ported yet (ROADMAP A12c)")
-    p.add_argument("--distributed", action="store_true", help="not ported yet (ROADMAP A12c)")
-    p.add_argument("--coordinator_address", type=str, default=None, help="not ported yet (ROADMAP A12c)")
+    p.add_argument("--mesh_dp", type=int, default=None,
+                   help="data-parallel size (default under a process group: gcd(train_batch_size, ranks // fsdp))")
+    p.add_argument("--mesh_fsdp", type=int, default=1,
+                   help="shard the optimizer state and the EMA over this many ranks (mesh_dp x mesh_fsdp = ranks)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group torchrun describes (one process a GPU)")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of the group's rendezvous, with --num_processes and --process_id")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     # lora
@@ -109,18 +116,36 @@ def parser_base() -> argparse.ArgumentParser:
     return p
 
 
-def check_supported(args) -> None:
-    """Raise on a flag whose feature is not ported yet, naming its ROADMAP item."""
-    missing = []
-    if args.distributed or args.coordinator_address is not None or (args.mesh_dp or 1) > 1 or args.mesh_fsdp > 1:
-        missing.append("multi-GPU training (--distributed, --mesh_dp/--mesh_fsdp > 1): ROADMAP A12c")
-    if missing:
-        raise NotImplementedError("not ported to the PyTorch package yet: " + "; ".join(missing))
+def trainer_mesh(args) -> Optional[Mesh]:
+    """The trainer's mesh from its flags (JAX args.py:129-139 and
+    base.py:88-95): ``--distributed`` or ``--coordinator_address`` join the
+    process group, where ``--mesh_dp`` defaults to gcd(train_batch_size,
+    ranks // mesh_fsdp). More than one rank outside a group raises, naming
+    torchrun; so does a mesh that leaves ranks idle (dp x fsdp must be the
+    number of processes, where JAX takes the first dp x fsdp devices) or
+    whose dp does not divide the global batch. None without the flags."""
+    ranks = (args.mesh_dp or 1) * args.mesh_fsdp
+    if ranks > 1 and not (args.distributed or args.coordinator_address is not None):
+        raise SystemExit(
+            f"finetune --mesh_dp {args.mesh_dp or 1} --mesh_fsdp {args.mesh_fsdp} runs one process a GPU: launch it "
+            f"as `torchrun --nproc_per_node {ranks} -m diffmining_tpu_torch finetune ... --distributed --mesh_dp "
+            f"{args.mesh_dp or 1} --mesh_fsdp {args.mesh_fsdp}`"
+        )
+    mesh = cli_mesh("finetune", args.mesh_dp, args.device, distributed=args.distributed,
+                    coordinator_address=args.coordinator_address, num_processes=args.num_processes,
+                    process_id=args.process_id, mesh_fsdp=args.mesh_fsdp, batch=args.train_batch_size)
+    if mesh is not None and mesh.dp * mesh.fsdp != mesh.world:
+        raise SystemExit(
+            f"finetune over dp {mesh.dp} x fsdp {mesh.fsdp} would leave {mesh.world - mesh.dp * mesh.fsdp} of the "
+            f"{mesh.world} processes idle: give --mesh_dp and --mesh_fsdp whose product is the number of processes"
+        )
+    if mesh is not None and args.train_batch_size % mesh.dp:
+        raise SystemExit(f"--train_batch_size {args.train_batch_size} (the global batch) must divide by dp {mesh.dp}")
+    return mesh
 
 
 def parse_args(argv=None):
     args = parser_base().parse_args(argv)
-    check_supported(args)
     env_local_rank = int(os.environ.get("LOCAL_RANK", -1))
     if env_local_rank != -1 and env_local_rank != args.local_rank:
         args.local_rank = env_local_rank

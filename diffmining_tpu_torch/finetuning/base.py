@@ -21,6 +21,16 @@ end, and ``save_logs`` writes one grid a category under
   * the final (or ``--export-only``) export to a diffusers pipeline dir,
     which the typicality stage reads.
 
+Over a mesh (``--distributed`` under torchrun, ``--mesh_dp``,
+``--mesh_fsdp``; JAX base.py:88-95, 163-172, 212-239) ``--train_batch_size``
+is the global batch: each rank decodes its dp share of every batch, the
+step all-reduces the gradients (finetuning/train.py), and fsdp > 1 shards
+the optimizer state and the EMA. Rank 0 alone writes ``trainer_args.json``,
+the metrics, the preview grids, the checkpoints and the export. A
+checkpoint keeps the one-process format whatever the mesh: rank 0 writes
+the whole state, the fsdp pieces gathered tensor by tensor to the host, and
+each rank of a resuming run (any mesh) copies in its own piece.
+
 Models come from ``--base_name_or_path`` (a pipeline dir) or an injected
 bundle ``sd`` with ``unet``, ``vae``, ``clip``, ``tokenizer`` and
 ``schedule`` (e.g. ``typicality.compute.SD.init_random``). ``load`` replaces
@@ -29,6 +39,7 @@ image decoding (``path -> [H, W, 3] float32 in [-1, 1]``), as the sweep's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -42,7 +53,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from diffmining_tpu_torch.diffusion.sampling import sample_ddim
-from diffmining_tpu_torch.finetuning.args import check_supported
+from diffmining_tpu_torch.finetuning.args import trainer_mesh
 from diffmining_tpu_torch.finetuning.datasets import DATASETS, BatchIterator, Loader
 from diffmining_tpu_torch.finetuning.train import (
     AccumulateState,
@@ -54,7 +65,9 @@ from diffmining_tpu_torch.models.clip import CLIPTextModel
 from diffmining_tpu_torch.models.tokenizer import CLIPTokenizer, tiny_tokenizer
 from diffmining_tpu_torch.models.unet import UNet2DCondition
 from diffmining_tpu_torch.models.vae import AutoencoderKL
+from diffmining_tpu_torch.ops import optim8bit
 from diffmining_tpu_torch.ops.optim8bit import Adam8bitState
+from diffmining_tpu_torch.parallel.mesh import Mesh, host_barrier, host_local_batch_slice, is_writer
 from diffmining_tpu_torch.utils.device import resolve_device
 from diffmining_tpu_torch.utils.export import save_pipeline_dir
 from diffmining_tpu_torch.utils.figures import hcat
@@ -104,8 +117,8 @@ DOMAINS: Dict[str, DomainSpec] = {
 
 
 class BaseTrainer:
-    def __init__(self, which: str, args, sd=None, load: Optional[Loader] = None):
-        check_supported(args)
+    def __init__(self, which: str, args, sd=None, load: Optional[Loader] = None, mesh: Optional[Mesh] = None):
+        self.mesh = trainer_mesh(args) if mesh is None else mesh
         if which not in DOMAINS:
             raise ValueError(f"unknown domain {which!r}; expected one of {sorted(DOMAINS)}")
         self.which = which
@@ -170,14 +183,15 @@ class BaseTrainer:
             ds.items = [ds.items[i] for i in ids]
         ds.resolution = args.resolution or self.spec.resolution
         self.train_dataset = ds
-        self.loader = BatchIterator(ds, args.train_batch_size, seed=args.seed)
+        rows = None if self.mesh is None else host_local_batch_slice(args.train_batch_size, self.mesh)
+        self.loader = BatchIterator(ds, args.train_batch_size, seed=args.seed, process_slice=rows)
 
     def _builder(self, optimizer) -> TrainStepBuilder:
         args = self.args
         return TrainStepBuilder(
             unet=self.unet, vae=self.vae, clip=self.clip, schedule=self.schedule, optimizer=optimizer,
             use_ema=args.use_ema, ema_max_decay=args.ema_decay, mixed_precision=args.mixed_precision != "no",
-            lora_rank=args.lora_rank if args.lora else None, lora_seed=args.seed,
+            lora_rank=args.lora_rank if args.lora else None, lora_seed=args.seed, mesh=self.mesh,
         )
 
     def training_init(self):
@@ -194,7 +208,7 @@ class BaseTrainer:
 
         lr = args.learning_rate
         if args.scale_lr:
-            lr *= args.gradient_accumulation_steps * args.train_batch_size
+            lr *= args.gradient_accumulation_steps * args.train_batch_size * (1 if self.mesh is None else self.mesh.dp)
         self.optimizer = make_optimizer(
             make_lr_schedule(args.lr_scheduler, lr, args.lr_warmup_steps, args.max_train_steps),
             args.adam_beta1, args.adam_beta2, args.adam_weight_decay, args.adam_epsilon, args.max_grad_norm,
@@ -247,35 +261,92 @@ class BaseTrainer:
         for d in drop:
             shutil.rmtree(join(out, d))
 
-    def _state_dict(self) -> Dict[str, Any]:
-        st = self.state
-        opt = st.opt_state
-        inner = opt.inner_state if isinstance(opt, AccumulateState) else opt
-        saved = {"step": st.step, "params": st.params, "ema_params": st.ema_params}
+    def _barrier(self, name: str) -> None:
+        """Align the mesh's ranks; a trainer without a mesh runs alone even
+        inside a process group (the sweep's export of a checkpoint)."""
+        if self.mesh is not None:
+            host_barrier(name)
+
+    def _inner(self):
+        opt = self.state.opt_state
+        return opt.inner_state if isinstance(opt, AccumulateState) else opt
+
+    def _state_dict(self) -> Optional[Dict[str, Any]]:
+        """The whole state in the one-process layout, on rank 0; under fsdp
+        every rank joins the gathers (each tensor brought to the host alone)
+        and the others get None."""
+        st, sh = self.state, self.builder.shards
+        keep = is_writer(self.mesh)
+        host = None if sh.fsdp == 1 else "cpu"
+        shapes = [p.shape for p in st.params.values()]
+        inner = self._inner()
+        ema = None
+        if st.ema_params is not None:
+            ema = dict(zip(st.ema_params, sh.whole(list(st.ema_params.values()), shapes, host, keep)))
+        saved = {"step": st.step, "params": st.params, "ema_params": ema}
         if isinstance(inner, Adam8bitState):
-            saved["adam8bit"] = {"count": inner.count, "mu_q": inner.mu_q, "mu_s": inner.mu_s,
-                                 "nu_q": inner.nu_q, "nu_s": inner.nu_s}
+            saved["adam8bit"] = {"count": inner.count, **self._whole_8bit(inner, keep)}
         else:
-            saved["adam"] = {"count": inner.count, "mu": inner.mu, "nu": inner.nu}
+            saved["adam"] = {"count": inner.count, "mu": sh.whole(inner.mu, shapes, host, keep),
+                             "nu": sh.whole(inner.nu, shapes, host, keep)}
+        opt = st.opt_state
         if isinstance(opt, AccumulateState):
             saved["accum"] = {"mini_step": opt.mini_step, "gradient_step": opt.gradient_step, "acc": opt.acc}
-        return saved
+        return saved if keep else None
+
+    def _whole_8bit(self, inner: Adam8bitState, keep: bool) -> Dict[str, List]:
+        """8-bit Adam's int8 blocks and scales in the one-process group
+        layout (``optim8bit.plan_groups`` of the whole tensors), each
+        tensor's blocks gathered from the fsdp peers to the host (kept by
+        ``keep`` alone); the state's own buffers at fsdp 1."""
+        sh, names = self.builder.shards, ("mu_q", "mu_s", "nu_q", "nu_s")
+        if sh.fsdp == 1:
+            return {n: getattr(inner, n) for n in names}
+        groups = optim8bit.plan_groups(sh.numels)
+        whole = Adam8bitState(inner.count, groups, *(
+            [torch.zeros((g.offsets[-1], width), dtype=dtype) for g in groups]
+            for dtype, width in ((torch.int8, optim8bit._BLOCK), (torch.float32, 1)) * 2)) if keep else None
+        for i in range(len(sh.numels)):
+            for k, piece in enumerate(inner.tensor(i)):
+                got = sh.gather(piece, i, blocks=True)
+                if keep:
+                    whole.tensor(i)[k].copy_(got)
+        return {n: getattr(whole, n) for n in names} if keep else {}
+
+    def _load_8bit(self, inner: Adam8bitState, saved: Dict[str, List]) -> None:
+        """Copy this rank's blocks of each tensor out of a checkpoint's
+        one-process group layout."""
+        sh = self.builder.shards
+        skeleton = Adam8bitState(saved["count"], optim8bit.plan_groups(sh.numels),
+                                 *(saved[n] for n in ("mu_q", "mu_s", "nu_q", "nu_s")))
+        for i in range(len(sh.numels)):
+            rows = sh.rows(i, blocks=True)
+            for dst, src in zip(inner.tensor(i), skeleton.tensor(i)):
+                dst.copy_(src[rows])
 
     def save_checkpoint(self, step: int) -> None:
         """Write checkpoint-{step}/state.pt under a temporary name, then
         rename it into place; prune before and after, so the newest complete
-        checkpoint survives a crash at any point."""
+        checkpoint survives a crash at any point. Rank 0 writes and prunes;
+        every rank joins the gathers, then a barrier."""
         path = self._ckpt_dir(step)
         limit = self.args.checkpoints_total_limit
-        self._prune_checkpoints(limit)
-        if os.path.isfile(join(path, "state.pt")):
-            return  # already saved at this step (end-of-training re-save)
-        tmp = f"{path}.tmp-{os.getpid()}"
-        os.makedirs(tmp)
-        torch.save(self._state_dict(), join(tmp, "state.pt"))
-        os.replace(tmp, path)
-        logger.info("Saved state to %s", path)
-        self._prune_checkpoints(limit)
+        writer = is_writer(self.mesh)
+        if writer:
+            self._prune_checkpoints(limit)
+        done = os.path.isfile(join(path, "state.pt"))  # already saved at this step (end-of-training re-save)
+        self._barrier("checkpoint_listed")  # every rank has looked before rank 0 writes
+        if done:
+            return
+        saved = self._state_dict()
+        if writer:
+            tmp = f"{path}.tmp-{os.getpid()}"
+            os.makedirs(tmp)
+            torch.save(saved, join(tmp, "state.pt"))
+            os.replace(tmp, path)
+            logger.info("Saved state to %s", path)
+            self._prune_checkpoints(limit)
+        self._barrier("checkpoint")
 
     def resume_training(self, params_only: bool = False) -> None:
         args = self.args
@@ -291,28 +362,36 @@ class BaseTrainer:
         if path is None or not os.path.isfile(join(path, "state.pt")):
             logger.info("Checkpoint %r does not exist. Starting fresh.", args.resume_from_checkpoint)
             return
-        saved = torch.load(join(path, "state.pt"), map_location=self.device, weights_only=True)
-        st = self.state
+        # on the host: each rank copies in its own pieces, whatever mesh wrote it
+        saved = torch.load(join(path, "state.pt"), map_location="cpu", weights_only=True)
+        st, sh = self.state, self.builder.shards
+
+        def load_pieces(pieces, whole):
+            for i, (piece, w) in enumerate(zip(pieces, whole)):
+                piece.view(-1).copy_(w.reshape(-1)[sh.rows(i)])
+
         with torch.no_grad():
             for k, v in saved["params"].items():
                 st.params[k].copy_(v)
             if st.ema_params is not None and saved["ema_params"] is not None:
-                for k, v in saved["ema_params"].items():
-                    st.ema_params[k].copy_(v)
+                load_pieces(list(st.ema_params.values()), [saved["ema_params"][k] for k in st.ema_params])
             if not params_only:
-                opt = st.opt_state
-                inner = opt.inner_state if isinstance(opt, AccumulateState) else opt
+                opt, inner = st.opt_state, self._inner()
                 kind = "adam8bit" if isinstance(inner, Adam8bitState) else "adam"
                 if kind not in saved:
                     raise ValueError(f"{path} holds no {kind} optimizer state (was it saved with another "
                                      "--use_8bit_adam setting?)")
                 inner.count = saved[kind]["count"]
-                for name in (("mu_q", "mu_s", "nu_q", "nu_s") if kind == "adam8bit" else ("mu", "nu")):
-                    torch._foreach_copy_(getattr(inner, name), saved[kind][name])
+                if kind == "adam8bit":
+                    self._load_8bit(inner, saved[kind])
+                else:
+                    load_pieces(inner.mu, saved[kind]["mu"])
+                    load_pieces(inner.nu, saved[kind]["nu"])
                 if isinstance(opt, AccumulateState) and "accum" in saved:
                     opt.mini_step = saved["accum"]["mini_step"]
                     opt.gradient_step = saved["accum"]["gradient_step"]
-                    torch._foreach_copy_(opt.acc, saved["accum"]["acc"])
+                    for acc, v in zip(opt.acc, saved["accum"]["acc"]):
+                        acc.copy_(v)
         st.step = saved["step"]
         # state.step counts train_step calls (micro-steps); global_step is in
         # optimizer steps; the epoch position is in micro-batches (no loader
@@ -362,6 +441,16 @@ class BaseTrainer:
                 logs[c] = tensor_to_images(self.vae.decode(z))
         return logs
 
+    def save_previews(self) -> None:
+        """--log_previews: rank 0 samples every category (``sample``) and
+        writes the grids; under fsdp every rank joins the EMA's gather first
+        (JAX samples on every process and writes on process 0: the same
+        images)."""
+        with self.builder.ema_whole(self.state):
+            if is_writer(self.mesh):
+                self.save_logs(self.sample())
+        self._barrier("previews")
+
     def save_logs(self, logs: Dict[str, list]) -> None:
         """One grid a category, the samples side by side, under
         ``{output_dir}/plots/{global_step}/``."""
@@ -373,17 +462,22 @@ class BaseTrainer:
     # ------------------------------------------------------------------
 
     def end_training(self) -> str:
+        """Export the pipeline (the EMA weights under --use_ema), written by
+        rank 0; every rank joins the EMA's gather, then a barrier."""
         args = self.args
         export_dir = args.export_dir or join(args.output_dir, "export")
-        save_pipeline_dir(
-            export_dir,
-            self.unet.config, self.builder.dense_params(self.state, use_ema=args.use_ema),
-            self.vae.config, self.vae.state_dict(),
-            self.clip.config, self.clip.state_dict(),
-            self.schedule,
-            tokenizer_src_dir=join(self.base_dir, "tokenizer") if self.base_dir else None,
-        )
-        logger.info("Exported pipeline to %s", export_dir)
+        with self.builder.ema_whole(self.state):
+            if is_writer(self.mesh):
+                save_pipeline_dir(
+                    export_dir,
+                    self.unet.config, self.builder.dense_params(self.state, use_ema=args.use_ema),
+                    self.vae.config, self.vae.state_dict(),
+                    self.clip.config, self.clip.state_dict(),
+                    self.schedule,
+                    tokenizer_src_dir=join(self.base_dir, "tokenizer") if self.base_dir else None,
+                )
+                logger.info("Exported pipeline to %s", export_dir)
+        self._barrier("export")
         return export_dir
 
     def _batch(self, batch) -> tuple:
@@ -399,8 +493,10 @@ class BaseTrainer:
             return self.end_training()
         self.training_init()
         self.resume_training()
-        with open(join(args.output_dir, "trainer_args.json"), "w") as f:
-            json.dump(vars(args), f, indent=2, default=str)
+        writer = is_writer(self.mesh)
+        if writer:
+            with open(join(args.output_dir, "trainer_args.json"), "w") as f:
+                json.dump(vars(args), f, indent=2, default=str)
 
         # the loss stays on the device; one host read per logging window
         losses: List[torch.Tensor] = []
@@ -410,7 +506,8 @@ class BaseTrainer:
         # checkpointing_steps and logging_steps are in those units
         accum = args.gradient_accumulation_steps
         done = False
-        with MetricsLogger(join(args.output_dir, args.logging_dir, "metrics.jsonl")) as metrics:
+        metrics_path = join(args.output_dir, args.logging_dir, "metrics.jsonl")
+        with MetricsLogger(metrics_path) if writer else contextlib.nullcontext() as metrics:
             for epoch in range(self.first_epoch, args.num_train_epochs):
                 for step, batch in enumerate(self.loader.epoch(epoch)):
                     if epoch == self.first_epoch and step < self.resume_step:
@@ -426,18 +523,19 @@ class BaseTrainer:
                     if self.global_step % args.checkpointing_steps == 0:
                         self.save_checkpoint(self.global_step)
                     if self.global_step % args.logging_steps == 0:
-                        mean_loss = float(torch.stack(losses).mean())
-                        logger.info("step %d loss %.4f", self.global_step, mean_loss)
-                        metrics.log(self.global_step, train_loss=mean_loss, epoch=epoch,
-                                    steps_per_sec=timer.steps_per_sec())
+                        mean_loss = float(torch.stack(losses).mean())  # the dp mean, alike on every rank
+                        if writer:
+                            logger.info("step %d loss %.4f", self.global_step, mean_loss)
+                            metrics.log(self.global_step, train_loss=mean_loss, epoch=epoch,
+                                        steps_per_sec=timer.steps_per_sec())
                         if args.log_previews:
-                            self.save_logs(self.sample())
+                            self.save_previews()
                     if self.global_step >= args.max_train_steps:
                         done = True
                         break
                 if done:
                     break
         if args.log_previews:
-            self.save_logs(self.sample())
+            self.save_previews()
         self.save_checkpoint(self.global_step)
         return self.end_training()

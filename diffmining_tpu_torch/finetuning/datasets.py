@@ -249,12 +249,17 @@ class XRay(PromptDataset):
 class BatchIterator:
     """Shuffled, epoch-aware, thread-prefetched batches of stacked arrays:
     image [B, H, W, 3] float32, tokenized [B, 77], prompt (list). The last
-    partial batch of an epoch is dropped."""
+    partial batch of an epoch is dropped. With ``process_slice`` (JAX
+    datasets.py:255-287) every rank shuffles the same global id list and
+    decodes only those rows of each global batch; ``len()`` counts global
+    batches, so every rank takes the same number of steps."""
 
-    def __init__(self, dataset: PromptDataset, batch_size: int, seed: int = 42):
+    def __init__(self, dataset: PromptDataset, batch_size: int, seed: int = 42,
+                 process_slice: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
+        self.process_slice = process_slice
 
     def __len__(self):
         return len(self.dataset) // self.batch_size
@@ -263,6 +268,8 @@ class BatchIterator:
         idx = list(range(len(self.dataset)))
         random.Random(self.seed * 1_000_003 + epoch).shuffle(idx)
         batches = [idx[i : i + self.batch_size] for i in range(0, len(self) * self.batch_size, self.batch_size)]
+        if self.process_slice is not None:
+            batches = [b[self.process_slice] for b in batches]
         q: "queue.Queue" = queue.Queue(maxsize=4)
         stop = threading.Event()
 

@@ -24,6 +24,20 @@ previews.
 The random draws of a step (posterior eps, noise, t; train.py:277-283) come
 from a ``torch.Generator`` seeded from (seed, step), or the caller hands
 them in (``draws=``), which is how the tests feed the port the JAX draws.
+
+Over a mesh (parallel/mesh.py; train.py:373-388, where XLA adds the psum of
+the gradients of a ``P("dp")`` batch) each rank holds its dp share of the
+global batch and takes its rows of the global batch's draws, so a step over
+dp computes what one process computes on the whole batch. After the
+backward the gradients are all-reduced to their mean over the world in flat
+buckets (``all_reduce_mean_``), every micro-step before the accumulator's
+add, as in JAX; the global-norm clip then reads the whole reduced
+gradients, alike on every rank, and the loss returned is the dp mean.
+Under fsdp > 1 the optimizer state and the EMA are sharded
+(``mesh.FlatShards``): the update runs on this rank's pieces of the
+gradients and the weights, and the weights are gathered whole again. AdamW,
+the EMA and 8-bit Adam's block absmax are elementwise or blockwise, so dp 1,
+fsdp 2 gives one process's bits.
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ from diffmining_tpu_torch.models.unet import UNet2DCondition
 from diffmining_tpu_torch.models.vae import AutoencoderKL, sample_latent
 from diffmining_tpu_torch.ops import optim8bit
 from diffmining_tpu_torch.ops.optim8bit import Adam8bitState
+from diffmining_tpu_torch.parallel.mesh import FlatShards, Mesh, all_reduce_mean_, host_local_batch_slice
 
 LRSchedule = Callable[[int], np.float32]
 F32 = np.float32
@@ -156,11 +171,15 @@ class Optimizer:
     accum_dtype: Optional[torch.dtype] = None  # default: the gradients' dtype
     use_8bit: bool = False
 
-    def init(self, params: Sequence[torch.Tensor]):
+    def init(self, params: Sequence[torch.Tensor], pieces: Optional[Sequence[torch.Tensor]] = None):
+        """The state of ``params``: the moments cover ``pieces``, this rank's
+        fsdp pieces of them (the params themselves by default), the
+        accumulator the whole params."""
+        pieces = params if pieces is None else pieces
         if self.use_8bit:
-            inner = optim8bit.init_state(params)
+            inner = optim8bit.init_state(pieces)
         else:
-            inner = AdamWState(0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params])
+            inner = AdamWState(0, [torch.zeros_like(p) for p in pieces], [torch.zeros_like(p) for p in pieces])
         if self.accum_steps <= 1:
             return inner
         acc = [torch.zeros_like(p, dtype=self.accum_dtype or p.dtype) for p in params]
@@ -174,11 +193,10 @@ class Optimizer:
             torch._foreach_div_(grads, norm)
             torch._foreach_mul_(grads, self.max_grad_norm)
 
-    def apply_(self, params: List[torch.Tensor], grads: List[torch.Tensor], state) -> None:
-        """One clipped AdamW update of ``params`` in place, in optax's order:
-        mu, nu, bias corrections, mu_hat / (sqrt(nu_hat) + eps), + wd·p,
-        × −lr(count); ``grads`` is consumed."""
-        self.clip_(grads)
+    def update_(self, params: List[torch.Tensor], grads: List[torch.Tensor], state) -> None:
+        """The AdamW update of ``params`` in place from clipped ``grads``
+        (which it consumes), in optax's order: mu, nu, bias corrections,
+        mu_hat / (sqrt(nu_hat) + eps), + wd·p, × −lr(count)."""
         lr = self.lr_schedule(state.count)
         if isinstance(state, Adam8bitState):
             optim8bit.adamw_8bit_(params, grads, state, lr, self.beta1, self.beta2, self.eps, self.weight_decay)
@@ -268,6 +286,10 @@ class TrainStepBuilder:
     # UNet is frozen (no dense gradient is ever allocated)
     lora_rank: Optional[int] = None
     lora_seed: int = 0
+    # the mesh: this rank's dp share of each batch, the gradient all-reduce
+    # and, with fsdp > 1, the sharded optimizer state and EMA; None or a
+    # mesh without a process group run no collective
+    mesh: Optional[Mesh] = None
 
     def init_state(self) -> TrainState:
         for m in (self.vae, self.clip):
@@ -284,12 +306,35 @@ class TrainStepBuilder:
         else:
             self.unet.requires_grad_(True)
             params = dict(self.unet.named_parameters())
-        ema = {k: p.detach().clone() for k, p in params.items()} if self.use_ema else None
-        return TrainState(0, params, self.optimizer.init(list(params.values())), ema)
+        self.shards = FlatShards(self.mesh, [p.numel() for p in params.values()])
+        pieces = self.shards.pieces(list(params.values()))
+        ema = {k: p.detach().clone() for k, p in zip(params, pieces)} if self.use_ema else None
+        return TrainState(0, params, self.optimizer.init(list(params.values()), pieces), ema)
+
+    def whole_ema(self, state: TrainState) -> Optional[Dict[str, torch.Tensor]]:
+        """The EMA with every tensor whole and shaped as its parameter:
+        gathered from the fsdp peers, each of which must call this; the EMA
+        itself at fsdp 1."""
+        if state.ema_params is None:
+            return None
+        shapes = [p.shape for p in state.params.values()]
+        return dict(zip(state.ema_params, self.shards.whole(list(state.ema_params.values()), shapes)))
+
+    @contextlib.contextmanager
+    def ema_whole(self, state: TrainState):
+        """``state`` with its EMA whole inside the block (``whole_ema``; every
+        fsdp peer enters it), its pieces again after."""
+        pieces = state.ema_params
+        state.ema_params = self.whole_ema(state)
+        try:
+            yield state
+        finally:
+            state.ema_params = pieces
 
     def dense_params(self, state: TrainState, use_ema: bool = False) -> Dict[str, torch.Tensor]:
-        """The UNet state dict to export: the EMA weights if asked and kept;
-        under LoRA those factors merged into the frozen base."""
+        """The UNet state dict to export: the EMA weights if asked and kept
+        (whole: under fsdp > 1 call this inside ``ema_whole``); under LoRA
+        those factors merged into the frozen base."""
         src = state.ema_params if (use_ema and state.ema_params is not None) else state.params
         src = {k: v.detach() for k, v in src.items()}
         if not self.lora_rank:
@@ -315,7 +360,8 @@ class TrainStepBuilder:
         return torch.autocast(device.type, dtype=torch.bfloat16, enabled=self.mixed_precision)
 
     def draw(self, seed: int, step: int, latent_shape, device: torch.device) -> Draws:
-        """The step's own draws from a generator seeded with (seed, step)."""
+        """The step's own draws from a generator seeded with (seed, step), for
+        a batch of ``latent_shape[0]`` rows."""
         g = torch.Generator(device=device)
         g.manual_seed(seed * 1_000_003 + step)
         eps = torch.randn(latent_shape, generator=g, device=device)
@@ -326,13 +372,21 @@ class TrainStepBuilder:
     def loss(self, images: torch.Tensor, tokens: torch.Tensor, seed: int = 0, step: int = 0,
              draws: Optional[Draws] = None) -> torch.Tensor:
         """The MSE of the UNet's prediction against its target, with the
-        UNet's graph attached (train.py:277-299)."""
+        UNet's graph attached (train.py:277-299). Over a mesh ``images`` and
+        ``tokens`` are this rank's dp share of the global batch, and the
+        draws (``draws`` or the step's own) are the global batch's, of which
+        the rank takes its rows."""
         device = self.unet.conv_in.weight.device
         images = images.to(device)
         with torch.no_grad(), self._autocast(device):
             mean, logvar = self.vae.encode(images)
-            eps, noise, t = draws if draws is not None else self.draw(seed, step, tuple(mean.shape), device)
-            eps, noise, t = eps.to(device), noise.to(device), t.to(device)
+            dp = 1 if self.mesh is None else self.mesh.dp
+            if draws is None:
+                draws = self.draw(seed, step, (mean.shape[0] * dp, *mean.shape[1:]), device)
+            if self.mesh is not None:
+                rows = host_local_batch_slice(draws[0].shape[0], self.mesh)
+                draws = tuple(d[rows] for d in draws)
+            eps, noise, t = (d.to(device) for d in draws)
             latents = sample_latent(mean, logvar, eps, self.vae.config.scaling_factor)
             noisy = add_noise(self.schedule, latents, noise, t)
             ctx = self.clip(tokens.to(device).long())
@@ -343,14 +397,20 @@ class TrainStepBuilder:
         return torch.mean((pred.float() - target.float()) ** 2)
 
     def _apply_and_ema(self, state: TrainState, grads: List[torch.Tensor], inner) -> None:
+        """Clip the whole ``grads`` (consumed), update this rank's pieces of
+        the parameters and the EMA, then gather the parameters whole."""
         params = list(state.params.values())
         with torch.no_grad():
-            self.optimizer.apply_(params, grads, inner)
+            self.optimizer.clip_(grads)
+            self.shards.take_(grads)
+            pieces = self.shards.pieces(params)
+            self.optimizer.update_(pieces, grads, inner)
             if state.ema_params is not None:
                 d = ema_decay_schedule(state.step // self.optimizer.accum_steps, self.ema_max_decay)
                 ema = list(state.ema_params.values())
                 torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, params, alpha=1.0 - d)
+                torch._foreach_add_(ema, pieces, alpha=1.0 - d)
+            self.shards.gather_(params)
 
     def build(self) -> Callable:
         accum = self.optimizer.accum_steps
@@ -359,10 +419,13 @@ class TrainStepBuilder:
                  emit: Optional[bool] = None):
             loss = self.loss(images, tokens, seed, state.step, draws)
             loss.backward()
+            loss = loss.detach()
             params = list(state.params.values())
             grads = [p.grad for p in params]
             for p in params:
                 p.grad = None
+            all_reduce_mean_(grads, self.mesh)
+            all_reduce_mean_([loss], self.mesh)
             if accum <= 1:
                 self._apply_and_ema(state, grads, state.opt_state)
             else:
@@ -380,7 +443,7 @@ class TrainStepBuilder:
                     ost.gradient_step += 1
                 ost.mini_step = (ost.mini_step + 1) % accum
             state.step += 1
-            return state, loss.detach()
+            return state, loss
 
         return step
 

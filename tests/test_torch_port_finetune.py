@@ -292,9 +292,19 @@ def test_gradient_checkpointing_keeps_the_gradients(jax_ref, monkeypatch, policy
 
 
 @pytest.mark.parametrize("flag", [["--mesh_fsdp", "2"], ["--distributed"], ["--mesh_dp", "2"]])
-def test_unported_flags_raise_with_their_roadmap_item(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        parse_args(["--device", "cpu", *flag])
+def test_unported_flags_raise_with_their_roadmap_item(flag, monkeypatch):
+    """The mesh flags, once refused as unported (ROADMAP A12c), now need a
+    process group: ``--mesh_fsdp 2`` and ``--mesh_dp 2`` outside one name
+    torchrun and --distributed, and ``--distributed`` without torchrun's
+    environment says there is no process group to join."""
+    monkeypatch.delenv("RANK", raising=False)
+    args = parse_args(["--device", "cpu", *flag])
+    if flag == ["--distributed"]:
+        with pytest.raises(RuntimeError, match="no process group to join"):
+            BaseTrainer("ftt", args)
+    else:
+        with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2 .*--distributed"):
+            BaseTrainer("ftt", args)
 
 
 # ---------------------------------------------------------------------------
