@@ -196,16 +196,44 @@ back to the CPU):
      sharded): dp 2 within 2·lr (99% within 1e-3·lr) of one process, fsdp 2
      bit-equal to it or within the spread of two one-process runs; each
      rank's state bytes and peak GiB.
+ 23. cmajor (run after phase 20, on its images and plain bf16 tree and
+     phase 12's export): the channel-major transformer world
+     (DIFFMINING_TF_CMAJOR=1). (a) The channel-major K1 and K3 (bf16) and
+     flash_fwd_f32's channel-major no-max and online modes at the world's
+     shapes (the 512px and 1024px passes, masked tails L1000 and L1100, the
+     latter a misaligned bf16 length that goes through a padded copy), in
+     both layouts ([B, H*D, L] and the JAX package's [H*D, B, L]): against
+     the plain versions under the kernels' existing bounds and against the
+     sequence-major kernels on contiguous copies; event and device ms, the
+     plain version's ms, sdpa's and the bound on [B, H*D, L]. (b) One 512px
+     UNet pass at batch 16 in bf16 in the channel-major world (10 launches
+     of the channel-major K1, none of another kernel, no copy) against the
+     normal world and the float32 normal world through the plain attention
+     (relative L2 < 0.05); in float32 at batch 8 (10 of the float32
+     channel-major no-max mode; under DIFFMINING_FLASH_ONESHOT=0 10 of its
+     online mode) against the plain attention (< 1e-4); each pass's time and
+     device busy time beside the normal world's. (c) One forward and
+     backward at batch 2, bf16 autocast, channel-major: 10 each of K4, K5
+     and K6, the level-0 attn1 projection gradients within 0.04 of the
+     float32 normal world's. (d) The typicality CLI in bf16 under
+     DIFFMINING_TF_CMAJOR=1 and under DIFFMINING_SWEEP_DEDUP=0 against phase
+     20's plain run: every artifact written once, within 0.05 relative L2,
+     the launches. (e) One 1024px pass at batch 2, channel-major: 5 K3 cm and
+     10 K1 cm launches, against the normal world. (f) One pass in each world
+     under DIFFMINING_ATTN_BACKEND=pallas in a process of its own: 32
+     launches (every attention, cross-attention included) against auto.
 Then one JSON line each for the slice, the float32 sweep, the training run,
 the float32 training run, the mining runs,
 X-ray, sampling, PnP, train_lora_8bit, parallel, clip, doersch,
-verify_checkpoint, the sweep over dp, mining over dp and the trainer over
-dp, one of per-kernel numbers, and as the last line {"ok": true, "device":
+verify_checkpoint, the sweep over dp, mining over dp, the trainer over dp
+and the channel-major world, one of per-kernel numbers, and as the last line {"ok": true, "device":
 {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -3376,7 +3404,8 @@ with contextlib.redirect_stdout(printed):
         pm.host_barrier("submission")
         typ.compute_submission(os.path.join(cfg["subs"], "0.txt"))
         pm.destroy()
-kernels = (fa.flash_fwd_nomax, fa.flash_fwd_nomax_f32, fa.flash_fwd_online, fa.flash_fwd_online_f32)
+kernels = (fa.flash_fwd_nomax, fa.flash_fwd_nomax_f32, fa.flash_fwd_online, fa.flash_fwd_online_f32,
+           fa.flash_fwd_nomax_cm, fa.flash_fwd_online_cm)
 with open(out, "w") as f:
     json.dump(dict(written=written, launches={k.__name__: k.launches for k in kernels}, gathers=gathers,
                    printed=printed.getvalue(),
@@ -4234,20 +4263,37 @@ TRAIN_KERNELS = {
 }
 INFERENCE_KERNELS = {  # kind: (wrapper, source, the TPU kernel, the main shape)
     "K3": ("flash_fwd_online", "diffmining_tpu_torch/csrc/flash_fwd_online.cu",
-           "diffmining_tpu/ops/flash_attention.py:199 (_flash_kernel_t, via _flash_forward_t :417 and "
-           "_flash_forward_cbl :517)", "L4096 D40"),
+           "diffmining_tpu/ops/flash_attention.py:199 (_flash_kernel_t, via _flash_forward_t :417; in "
+           "flash_fwd_online_cm's layout via _flash_forward_cbl :517)", "L4096 D40"),
     "K7": ("gn_act_proj", "diffmining_tpu_torch/csrc/gn_act_proj.cu",
            "diffmining_tpu/ops/fused_norm.py:27 (_gn_act_matmul_kernel, via gn_act_proj :44)", "N4096 C320"),
 }
 
 
+CMAJOR_KERNELS = {  # kind: (wrapper, source, the TPU kernel, the main shape)
+    "K1 cm": ("flash_fwd_nomax_cm", "flash_fwd_nomax",
+              "diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot, via _flash_forward_cbl :499)",
+              "L4096 D40"),
+    "K3 cm": ("flash_fwd_online_cm", "flash_fwd_online",
+              "diffmining_tpu/ops/flash_attention.py:199 (_flash_kernel_t, via _flash_forward_cbl :517)",
+              "L16384 D40"),
+    "K1/K2 fp32 cm": ("flash_fwd_nomax_cm_f32", "flash_fwd_f32",
+                      "diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot at float32, via "
+                      "_flash_forward_cbl :499)", "L4096 D40"),
+    "K3 fp32 cm": ("flash_fwd_online_cm_f32", "flash_fwd_f32",
+                   "diffmining_tpu/ops/flash_attention.py:199 (_flash_kernel_t at float32, via _flash_forward_cbl "
+                   ":517)", "L16384 D40"),
+}
+
+
 F32_KERNELS = {  # mode: (wrapper, source, the TPU kernel, the main shape)
     "online": ("flash_fwd_online_f32", "flash_fwd_f32",
-               "diffmining_tpu/ops/flash_attention.py:199 (_flash_kernel_t at float32, via _flash_forward_t :417)",
-               "L1025 D64"),
+               "diffmining_tpu/ops/flash_attention.py:199 (_flash_kernel_t at float32, via _flash_forward_t :417; in "
+               "flash_fwd_online_cm_f32's layout via _flash_forward_cbl :517)", "L1025 D64"),
     "nomax": ("flash_fwd_nomax_f32", "flash_fwd_f32",
               "diffmining_tpu/ops/flash_attention.py:250 (_flash_kernel_t_nomax at float32, via _flash_forward_t "
-              ":417); diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot at float32)", "L4096 D40"),
+              ":417); diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot at float32, via "
+              "_flash_forward_t :382; in flash_fwd_nomax_cm_f32's layout via _flash_forward_cbl :499)", "L4096 D40"),
     "lse": ("flash_fwd_lse_f32", "flash_fwd_f32",
             "diffmining_tpu/ops/flash_attention.py:37 (_flash_kernel at float32, via _flash_forward(return_lse=True) "
             ":142)", "L4096 D40"),
@@ -4259,6 +4305,526 @@ F32_KERNELS = {  # mode: (wrapper, source, the TPU kernel, the main shape)
            "diffmining_tpu/ops/fused_norm.py:27 (_gn_act_matmul_kernel at float32, via gn_act_proj :44)",
            "N4096 C320"),
 }
+
+
+# Phase 23's pass under DIFFMINING_ATTN_BACKEND=pallas, a process of its own
+# (the variable is read when ops/attention.py is imported). argv: OUT. One
+# 512px UNet pass at batch 2 in each world on phase 23's weights and inputs;
+# writes to OUT each world's launches by wrapper and to OUT.eps{0,1}.pt its
+# eps.
+CMAJOR_PALLAS = r"""
+import json, os, sys
+import torch
+import chip_smoke as s
+from diffmining_tpu_torch.ops import attention as pattn
+from diffmining_tpu_torch.ops import flash_attention as fa
+out = sys.argv[1]
+assert pattn.get_attention_backend() == "pallas", pattn.get_attention_backend()
+unet = s.cmajor_unet(torch.bfloat16)
+x, t, ctx = s.cmajor_inputs(2, 512, s.SEED + 231)
+res = {}
+for world in ("0", "1"):
+    os.environ["DIFFMINING_TF_CMAJOR"] = world
+    for k in s.CM_WRAPPERS + s.SEQ_WRAPPERS:
+        setattr(getattr(fa, k), "launches", 0)
+    copies = fa.flash_fwd_nomax_cm.copies
+    with torch.inference_mode():
+        eps = unet(x, t, ctx)
+    torch.cuda.synchronize()
+    res[world] = {k: getattr(fa, k).launches for k in s.CM_WRAPPERS + s.SEQ_WRAPPERS}
+    res[world]["cm_copies"] = fa.flash_fwd_nomax_cm.copies - copies
+    torch.save(eps.float().cpu(), f"{out}.eps{world}.pt")
+with open(out, "w") as f:
+    json.dump(res, f)
+"""
+# the channel-major wrappers and the sequence-major forwards they stand beside
+CM_WRAPPERS = ["flash_fwd_nomax_cm", "flash_fwd_online_cm", "flash_fwd_nomax_cm_f32", "flash_fwd_online_cm_f32"]
+SEQ_WRAPPERS = ["flash_fwd_nomax", "flash_fwd_online", "flash_fwd_lse", "flash_fwd_nomax_f32", "flash_fwd_online_f32",
+                "flash_fwd_lse_f32", "flash_bwd_dq", "flash_bwd_dkv"]
+# phase 23 (a): (kernel, shape name, (B, H, L, D), float32) at the channel-
+# major world's shapes: the 512px pass (K1 at L4096 D40 and L1024 D80, batch
+# 16), the 1024px pass (K1 at L4096 D80 and L1024 D160, K3 at L16384 D40,
+# X-ray's batch 24; K3 at batch 2), the masked tails (L1000 routes to K1,
+# L1100 to K3, whose bf16 length is no whole number of 16-byte chunks: a
+# padded copy), and the float32 modes
+CMAJOR_CASES = [
+    ("K1 cm", "L4096 D40", (16, 8, 4096, 40), False),
+    ("K1 cm", "L1024 D80", (16, 8, 1024, 80), False),
+    ("K1 cm", "1024px L4096 D80", (24, 8, 4096, 80), False),
+    ("K1 cm", "1024px L1024 D160", (24, 8, 1024, 160), False),
+    ("K1 cm", "masked tail L1000 D40", (2, 8, 1000, 40), False),
+    ("K1 cm", "misaligned tail L1100 D160", (2, 8, 1100, 160), False),
+    ("K3 cm", "L16384 D40", (2, 8, 16384, 40), False),
+    ("K3 cm", "1024px L16384 D40", (24, 8, 16384, 40), False),
+    ("K3 cm", "masked tail L1000 D40", (2, 8, 1000, 40), False),
+    ("K3 cm", "misaligned tail L1100 D160", (2, 8, 1100, 160), False),
+    ("K1/K2 fp32 cm", "L4096 D40", (4, 8, 4096, 40), True),
+    ("K1/K2 fp32 cm", "L1024 D80", (4, 8, 1024, 80), True),
+    ("K3 fp32 cm", "L16384 D40", (1, 8, 16384, 40), True),
+]
+# the wrapper each kind goes through and its sequence-major twin
+CMAJOR_KINDS = {
+    "K1 cm": ("flash_fwd_nomax_cm", "flash_fwd_nomax"),
+    "K3 cm": ("flash_fwd_online_cm", "flash_fwd_online"),
+    "K1/K2 fp32 cm": ("flash_fwd_nomax_cm", "flash_fwd_nomax"),
+    "K3 fp32 cm": ("flash_fwd_online_cm", "flash_fwd_online"),
+}
+# sdpa on the channel-major views takes PyTorch's math path (its fused
+# kernels want the head dim contiguous), which holds B H L^2 float32 weights:
+# above this many bytes of them the library is timed on head-dim-contiguous
+# copies instead
+SDPA_VIEW_BYTES = 9e9
+
+
+def cmajor_unet(dtype):
+    """Phase 23's SD-v1.5-width UNet: random weights drawn on the card from a
+    generator seeded with SEED + 23, in ``dtype``; the same in every process
+    on a card."""
+    import torch
+
+    from diffmining_tpu_torch.models.unet import SD15_UNET, UNet2DCondition
+    from diffmining_tpu_torch.typicality.compute import init_random_
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 23)
+    with torch.device("cuda"):
+        unet = UNet2DCondition(SD15_UNET)
+    init_random_(unet, g)
+    return unet.to(dtype).eval()
+
+
+def cmajor_inputs(b, px, seed):
+    """Seeded x [b, 4, px/8, px/8], t [b] and a context [b, 77, 768]."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.randn(b, 4, px // 8, px // 8, generator=g, device="cuda")
+    t = torch.randint(100, 900, (b,), generator=g, device="cuda")
+    return x, t, torch.randn(b, 77, 768, generator=g, device="cuda")
+
+
+def cm_operands(g, b, h, l, d, dtype, layout):
+    """q, k, v as [B, H, L, D] views with L stride 1: of [B, H*D, L] tensors
+    ("bcl", the port's channel-major world) or of [H*D, B, L] ones ("cbl",
+    the JAX package's)."""
+    import torch
+
+    out = []
+    for _ in range(3):
+        if layout == "bcl":
+            x = torch.randn(b, h * d, l, generator=g, device="cuda").to(dtype)
+            out.append(x.unflatten(1, (h, d)).transpose(2, 3))
+        else:
+            x = torch.randn(h * d, b, l, generator=g, device="cuda").to(dtype)
+            out.append(x.view(h, d, b, l).permute(2, 0, 3, 1))
+    return out
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """os.environ with ``values`` set, restored on exit."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def cm_case(kind, name, shape, f32, layout, g, timing):
+    """One channel-major kernel case of phase 23 (a): the kernel against its
+    plain version under the kernel's existing bound (K1 the p-flip rule, K3
+    one bf16 ulp at its key tiles, float32 2^-14 |plain| + 2^-14 rms), and
+    against its sequence-major twin on head-dim-contiguous copies; with
+    ``timing``, the kernel's event ms, its and the twin's device ms (CUDA
+    events around calls queued behind a spin kernel, ``queued_device_ms``:
+    no profiler set-up a case), the plain version's ms, sdpa's event ms (on
+    the views, or on copies where its math path would not fit) and the
+    bound; without, the plain version on the first image only. Returns (the numbers, a failure or
+    None). These launches are not the main path's."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffmining_tpu_torch.ops import flash_attention as fa
+
+    wrapper, seq_name = CMAJOR_KINDS[kind]
+    fn, seq = getattr(fa, wrapper), getattr(fa, seq_name)
+    b, h, l, d = shape
+    q, k, v = cm_operands(g, b, h, l, d, torch.float32 if f32 else torch.bfloat16, layout)
+    copies = sum(getattr(fa, w).copies for w in CM_WRAPPERS)
+    got = fn(q, k, v)
+    copies = sum(getattr(fa, w).copies for w in CM_WRAPPERS) - copies
+    online = kind.startswith("K3")
+    if online:
+        block = fa.F32_BLOCK_K if f32 else fa.ONLINE_BLOCK_K
+
+        def plain(*ts):
+            return fa.flash_fwd_online_plain(*ts, block_k=block)
+    else:
+        plain = fa.flash_attention_nomax_plain
+    # at batch 24 and L 16384 (and in the second layout) the plain version
+    # holds the first image's heads only
+    part = 1 if b * l >= 24 * 16384 or not timing else b
+    a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = plain_chunked(plain, q[:part], k[:part], v[:part])
+    e.record()
+    e.synchronize()
+    plain_ms = a.elapsed_time(e) * b / part
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    seq_out = seq(qc, kc, vc)
+    seq_diff = float((got.float() - seq_out.float()).abs().max())
+    flip = None
+    if f32:
+        max_err, worst = f32_error(got[:part], want)
+        check = worst
+    else:
+        max_err, worst = kernel_error(got[:part], want)
+        check = worst
+        if not online:
+            flip = p_flip_ratio(got[:part], want, q[:part], k[:part], v[:part])
+            check = flip
+    failed = None
+    if check > 1.0 or not torch.isfinite(got).all():
+        failed = f"{kind} {name} ({layout}): {check:.3g} x its bound (max |err| {max_err:.3g})"
+    out = dict(shape=list(shape), layout=layout, max_abs_err=max_err, err_over_tol=worst,
+               max_abs_vs_sequence_major=seq_diff, bit_equal_to_sequence_major=seq_diff == 0.0, copies=copies,
+               plain_heads=part * h)
+    if flip is not None:
+        out["err_over_p_flip_tol"] = flip
+    del want, seq_out
+    if timing:
+        ms = cuda_time_ms(lambda: fn(q, k, v), reps=3, warmup=1)
+        device_ms = queued_device_ms(lambda: fn(q, k, v))
+        seq_device_ms = queued_device_ms(lambda: seq(qc, kc, vc))
+        on_views = b * h * l * l * 4 <= SDPA_VIEW_BYTES
+        lq, lk, lv = (q, k, v) if on_views else (qc, kc, vc)
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(lq, lk, lv), reps=3, warmup=1)
+        if f32:
+            bound, by = f32_attention_bound(b, h, l, l, d)
+        elif online:
+            bound, by, _ = training_bound("K3", b, h, l, d)
+        else:
+            bound, by, _ = attention_bound(b, h, l, l, d)
+        out.update(ms=ms, device_ms=device_ms, sequence_major_device_ms=seq_device_ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library="sdpa forward" + ("" if on_views else " on head-dim-contiguous copies")
+                   + (" (float32, TF32 off)" if f32 else ""), bound_ms=bound, bound_by=by)
+    log(f"cmajor (a) {kind} {name} B{b} H{h} {layout}: max|err| {max_err:.3g} = {worst:.3g} x tolerance"
+        + ("" if flip is None else f" ({flip:.3g} x the p-flip one)")
+        + f"; vs the sequence-major kernel " + ("bit-equal" if seq_diff == 0.0 else f"max |d| {seq_diff:.3g}")
+        + f"; {copies} copies" + ("" if part == b else f"; plain on {part * h} of {b * h} heads")
+        + (f"; ms {out['ms']:.4f} device {fmt(out['device_ms'])} (the sequence-major kernel "
+           f"{fmt(out['sequence_major_device_ms'])}) plain {plain_ms:.2f} sdpa {out['library_ms']:.4f}"
+           f"{'' if on_views else ' on copies'} bound {out['bound_ms']:.4f} ({out['bound_by']})" if timing else ""))
+    del q, k, v, qc, kc, vc, got
+    torch.cuda.empty_cache()
+    return out, failed
+
+
+def cmajor_sweep(pipeline_dir):
+    """Phase 20's images and plain bf16 typicality tree, made alone, for
+    phase 23 run without phase 20: ``p = s.sd15_pipeline_dir();
+    s.phase_cmajor(smi, p, s.cmajor_sweep(p))``."""
+    import numpy as np
+    from PIL import Image
+
+    labels, per_label, px, N, batch_images = ["1920", "1960"], 4, 512, 4, 4
+    work = os.path.join(ROOT, "build", "chip_smoke_sweep_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    data, tree = os.path.join(work, "ftt"), os.path.join(work, "plain_bf16")
+    rng = np.random.RandomState(SEED + 31)
+    for c in labels:
+        os.makedirs(os.path.join(data, c))
+        for i in range(per_label):
+            Image.fromarray(rng.randint(0, 256, (px, px, 3), dtype=np.uint8)).save(
+                os.path.join(data, c, f"{c}_{i}.png"), compress_level=1)
+    script = os.path.join(work, "rank.py")
+    with open(script, "w") as f:
+        f.write(SWEEP_DP_RANK)
+    subprocess.run([sys.executable, script, os.path.join(work, "plain_bf16.json"), "cli", "--which", "ftt", "-i", data,
+                    "-c", tree, "-s", os.path.join(work, "plain_bf16_subs"), "-m", pipeline_dir, "--make_submission",
+                    "--N", str(N), "--batch_images", str(batch_images), "--dtype", "bf16"],
+                   cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), check=True, timeout=600)
+    return dict(work=work, data=data, tree=tree, N=N, batch_images=batch_images)
+
+
+def phase_cmajor(smi, pipeline_dir, sweep):
+    """Phase 23, the channel-major transformer world (DIFFMINING_TF_CMAJOR=1)
+    at SD-v1.5 widths, on phase 12's export and phase 20's images and plain
+    bf16 tree (``sweep``). (a) Each channel-major kernel against its plain
+    version and its sequence-major twin at the world's shapes, in both
+    layouts; times on the [B, H*D, L] one. (b) One 512px UNet pass at batch
+    16 in bf16 in the channel-major world against the normal world and a
+    float32 normal-world pass through the plain attention, with its launches
+    by route; the same in float32 at batch 8 (and under
+    DIFFMINING_FLASH_ONESHOT=0, the float32 K3); the passes' times side by
+    side. (c) One forward and backward at batch 2, bf16 autocast, in the
+    channel-major world: K4, K5 and K6 10 times each, the level-0 attn1
+    projections' gradients against the float32 normal world's. (d) The
+    typicality CLI in bf16 under DIFFMINING_TF_CMAJOR=1 and under
+    DIFFMINING_SWEEP_DEDUP=0 (two processes) against phase 20's plain run.
+    (e) One 1024px pass at batch 2 in the channel-major world: 5 K3 cm and
+    10 K1 cm launches. (f) One pass in each world under
+    DIFFMINING_ATTN_BACKEND=pallas (a process) against the same pass under
+    auto. The processes of (d) and (f) run beside (a)'s checks, (c) and (e);
+    every time is read after they end."""
+    from diffmining_tpu_torch.utils.device import exact_float32
+
+    t0 = time.perf_counter()
+    exact_float32()
+    work = sweep["work"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    names = sorted(os.path.relpath(p, sweep["tree"]) for p in glob.glob(os.path.join(sweep["tree"], "*", "*.npy")))
+    procs = {}
+    for tag, extra in (("cmajor_bf16", {"DIFFMINING_TF_CMAJOR": "1"}),
+                       ("nodedup_bf16", {"DIFFMINING_SWEEP_DEDUP": "0"})):
+        out = os.path.join(work, f"{tag}.json")
+        args = ["--which", "ftt", "-i", sweep["data"], "-c", os.path.join(work, tag), "-s",
+                os.path.join(work, f"{tag}_subs"), "-m", pipeline_dir, "--make_submission", "--N", str(sweep["N"]),
+                "--batch_images", str(sweep["batch_images"]), "--dtype", "bf16"]
+        procs[tag] = (subprocess.Popen([sys.executable, os.path.join(work, "rank.py"), out, "cli", *args], cwd=ROOT,
+                                       env={**env, **extra}), out)
+    script = os.path.join(work, "cmajor_pallas.py")
+    with open(script, "w") as f:
+        f.write(CMAJOR_PALLAS)
+    out = os.path.join(work, "pallas.json")
+    procs["pallas"] = (subprocess.Popen([sys.executable, script, out], cwd=ROOT,
+                                        env={**env, "DIFFMINING_ATTN_BACKEND": "pallas"}), out)
+    try:
+        return _phase_cmajor(smi, procs, names, sweep, t0)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _phase_cmajor(smi, procs, names, sweep, t0):
+    import numpy as np
+    import torch
+
+    from diffmining_tpu_torch.ops import attention as pattn
+    from diffmining_tpu_torch.ops import flash_attention as fa
+
+    def counts():
+        return {w: getattr(fa, w).launches for w in CM_WRAPPERS + SEQ_WRAPPERS}
+
+    def zero():
+        for w in CM_WRAPPERS + SEQ_WRAPPERS:
+            getattr(fa, w).launches = 0
+
+    def launched(c):
+        return {w: n for w, n in c.items() if n}
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 23)
+    failed, cases = [], {}
+    # (a) correctness in the JAX package's layout now; both layouts' times later
+    for kind, name, shape, f32 in CMAJOR_CASES:
+        _, fail = cm_case(kind, name, shape, f32, "cbl", g, timing=False)
+        failed += [fail] if fail else []
+    log(f"[cmajor (a) in the JAX layout: {time.perf_counter() - t0:.1f} s]")
+
+    unet16, unet32 = cmajor_unet(torch.bfloat16), cmajor_unet(torch.float32)
+    x, t, ctx = cmajor_inputs(16, 512, SEED + 230)
+    world = {"0": dict(DIFFMINING_TF_CMAJOR="0"), "1": dict(DIFFMINING_TF_CMAJOR="1")}
+    res = {}
+    with torch.inference_mode():
+        # (b) the float32 reference: the normal world, the plain attention
+        pattn.set_attention_backend("xla")
+        try:
+            with environ(**world["0"]):
+                ref32 = unet32(x, t, ctx).float()
+        finally:
+            pattn.set_attention_backend("auto")
+        copies = fa.flash_fwd_nomax_cm.copies
+        zero()
+        with environ(**world["1"]):
+            eps_cm = unet16(x, t, ctx).float()
+        torch.cuda.synchronize()
+        pass_cm = counts()
+        cm_copies = fa.flash_fwd_nomax_cm.copies - copies
+        zero()
+        with environ(**world["0"]):
+            eps_n = unet16(x, t, ctx).float()
+        pass_n = counts()
+        rel_cm, rel_n, rel_cm_n = rel_l2(eps_cm, ref32), rel_l2(eps_n, ref32), rel_l2(eps_cm, eps_n)
+        if launched(pass_cm) != {"flash_fwd_nomax_cm": 10} or cm_copies or launched(pass_n) != {
+                "flash_fwd_nomax": 10} or not (torch.isfinite(eps_cm).all() and rel_cm < UNET_REL_L2):
+            failed.append(f"cmajor (b): launches {launched(pass_cm)} ({cm_copies} copies), normal world "
+                          f"{launched(pass_n)}, relative L2 {rel_cm} against the float32 plain pass")
+        log(f"cmajor (b): 512px UNet pass, batch 16, bf16: channel-major world launches {launched(pass_cm)} "
+            f"({cm_copies} copies), normal world {launched(pass_n)}; relative L2 against the float32 normal world "
+            f"through the plain attention: channel-major {rel_cm:.4g}, normal {rel_n:.4g} (limit {UNET_REL_L2}); "
+            f"the two worlds {rel_cm_n:.4g} apart")
+        res["bf16_pass"] = dict(batch=16, launches=launched(pass_cm), normal_launches=launched(pass_n),
+                                copies=cm_copies, rel_l2_vs_f32=rel_cm, normal_rel_l2_vs_f32=rel_n,
+                                rel_l2_cm_vs_normal=rel_cm_n)
+        del eps_cm, eps_n
+        x8, t8, ctx8 = x[:8], t[:8], ctx[:8]
+        ref8 = ref32[:8]
+        res["f32_pass"] = {}
+        for tag, oneshot, want in (("default", fa._ONESHOT, "flash_fwd_nomax_cm_f32"),
+                                   ("DIFFMINING_FLASH_ONESHOT=0", "0", "flash_fwd_online_cm_f32")):
+            saved = fa._ONESHOT
+            fa._ONESHOT = oneshot
+            try:
+                zero()
+                with environ(**world["1"]):
+                    eps = unet32(x8, t8, ctx8)
+                c = counts()
+            finally:
+                fa._ONESHOT = saved
+            rel = rel_l2(eps, ref8)
+            if launched(c) != {want: 10} or not rel < UNET_F32_REL_L2:
+                failed.append(f"cmajor (b) float32 {tag}: launches {launched(c)}, relative L2 {rel}")
+            log(f"cmajor (b): the same pass in float32 at batch 8 ({tag}): launches {launched(c)}; relative L2 "
+                f"{rel:.3g} against the plain attention (limit {UNET_F32_REL_L2})")
+            res["f32_pass"][tag] = dict(batch=8, launches=launched(c), rel_l2_vs_plain=rel)
+        del ref32, ref8
+
+    # (c) forward and backward at batch 2, bf16 autocast, in the channel-major world
+    blk = unet32.down_blocks[0].attentions[0].transformer_blocks[0].attn1
+    params = [blk.to_q.weight, blk.to_k.weight, blk.to_v.weight]
+    unet32.requires_grad_(False)
+    for p in params:
+        p.requires_grad_(True)
+    gt = torch.Generator(device="cuda")
+    gt.manual_seed(SEED + 232)
+    target = torch.randn(2, 4, 64, 64, generator=gt, device="cuda")
+
+    def grads(autocast, backend):
+        for p in params:
+            p.grad = None
+        pattn.set_attention_backend(backend)
+        try:
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+                eps = unet32(x[:2], t[:2], ctx[:2])
+            torch.nn.functional.mse_loss(eps.float(), target).backward()
+        finally:
+            pattn.set_attention_backend("auto")
+        return torch.cat([p.grad.flatten() for p in params])
+
+    with environ(**world["0"]):
+        want = grads(False, "xla")
+    zero()
+    with environ(**world["1"]):
+        got = grads(True, "auto")
+    c = counts()
+    unet32.requires_grad_(False)
+    rel = rel_l2(got, want)
+    if launched(c) != {"flash_fwd_lse": 10, "flash_bwd_dq": 10, "flash_bwd_dkv": 10} or not rel < GRAD_REL_L2:
+        failed.append(f"cmajor (c): launches {launched(c)}, gradient relative L2 {rel}")
+    log(f"cmajor (c): forward and backward at batch 2, 512px, bf16 autocast, channel-major world: launches "
+        f"{launched(c)}; level-0 attn1 to_q/to_k/to_v gradients {rel:.4g} from the float32 normal world's (limit "
+        f"{GRAD_REL_L2})")
+    res["train_step"] = dict(batch=2, launches=launched(c), grad_rel_l2=rel)
+
+    # (e) one 1024px pass at batch 2 in the channel-major world
+    x2, t2, ctx2 = cmajor_inputs(2, 1024, SEED + 233)
+    with torch.inference_mode():
+        zero()
+        with environ(**world["1"]):
+            eps_cm = unet16(x2, t2, ctx2).float()
+        c = counts()
+        with environ(**world["0"]):
+            eps_n = unet16(x2, t2, ctx2).float()
+    rel = rel_l2(eps_cm, eps_n)
+    if launched(c) != {"flash_fwd_online_cm": 5, "flash_fwd_nomax_cm": 10} or not (
+            torch.isfinite(eps_cm).all() and rel < UNET_REL_L2):
+        failed.append(f"cmajor (e): launches {launched(c)}, relative L2 {rel} against the normal world")
+    log(f"cmajor (e): 1024px UNet pass, batch 2, channel-major world: launches {launched(c)}; relative L2 {rel:.4g} "
+        f"against the normal world (its K2 at L16384)")
+    res["pass_1024"] = dict(batch=2, launches=launched(c), rel_l2_vs_normal=rel)
+    del eps_cm, eps_n
+
+    # (d) and (f): the processes
+    results = {}
+    for tag, (p, out) in procs.items():
+        p.wait(timeout=900)
+        if p.returncode != 0:
+            raise AssertionError(f"cmajor: the {tag} process exited {p.returncode}")
+        with open(out) as f:
+            results[tag] = json.load(f)
+    log(f"[cmajor (b), (c), (e) and the processes of (d) and (f): {time.perf_counter() - t0:.1f} s]")
+    passes = len({n.split(os.sep)[0] for n in names}) * sweep["N"]  # one group a label, N passes each
+    want_tree = {n: np.load(os.path.join(sweep["tree"], n)) for n in names}
+    res["cli"] = {}
+    for tag, kernel in (("cmajor_bf16", "flash_fwd_nomax_cm"), ("nodedup_bf16", "flash_fwd_nomax")):
+        r = results[tag]
+        tree = os.path.join(sweep["work"], tag)
+        written = sorted(os.path.relpath(p, tree) for p in r["written"])
+        got_tree = {n: np.load(os.path.join(tree, n)) for n in names}
+        num = sum(float(np.sum((got_tree[n].astype(np.float64) - want_tree[n].astype(np.float64)) ** 2))
+                  for n in names)
+        den = sum(float(np.sum(want_tree[n].astype(np.float64) ** 2)) for n in names)
+        rel = math.sqrt(num / den)
+        other = {k: v for k, v in r["launches"].items() if v and k != kernel}
+        if written != names or r["launches"][kernel] != 10 * passes or other or not rel < UNET_REL_L2 or not all(
+                np.isfinite(a).all() for a in got_tree.values()):
+            failed.append(f"cmajor (d) {tag}: wrote {written}, launches {r['launches']}, relative L2 {rel}")
+        log(f"cmajor (d): typicality CLI, bf16, {tag}: {len(written)} artifacts, each written once; {kernel} "
+            f"launched {r['launches'][kernel]} times ({passes} UNet passes), no other kernel; the artifacts "
+            f"{rel:.4g} (relative L2) from phase 20's plain run")
+        res["cli"][tag] = dict(written=len(written), launches={k: v for k, v in r["launches"].items() if v},
+                               rel_l2_vs_default=rel)
+
+    pal = results["pallas"]
+    xp, tp, cp = cmajor_inputs(2, 512, SEED + 231)
+    with torch.inference_mode(), environ(**world["0"]):
+        eps_auto = unet16(xp, tp, cp).float().cpu()
+    res["pallas"] = {}
+    want_launch = {"0": {"flash_fwd_nomax": 32}, "1": {"flash_fwd_nomax_cm": 32}}
+    for w in ("0", "1"):
+        eps = torch.load(os.path.join(sweep["work"], f"pallas.json.eps{w}.pt"))
+        rel = rel_l2(eps, eps_auto)
+        got = {k: v for k, v in pal[w].items() if v and k != "cm_copies"}
+        if got != want_launch[w] or not rel < UNET_REL_L2:
+            failed.append(f"cmajor (f) world {w}: launches {got}, relative L2 {rel} against auto")
+        log(f"cmajor (f): DIFFMINING_ATTN_BACKEND=pallas, 512px batch 2, {'channel-major' if w == '1' else 'normal'} "
+            f"world: launches {got} (16 self- and 16 cross-attentions: every attention of the pass; "
+            f"{pal[w]['cm_copies']} padded copies of the 77-key context), relative L2 {rel:.4g} against the normal "
+            f"world under auto")
+        res["pallas"]["cmajor" if w == "1" else "normal"] = dict(launches=got, copies=pal[w]["cm_copies"],
+                                                                  rel_l2_vs_auto=rel)
+    for tag in ("cmajor_bf16", "nodedup_bf16"):
+        shutil.rmtree(os.path.join(sweep["work"], tag), ignore_errors=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+    # times, now that the processes have ended: (a) on the [B, H*D, L] layout
+    for kind, name, shape, f32 in CMAJOR_CASES:
+        r, fail = cm_case(kind, name, shape, f32, "bcl", g, timing=True)
+        cases.setdefault(kind, {})[name] = r
+        failed += [fail] if fail else []
+    log(f"[cmajor (a) with times: {time.perf_counter() - t0:.1f} s]")
+    # (b) the passes' times side by side
+    passes_ms = {}
+    with torch.inference_mode():
+        for label, unet, b in (("bf16 batch 16", unet16, 16), ("float32 batch 8", unet32, 8)):
+            for w in ("1", "0"):
+                with environ(**world[w]):
+                    fn = lambda: unet(x[:b], t[:b], ctx[:b])  # noqa: E731
+                    ms = cuda_time_ms(fn, reps=3, warmup=1)
+                    _, busy, top, part = device_busy(fn, calls=2, parts=("elementwise", "copy", "transpose"))
+                passes_ms[f"{label}, {'channel-major' if w == '1' else 'normal'}"] = dict(ms=ms, busy_ms=busy,
+                                                                                          top=top)
+                log(f"cmajor (b) times: {label}, {'channel-major' if w == '1' else 'normal'} world: pass {ms:.2f} ms, "
+                    f"device busy {fmt(busy, '.2f')} ms; top kernels "
+                    + "; ".join(f"{n[:60]} {v:.2f} ms" for n, v in top))
+    res["pass_ms"] = passes_ms
+    del unet16, unet32
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    res.update(kernels=cases, wall_s=time.perf_counter() - t0, card=smi)
+    log(f"cmajor: phase 23 {res['wall_s']:.1f} s on {smi}")
+    return res
 
 
 def apps_bundle():
@@ -4393,6 +4959,8 @@ def main() -> int:
     done("verify_checkpoint")
     sweep_dp = phase_sweep_dp(smi, export_dir)
     done("sweep dp")
+    cmajor = phase_cmajor(smi, export_dir, sweep_dp)
+    done("cmajor")
     mining_dp = phase_mining_dp(smi, export_dir, sweep_dp)
     for k in ("work", "data", "tree"):
         sweep_dp.pop(k)
@@ -4409,11 +4977,16 @@ def main() -> int:
                "sweep dp": sweep_dp["nccl_group_of_one"]["k1_launches"]
                + sweep_dp["xray_nccl_group_of_one"]["launches"],
                "mining dp": mining_dp["nccl_group_of_one"]["k1_launches"]}
+    # the sequence-major K1 on phase 23's paths: the sweep with the dedup off
+    # and the pass under DIFFMINING_ATTN_BACKEND=pallas
+    by_path["cmajor"] = (cmajor["cli"]["nodedup_bf16"]["launches"]["flash_fwd_nomax"]
+                         + cmajor["pallas"]["normal"]["launches"]["flash_fwd_nomax"])
     nomax = kernel_entry(
         "flash_fwd_nomax", "diffmining_tpu_torch/csrc/flash_fwd_nomax.cu",
-        "diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot); "
-        "diffmining_tpu/ops/flash_attention.py:250 (_flash_kernel_t_nomax)", sum(by_path.values()),
-        kern, "K1 L4096 D40")
+        "diffmining_tpu/ops/flash_attention.py:290 (_flash_kernel_t_1shot, via _flash_forward_t :382 and, in "
+        "flash_fwd_nomax_cm's layout, _flash_forward_cbl :499); "
+        "diffmining_tpu/ops/flash_attention.py:250 (_flash_kernel_t_nomax, via _flash_forward_t :417)",
+        sum(by_path.values()), kern, "K1 L4096 D40")
     nomax["launches_by_path"] = by_path
     entries = [nomax]
     for kind, (name, source, replaces) in TRAIN_KERNELS.items():
@@ -4426,6 +4999,24 @@ def main() -> int:
     for kind, (name, source, replaces, main_case) in INFERENCE_KERNELS.items():
         entries.append(kernel_entry(name, source, replaces, mining["runs"]["modes"]["launches"][name],
                                     infer_kern[kind], main_case))
+    # the channel-major kernels (phase 23): launches on the world's passes and CLI run
+    cm_paths = {
+        "flash_fwd_nomax_cm": {"cmajor 512px pass": cmajor["bf16_pass"]["launches"]["flash_fwd_nomax_cm"],
+                               "cmajor CLI": cmajor["cli"]["cmajor_bf16"]["launches"]["flash_fwd_nomax_cm"],
+                               "cmajor 1024px pass": cmajor["pass_1024"]["launches"]["flash_fwd_nomax_cm"],
+                               "cmajor pallas pass": cmajor["pallas"]["cmajor"]["launches"]["flash_fwd_nomax_cm"]},
+        "flash_fwd_online_cm": {"cmajor 1024px pass": cmajor["pass_1024"]["launches"]["flash_fwd_online_cm"]},
+        "flash_fwd_nomax_cm_f32": {
+            "cmajor float32 pass": cmajor["f32_pass"]["default"]["launches"]["flash_fwd_nomax_cm_f32"]},
+        "flash_fwd_online_cm_f32": {
+            "cmajor float32 pass, DIFFMINING_FLASH_ONESHOT=0":
+                cmajor["f32_pass"]["DIFFMINING_FLASH_ONESHOT=0"]["launches"]["flash_fwd_online_cm_f32"]},
+    }
+    for kind, (name, source, replaces, main_case) in CMAJOR_KERNELS.items():
+        entry = kernel_entry(name, f"diffmining_tpu_torch/csrc/{source}.cu", replaces, sum(cm_paths[name].values()),
+                             cmajor["kernels"][kind], main_case)
+        entry["launches_by_path"] = cm_paths[name]
+        entries.append(entry)
     large = clip["large_crops"]
     f32_paths = {
         "online": {"clip crop 448": large["crop448"]["launches"]["flash_fwd_online_f32"]},
@@ -4464,6 +5055,7 @@ def main() -> int:
     print(json.dumps({"sweep_dp": sweep_dp}))
     print(json.dumps({"mining_dp": mining_dp}))
     print(json.dumps({"train_dp": train_dp}))
+    print(json.dumps({"cmajor": {k: v for k, v in cmajor.items() if k != "kernels"}}))
     print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

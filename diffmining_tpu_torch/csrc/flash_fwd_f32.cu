@@ -72,6 +72,22 @@
 //     work, not 128. Where 8 warps a block would leave a second wave of
 //     blocks less than half full (B2 H8 L1100 at D = 80 and 160: 144 blocks
 //     for 132 slots), a block takes 4 warps (64 rows): 288 blocks.
+//
+// The channel-major layout (CM; the online and no-max modes, the
+// counterparts of _flash_forward_cbl, flash_attention.py:499 and :517): q,
+// k, v and o are [B, H, L, D] views whose L stride is 1 and whose B, H and
+// D strides are multiples of 4, such as [B, H*D, L] or the JAX package's
+// [H*D, B, L], read in place. The blocks, warps, rings and register tiles
+// stay; K and V come by one 4-D map (L, D, H, B) each as [D][keys] tiles
+// (keys past Lk read as zeros). A lane's 8 logit columns are keys 4 cg ..
+// 4 cg + 3 and 32 + 4 cg .. + 3 (two 16-byte reads of a K row a head-dim
+// element, the 8 lanes of a row group on 8 bank groups); its output
+// columns are cg + 8 j, and P . V reads 4 keys of one V row at a time from
+// rows padded to 68 floats (a box of 68 keys), so the 8 lanes of a row
+// group read 8 bank groups there too. q is loaded 4 rows of one column at
+// a time into the same chunk-major tile, and o is stored column by column.
+// Each logit and each output sum adds the same terms in the same order as
+// the other layout; only the per-lane parts of l are summed in another.
 
 #include "flash_f32.cuh"
 
@@ -93,10 +109,12 @@ struct FwdCfg {
   static constexpr int R = Cols<D>::R;      // and single columns past them (0, 1 or 2)
   static constexpr int CPL = Cols<D>::N;    // columns a lane holds: D / 8
   static constexpr int KV_FLOATS = BK * D;  // a K stage [D/4][BK][4] or a V stage [BK][D]
+  static constexpr int VROW_CM = BK + 4;    // a channel-major V row: 64 keys and 4 of the next tile
+  static constexpr int V_FLOATS_CM = VROW_CM * D;  // a channel-major V stage [D][VROW_CM]
   static constexpr int P_FLOATS = 16 * BK;  // a warp's P slab [16][BK], 16-byte groups swizzled by row
   // bytes of shared memory at `warps` warps: q [D/4][16 warps][4], the rings, the slabs, the barriers
-  static constexpr int smem(int warps) {
-    return (16 * warps * D + (NSK + NSV) * KV_FLOATS + warps * P_FLOATS) * 4 +
+  static constexpr int smem(int warps, bool cm) {
+    return (16 * warps * D + NSK * KV_FLOATS + NSV * (cm ? V_FLOATS_CM : KV_FLOATS) + warps * P_FLOATS) * 4 +
            (NSK + NSV) * int(sizeof(uint64_t) + sizeof(int));
   }
 };
@@ -113,7 +131,7 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
-template <int D, int MODE>
+template <int D, int MODE, bool CM = false>
 __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
     flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
                          const float* __restrict__ q, float* __restrict__ o, float* __restrict__ lse, int H, int Lq,
@@ -123,13 +141,14 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
   constexpr bool NOMAX = MODE == 1;
   constexpr int CPL = C::CPL, J = C::J;
   constexpr uint32_t KV_BYTES = C::KV_FLOATS * 4;
+  constexpr int V_FLOATS = CM ? C::V_FLOATS_CM : C::KV_FLOATS;  // a V stage
   const int warps = blockDim.x / 32, BQ = 16 * warps;
 
   extern __shared__ __align__(128) float smem[];
   float* sQ = smem;                          // [D/4][BQ][4], pre-scaled
-  float* sK = sQ + BQ * D;                   // [NSK] stages [D/4][BK][4]
-  float* sV = sK + C::NSK * C::KV_FLOATS;    // [NSV] stages [BK][D]
-  float* sP = sV + C::NSV * C::KV_FLOATS;    // [warps] slabs [16][BK]
+  float* sK = sQ + BQ * D;                   // [NSK] stages [D/4][BK][4] (CM: [D][BK])
+  float* sV = sK + C::NSK * C::KV_FLOATS;    // [NSV] stages [BK][D] (CM: [D][VROW_CM])
+  float* sP = sV + C::NSV * V_FLOATS;        // [warps] slabs [16][BK]
   uint64_t* full_k = reinterpret_cast<uint64_t*>(sP + warps * C::P_FLOATS);
   uint64_t* full_v = full_k + C::NSK;
   int* done_k = reinterpret_cast<int*>(full_v + C::NSV);  // warps done with each stage
@@ -151,12 +170,18 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
   auto fetch_k = [&](int t) {
     const int st = t % C::NSK;
     mbar_expect_tx(&full_k[st], KV_BYTES);
-    tma_load_5d(sK + st * C::KV_FLOATS, &map_k, &full_k[st], 0, t * BK, 0, h, b);
+    if constexpr (CM)
+      tma_load_4d(sK + st * C::KV_FLOATS, &map_k, &full_k[st], t * BK, 0, h, b);
+    else
+      tma_load_5d(sK + st * C::KV_FLOATS, &map_k, &full_k[st], 0, t * BK, 0, h, b);
   };
   auto fetch_v = [&](int t) {
     const int st = t % C::NSV;
-    mbar_expect_tx(&full_v[st], KV_BYTES);
-    tma_load_4d(sV + st * C::KV_FLOATS, &map_v, &full_v[st], 0, t * BK, h, b);
+    mbar_expect_tx(&full_v[st], V_FLOATS * 4);
+    if constexpr (CM)
+      tma_load_4d(sV + st * V_FLOATS, &map_v, &full_v[st], t * BK, 0, h, b);
+    else
+      tma_load_4d(sV + st * C::KV_FLOATS, &map_v, &full_v[st], 0, t * BK, h, b);
   };
   // this warp is done reading a stage; the last active warp refills it with tile t
   auto release = [&](int* done, int st, int t, bool k_ring) {
@@ -196,7 +221,28 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
   }
 
   // this warp's 16 q rows, pre-scaled, chunk-major; rows past Lq are zeros and are never stored
-  {
+  if constexpr (CM) {  // 4 rows of one column a lane at a time (q_sl is the head-dim stride)
+    const float* qb = q + b * q_sb + h * q_sh;
+    for (int f = lane; f < 4 * D; f += 32) {
+      const int row = warp * 16 + (f % 4) * 4, d = f / 4;
+      const int r = q0 + row;
+      const float* col = qb + d * q_sl + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r + 4 <= Lq) {
+        x = *reinterpret_cast<const float4*>(col);
+      } else {
+        if (r < Lq) x.x = col[0];
+        if (r + 1 < Lq) x.y = col[1];
+        if (r + 2 < Lq) x.z = col[2];
+      }
+      float* cell = sQ + ((d / 4) * BQ + row) * 4 + d % 4;
+      cell[0] = x.x * q_scale;
+      cell[4] = x.y * q_scale;
+      cell[8] = x.z * q_scale;
+      cell[12] = x.w * q_scale;
+    }
+    __syncwarp();
+  } else {
     const float* qb = q + b * q_sb + h * q_sh;
     for (int f = lane; f < 16 * (D / 4); f += 32) {
       const int row = warp * 16 + f % 16, c4 = f / 16;
@@ -214,6 +260,9 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
     __syncwarp();
   }
 
+  // the head-dim column of the lane's c-th output value in the channel-major
+  // layout (the other layout's are Cols')
+  auto out_col = [&](int c) { return cg + 8 * c; };
   float acc[4][CPL], m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -234,12 +283,34 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
     const int ks = j % C::NSK;
     mbar_wait(&full_k[ks], (j / C::NSK) & 1);
     const float4* k4 = reinterpret_cast<const float4*>(sK + ks * C::KV_FLOATS) + cg;  // + c4 BK + 8t
+    // the lane's 8 logit columns: keys cg + 8t, or in the channel-major
+    // layout 4 cg + t and 32 + 4 cg + t - 4
+    auto key_of = [&](int t) { return CM ? (t < 4 ? 0 : 32) + 4 * cg + (t & 3) : cg + 8 * t; };
 
     float s[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int t = 0; t < 8; ++t) s[i][t] = 0.f;
+    if constexpr (CM) {
+#pragma unroll 2
+      for (int c4 = 0; c4 < D / 4; ++c4) {
+        float4 a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = q4[c4 * BQ + 4 * i];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 lo = k4[(4 * c4 + e) * (BK / 4)], hi = k4[(4 * c4 + e) * (BK / 4) + 8];
+          const float kv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float qe = lane_of(a[i], e);
+#pragma unroll
+            for (int t = 0; t < 8; ++t) s[i][t] = fmaf(qe, kv[t], s[i][t]);
+          }
+        }
+      }
+    } else {
 #pragma unroll 2
     for (int c4 = 0; c4 < D / 4; ++c4) {
       float4 a[4];
@@ -257,12 +328,13 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
         }
       }
     }
+    }
     release(done_k, ks, j + C::NSK, true);
 
     if (k0 + BK > Lk) {
 #pragma unroll
       for (int t = 0; t < 8; ++t)
-        if (k0 + cg + 8 * t >= Lk)
+        if (k0 + key_of(t) >= Lk)
 #pragma unroll
           for (int i = 0; i < 4; ++i) s[i][t] = NEG_INF;
     }
@@ -286,14 +358,34 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
       for (int t = 0; t < 8; ++t) {
         const float p = exp2_ftz(s[i][t] - shift);
         l[i] += p;
-        pw[(rg + 4 * i) * BK + ((cg + 8 * t) ^ swz)] = p;
+        pw[(rg + 4 * i) * BK + (key_of(t) ^ swz)] = p;
       }
     }
     __syncwarp();  // the warp's P is whole
 
     const int vs = j % C::NSV;
     mbar_wait(&full_v[vs], (j / C::NSV) & 1);
-    const float* vt = sV + vs * C::KV_FLOATS;
+    const float* vt = sV + vs * V_FLOATS;
+    if constexpr (CM) {
+      // V as [D][BK]: 4 keys of one of the lane's columns a read, the keys
+      // of each sum in the same order as below
+#pragma unroll 2
+      for (int kk = 0; kk < BK; kk += 4) {
+        float4 pr[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pr[i] = *reinterpret_cast<const float4*>(pw + (rg + 4 * i) * BK + (kk ^ swz));
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          const float4 x = *reinterpret_cast<const float4*>(vt + out_col(c) * C::VROW_CM + kk);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float ve = lane_of(x, e);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(lane_of(pr[i], e), ve, acc[i][c]);
+          }
+        }
+      }
+    } else {
 #pragma unroll 2
     for (int kk = 0; kk < BK; kk += 4) {
       float4 pr[4];
@@ -326,6 +418,7 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
         }
       }
     }
+    }
     release(done_v, vs, j + C::NSV, false);  // also orders the P reads before the next tile's P writes
   }
 
@@ -338,6 +431,11 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
     const int r = q0 + warp * 16 + rg + 4 * i;
     if (r >= Lq) continue;
     if (MODE == 2 && cg == 0) lse[(static_cast<long long>(b) * H + h) * Lq + r] = m[i] * LN2 + logf(li);
+    if constexpr (CM) {  // column by column (o_sl is the head-dim stride)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) ob[out_col(c) * o_sl + r] = acc[i][c] * inv;
+      continue;
+    }
     float* row = ob + r * o_sl;
 #pragma unroll
     for (int g = 0; g < J; ++g)
@@ -351,16 +449,32 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::MIN_BLOCKS)
   }
 }
 
-template <int D, int MODE>
+// The 4-D map (L, D, H, B) of a channel-major [B, H, L, D] float32 view (L
+// contiguous; element strides sb, sh, sd, multiples of 4) cut in [D][rows]
+// tiles; keys past L read as zeros.
+inline cudaError_t cm_map(CUtensorMap* map, const void* base, int B, int H, int L, int D, long long sb, long long sh,
+                          long long sd, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)L, (cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sd * 4, (cuuint64_t)sh * 4, (cuuint64_t)sb * 4};
+  const cuuint32_t box[4] = {(cuuint32_t)rows, (cuuint32_t)D, 1, 1};
+  return encode_map(map, base, 4, dims, strides, box);
+}
+
+template <int D, int MODE, bool CM>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Lq, int Lk,
            const Strides& st, float q_scale, cudaStream_t stream) {
   using C = FwdCfg<D>;
-  const auto kernel = flash_fwd_f32_kernel<D, MODE>;
+  const auto kernel = flash_fwd_f32_kernel<D, MODE, CM>;
   static bool ready[MAX_DEVICES];
-  cudaError_t err = prepare(kernel, C::smem(C::MAX_WARPS), ready);
+  cudaError_t err = prepare(kernel, C::smem(C::MAX_WARPS, CM), ready);
   CUtensorMap mk, mv;
-  if (err == cudaSuccess) err = chunk_map(&mk, k, B, H, Lk, D, st.s[3], st.s[4], st.s[5], BK);
-  if (err == cudaSuccess) err = row_map(&mv, v, B, H, Lk, D, st.s[6], st.s[7], st.s[8], BK);
+  if constexpr (CM) {
+    if (err == cudaSuccess) err = cm_map(&mk, k, B, H, Lk, D, st.s[3], st.s[4], st.s[5], BK);
+    if (err == cudaSuccess) err = cm_map(&mv, v, B, H, Lk, D, st.s[6], st.s[7], st.s[8], C::VROW_CM);
+  } else {
+    if (err == cudaSuccess) err = chunk_map(&mk, k, B, H, Lk, D, st.s[3], st.s[4], st.s[5], BK);
+    if (err == cudaSuccess) err = row_map(&mv, v, B, H, Lk, D, st.s[6], st.s[7], st.s[8], BK);
+  }
   if (err != cudaSuccess) return err;
   // 8 warps (128 q rows), or 4 where 8 would leave the card a second wave
   // of blocks less than half full (B2 H8 L1100: 144 blocks of 8 warps for
@@ -373,19 +487,37 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   const int rows = 16 * warps;
   const long long blocks = static_cast<long long>(B) * H * ((Lq + rows - 1) / rows);
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  kernel<<<unsigned(blocks), 32 * warps, C::smem(warps), stream>>>(
+  kernel<<<unsigned(blocks), 32 * warps, C::smem(warps, CM), stream>>>(
       mk, mv, static_cast<const float*>(q), static_cast<float*>(o), static_cast<float*>(lse), H, Lq, Lk, st.s[0],
       st.s[1], st.s[2], st.s[9], st.s[10], st.s[11], q_scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool CM>
 int launch_mode(int mode, const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Lq,
                 int Lk, const Strides& st, float q_scale, cudaStream_t s) {
   switch (mode) {
-    case 0: return launch<D, 0>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
-    case 1: return launch<D, 1>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
-    case 2: return launch<D, 2>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 0: return launch<D, 0, CM>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 1: return launch<D, 1, CM>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 2:
+      if constexpr (CM) return cudaErrorInvalidValue;  // no lse mode in the channel-major layout
+      else return launch<D, 2, false>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool CM>
+int launch_d(int D, int mode, const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Lq,
+             int Lk, const long long* strides, float q_scale, void* stream) {
+  Strides st;
+  for (int i = 0; i < 12; ++i) st.s[i] = strides[i];
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Lq <= 0 || Lk <= 0 || B <= 0 || H <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
+  switch (D) {
+    case 40: return launch_mode<40, CM>(mode, q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 64: return launch_mode<64, CM>(mode, q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 80: return launch_mode<80, CM>(mode, q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 160: return launch_mode<160, CM>(mode, q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -400,15 +532,17 @@ int launch_mode(int mode, const void* q, const void* k, const void* v, void* o, 
 // be 40, 64, 80 or 160.
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Lq,
                              int Lk, int D, int mode, const long long* strides, float q_scale, void* stream) {
-  Strides st;
-  for (int i = 0; i < 12; ++i) st.s[i] = strides[i];
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Lq <= 0 || Lk <= 0 || B <= 0 || H <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  switch (D) {
-    case 40: return launch_mode<40>(mode, q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
-    case 64: return launch_mode<64>(mode, q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
-    case 80: return launch_mode<80>(mode, q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
-    case 160: return launch_mode<160>(mode, q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_d<false>(D, mode, q, k, v, o, lse, B, H, Lq, Lk, strides, q_scale, stream);
+}
+
+// flash_fwd_f32_cm: the online (mode 0) and no-max (mode 1) modes on
+// channel-major operands (_flash_forward_cbl's launches of K3 and K1,
+// diffmining_tpu/ops/flash_attention.py:517 and :499, at float32): q, k,
+// v and o are [B, H, L, D] views whose L stride is 1; strides: 12 element
+// strides, (batch, head, head dim) for q, k, v, o in that order, each a
+// multiple of 4 (L a multiple of 4 where L is a stride). Returns the CUDA
+// error of the launch (0 on success); D must be 40, 64, 80 or 160.
+extern "C" int flash_fwd_f32_cm(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
+                                int D, int mode, const long long* strides, float q_scale, void* stream) {
+  return launch_d<true>(D, mode, q, k, v, o, nullptr, B, H, Lq, Lk, strides, q_scale, stream);
 }

@@ -55,3 +55,18 @@ extern "C" int flash_fwd_nomax(const void* q, const void* k, const void* v, void
   return launch_online_d<false, true>(q, k, v, o, nullptr, B, H, Lq, Lk, D, strides, q_scale,
                                       static_cast<cudaStream_t>(stream));
 }
+
+// flash_fwd_nomax_cm: K1 on channel-major operands
+// (diffmining_tpu/ops/flash_attention.py:499, _flash_forward_cbl's one-shot
+// launch), for the channel-major transformer world (DIFFMINING_TF_CMAJOR=1).
+// q, k, v and o are [B, H, L, D] views whose L stride is 1; strides: 12
+// element strides, (batch, head, head dim) for q, k, v, o in that order, each
+// a multiple of 8. L need not be a multiple of 8 if the caller keeps the
+// elements up to the next multiple readable (a padded buffer); they are
+// masked. Returns the CUDA error of the launch (0 on success); D must be 40,
+// 80 or 160.
+extern "C" int flash_fwd_nomax_cm(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq, int Lk,
+                                   int D, const long long* strides, float q_scale, void* stream) {
+  return launch_online_d<false, true, true>(q, k, v, o, nullptr, B, H, Lq, Lk, D, strides, q_scale,
+                                           static_cast<cudaStream_t>(stream));
+}

@@ -71,6 +71,25 @@
 // Layout: q, k, v, o are [B, H, L, D] with arbitrary 16-byte-aligned
 // element strides for B, H and L (head dim contiguous); lse is a contiguous
 // [B, H, Lq] fp32 tensor.
+//
+// The channel-major layout (CM; K1 and K3 only, the counterparts of
+// _flash_forward_cbl, flash_attention.py:499 and :517): q, k, v and o are
+// [B, H, L, D] views whose L stride is 1 and whose B, H and D strides are
+// 16-byte aligned, such as [B, H*D, L] (the UNet's channel-major world) or
+// the JAX package's [H*D, B, L], read in place. The tiles, the ring and the
+// loop stay; what changes is how the operands lie in shared memory:
+//   * k comes by TMA as [key/8][DP][8 keys] (bdl_map: 16-byte chunks of
+//     keys along L, the head-dim pad rows filled with zeros by the TMA
+//     unit), which is wgmma's MN-major layout for the B operand of S = Q.K^T
+//     (the descriptor's transpose bit);
+//   * v comes as [key/8][D][8 keys], the K-major B operand of O = P.V;
+//   * q is loaded along L, 8 rows of one head-dim column at a time,
+//     pre-scaled and written element by element into the same K-major A
+//     tile as the other layout's;
+//   * o is stored from the accumulator's registers straight along its
+//     columns: each warp store writes four 16-byte runs of 8 rows.
+// The products and the softmax are the other layout's instruction for
+// instruction, so the two layouts agree bit for bit on the same values.
 #pragma once
 
 #include <cuda.h>
@@ -114,6 +133,12 @@ struct OnlineCfg {
   static constexpr uint32_t Q_LBO = 128, Q_SBO = DPC * 128;
   static constexpr uint32_t K_LBO = BLOCK_N * 16, K_SBO = 128;
   static constexpr uint32_t V_LBO = 128, V_SBO = BLOCK_N * 16;
+  // the channel-major layout: k as [key/8][DP][8 keys] cells (MN-major B),
+  // v as [key/8][D][8 keys] (K-major B); the TMA unit brings the pad rows
+  // of k as zeros
+  static constexpr uint32_t KC_LBO = 128, KC_SBO = DP * 16;
+  static constexpr uint32_t VC_LBO = D * 16, VC_SBO = 128;
+  static constexpr uint32_t TILE_BYTES_CM = BLOCK_N * (DP + D) * 2;
 };
 
 // q rows [m0, m0 + BLOCK_M) pre-scaled in q's dtype, bf16(q * q_scale), into
@@ -145,11 +170,55 @@ __device__ __forceinline__ void load_q_scaled(unsigned char* sq, const __nv_bflo
   }
 }
 
+// The same tile from a channel-major q (L contiguous; sd its head-dim
+// stride): each thread loads 8 rows of one head-dim column (16 bytes along
+// L where all 8 lie below Lq) and writes them into the K-major tile one
+// element at a time. Consecutive threads take consecutive row groups, so a
+// warp reads 512 contiguous bytes of a column.
+template <int D, bool NOMAX>
+__device__ __forceinline__ void load_q_scaled_cm(unsigned char* sq, const __nv_bfloat16* qb, long long q_sd, int m0,
+                                                 int Lq, float q_scale, int tid) {
+  using C = OnlineCfg<D, NOMAX>;
+  constexpr int RG = C::BLOCK_M / 8;  // 8-row groups of the tile
+  constexpr int TOTAL = RG * C::DP;
+#pragma unroll
+  for (int it = 0; it < (TOTAL + C::THREADS - 1) / C::THREADS; ++it) {
+    const int i = tid + it * C::THREADS;
+    if (TOTAL % C::THREADS == 0 || i < TOTAL) {
+      const int g = i % RG, d = i / RG;
+      const int r0 = m0 + g * 8;
+      float x[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = 0.f;
+      if (d < D) {
+        const __nv_bfloat16* col = qb + (long long)d * q_sd + r0;
+        if (r0 + 8 <= Lq) {
+          uint4 u = __ldg(reinterpret_cast<const uint4*>(col));
+          const uint32_t* w = reinterpret_cast<const uint32_t*>(&u);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = unpack_bf16x2(w[e]);
+            x[2 * e] = f.x;
+            x[2 * e + 1] = f.y;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (r0 + e < Lq) x[e] = __bfloat162float(col[e]);
+        }
+      }
+      __nv_bfloat16* cell = reinterpret_cast<__nv_bfloat16*>(sq + g * C::Q_SBO + (d / 8) * C::Q_LBO) + d % 8;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) cell[e * 8] = __float2bfloat16_rn(x[e] * q_scale);
+    }
+  }
+}
+
 // One 128-key tile of the online softmax for this warpgroup's 64 rows:
 // S = Qs . K^T, the mask of keys past Lk, the running max and denominators
 // (in the no-max mode none: p = exp2(s)), p rounded to bf16, O += P . V.
 // Returns once both products have completed, so the tile's stage is free.
-template <int D, bool NOMAX>
+template <int D, bool NOMAX, bool CM>
 __device__ __forceinline__ void online_tile(float (&acc)[D / 2], float& m_lo, float& m_hi, float& l_lo, float& l_hi,
                                             uint64_t desc_q, uint64_t dk, uint64_t dv, int key0, int Lk,
                                             int tig) {
@@ -163,7 +232,10 @@ __device__ __forceinline__ void online_tile(float (&acc)[D / 2], float& m_lo, fl
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < QK; ++kk)
-    wgmma_m64n128k16_ss(s, desc_add(desc_q, kk * 2 * C::Q_LBO), desc_add(dk, kk * 2 * C::K_LBO), kk);
+    if constexpr (CM)
+      wgmma_m64n128k16_ss<1>(s, desc_add(desc_q, kk * 2 * C::Q_LBO), desc_add(dk, kk * 2 * C::KC_LBO), kk);
+    else
+      wgmma_m64n128k16_ss(s, desc_add(desc_q, kk * 2 * C::Q_LBO), desc_add(dk, kk * 2 * C::K_LBO), kk);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(s);
@@ -232,7 +304,12 @@ __device__ __forceinline__ void online_tile(float (&acc)[D / 2], float& m_lo, fl
   fence_regs(p);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < PK; ++kk) wgmma_pv<D>(acc, p[kk], desc_add(dv, kk * 2 * C::V_LBO));
+  for (int kk = 0; kk < PK; ++kk) {
+    if constexpr (CM)
+      wgmma_pv<D, 0>(acc, p[kk], desc_add(dv, kk * 2 * C::VC_LBO));
+    else
+      wgmma_pv<D>(acc, p[kk], desc_add(dv, kk * 2 * C::V_LBO));
+  }
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
@@ -269,13 +346,40 @@ __device__ __forceinline__ void online_store(const float (&acc)[D / 2], float m_
   }
 }
 
+// The same for a channel-major o (L contiguous; o_sd its head-dim stride):
+// element stores along the columns the thread holds.
+template <int D>
+__device__ __forceinline__ void online_store_cm(const float (&acc)[D / 2], float l_lo, float l_hi,
+                                                __nv_bfloat16* ob, long long o_sd, int r_lo, int Lq, int tig) {
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  const float inv_lo = 1.0f / fmaxf(l_lo, 1e-30f);
+  const float inv_hi = 1.0f / fmaxf(l_hi, 1e-30f);
+  const int r_hi = r_lo + 8;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    __nv_bfloat16* col = ob + (long long)(dt * 8 + tig * 2) * o_sd;
+    if (r_lo < Lq) {
+      col[r_lo] = __float2bfloat16_rn(acc[dt * 4] * inv_lo);
+      col[o_sd + r_lo] = __float2bfloat16_rn(acc[dt * 4 + 1] * inv_lo);
+    }
+    if (r_hi < Lq) {
+      col[r_hi] = __float2bfloat16_rn(acc[dt * 4 + 2] * inv_hi);
+      col[o_sd + r_hi] = __float2bfloat16_rn(acc[dt * 4 + 3] * inv_hi);
+    }
+  }
+}
+
 // One block: WARPGROUPS warpgroups, 64 q rows each, of one (batch, head);
 // the key loop inside. The last of the block's warps done with a stage
 // (counted in shared memory) has the TMA unit refill it, so a warpgroup
 // waits only for its data, never for another warpgroup. The kernels below
-// are this body under their own names (K3/K4's and K1/K2's), so a trace
-// tells them apart.
-template <int D, bool WRITE_LSE, bool NOMAX>
+// are this body under their own names (K3/K4's and K1/K2's, and the
+// channel-major K3's and K1's), so a trace tells them apart. In the
+// channel-major layout (CM) the third stride of q and o is the head dim's.
+template <int D, bool WRITE_LSE, bool NOMAX, bool CM>
 __device__ __forceinline__ void flash_fwd_block(const CUtensorMap& map_k, const CUtensorMap& map_v,
                                                 const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
                                                 float* __restrict__ lse, int H, int Lq, int Lk, long long q_sb,
@@ -301,9 +405,15 @@ __device__ __forceinline__ void flash_fwd_block(const CUtensorMap& map_k, const 
 
   auto fetch = [&](int t) {  // by one thread: tile t into stage t % NS
     const int st = t % NS;
-    mbar_expect_tx(&full[st], C::TILE_BYTES);
-    tma_load_5d(sK + st * C::K_BYTES, &map_k, &full[st], 0, t * BLOCK_N, 0, h, b);
-    tma_load_5d(sV + st * C::V_BYTES, &map_v, &full[st], 0, t * BLOCK_N, 0, h, b);
+    if constexpr (CM) {
+      mbar_expect_tx(&full[st], C::TILE_BYTES_CM);
+      tma_load_5d(sK + st * C::K_BYTES, &map_k, &full[st], 0, 0, t * (BLOCK_N / 8), h, b);
+      tma_load_5d(sV + st * C::V_BYTES, &map_v, &full[st], 0, 0, t * (BLOCK_N / 8), h, b);
+    } else {
+      mbar_expect_tx(&full[st], C::TILE_BYTES);
+      tma_load_5d(sK + st * C::K_BYTES, &map_k, &full[st], 0, t * BLOCK_N, 0, h, b);
+      tma_load_5d(sV + st * C::V_BYTES, &map_v, &full[st], 0, t * BLOCK_N, 0, h, b);
+    }
   };
   if (tid == 0) {
     for (int s = 0; s < NS; ++s) {
@@ -312,7 +422,7 @@ __device__ __forceinline__ void flash_fwd_block(const CUtensorMap& map_k, const 
     }
     fence_mbar_init();
   }
-  if constexpr (C::DPC > C::CH) {  // k's zero pad chunks, [CH, DPC) of every stage
+  if constexpr (!CM && C::DPC > C::CH) {  // k's zero pad chunks, [CH, DPC) of every stage
     constexpr int PAD = (C::DPC - C::CH) * BLOCK_N;
     for (int i = tid; i < NS * PAD; i += C::THREADS)
       *reinterpret_cast<uint4*>(sK + (i / PAD) * C::K_BYTES + C::CH * C::K_LBO + (i % PAD) * 16) =
@@ -321,13 +431,16 @@ __device__ __forceinline__ void flash_fwd_block(const CUtensorMap& map_k, const 
   __syncthreads();  // the barriers are initialised
   if (tid == 0)
     for (int t = 0; t < NS && t < n_tiles; ++t) fetch(t);
-  load_q_scaled<D, NOMAX>(sQ, q + b * q_sb + h * q_sh, q_sl, m0, Lq, q_scale, tid);
+  if constexpr (CM)
+    load_q_scaled_cm<D, NOMAX>(sQ, q + b * q_sb + h * q_sh, q_sl, m0, Lq, q_scale, tid);
+  else
+    load_q_scaled<D, NOMAX>(sQ, q + b * q_sb + h * q_sh, q_sl, m0, Lq, q_scale, tid);
   fence_proxy_async();  // q and the pad, visible to wgmma
   __syncthreads();
 
   const uint64_t desc_q = make_desc(sQ + wg * 64 * C::DP * 2, C::Q_LBO, C::Q_SBO);
-  const uint64_t desc_k = make_desc(sK, C::K_LBO, C::K_SBO);
-  const uint64_t desc_v = make_desc(sV, C::V_LBO, C::V_SBO);
+  const uint64_t desc_k = CM ? make_desc(sK, C::KC_LBO, C::KC_SBO) : make_desc(sK, C::K_LBO, C::K_SBO);
+  const uint64_t desc_v = CM ? make_desc(sV, C::VC_LBO, C::VC_SBO) : make_desc(sV, C::V_LBO, C::V_SBO);
 
   float acc[D / 2];
 #pragma unroll
@@ -341,7 +454,7 @@ __device__ __forceinline__ void flash_fwd_block(const CUtensorMap& map_k, const 
   for (int j = 0; j < n_tiles; ++j) {
     const int stage = j % NS;
     mbar_wait(&full[stage], (j / NS) & 1);
-    online_tile<D, NOMAX>(acc, m_lo, m_hi, l_lo, l_hi, desc_q, desc_add(desc_k, stage * C::K_BYTES),
+    online_tile<D, NOMAX, CM>(acc, m_lo, m_hi, l_lo, l_hi, desc_q, desc_add(desc_k, stage * C::K_BYTES),
                           desc_add(desc_v, stage * C::V_BYTES), j * BLOCK_N, Lk, lane & 3);
     if (lane == 0) {  // this warp's reads of the stage are done
       __threadfence_block();
@@ -352,8 +465,12 @@ __device__ __forceinline__ void flash_fwd_block(const CUtensorMap& map_k, const 
       }
     }
   }
-  online_store<D, WRITE_LSE>(acc, m_lo, m_hi, l_lo, l_hi, o + b * o_sb + h * o_sh, o_sl, lse + (long long)bh * Lq,
-                             m0 + (tid / 32) * 16 + lane / 4, Lq, lane & 3);
+  const int r_lo = m0 + (tid / 32) * 16 + lane / 4;
+  if constexpr (CM)
+    online_store_cm<D>(acc, l_lo, l_hi, o + b * o_sb + h * o_sh, o_sl, r_lo, Lq, lane & 3);
+  else
+    online_store<D, WRITE_LSE>(acc, m_lo, m_hi, l_lo, l_hi, o + b * o_sb + h * o_sh, o_sl,
+                               lse + (long long)bh * Lq, r_lo, Lq, lane & 3);
 }
 
 template <int D, bool WRITE_LSE>
@@ -362,8 +479,8 @@ __global__ void __launch_bounds__(OnlineCfg<D, false>::THREADS, OnlineCfg<D, fal
                             const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
                             float* __restrict__ lse, int H, int Lq, int Lk, long long q_sb, long long q_sh,
                             long long q_sl, long long o_sb, long long o_sh, long long o_sl, float q_scale) {
-  flash_fwd_block<D, WRITE_LSE, false>(map_k, map_v, q, o, lse, H, Lq, Lk, q_sb, q_sh, q_sl, o_sb, o_sh, o_sl,
-                                       q_scale);
+  flash_fwd_block<D, WRITE_LSE, false, false>(map_k, map_v, q, o, lse, H, Lq, Lk, q_sb, q_sh, q_sl, o_sb, o_sh,
+                                              o_sl, q_scale);
 }
 
 template <int D>
@@ -372,15 +489,41 @@ __global__ void __launch_bounds__(OnlineCfg<D, true>::THREADS, OnlineCfg<D, true
                            const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, int H, int Lq, int Lk, long long q_sb, long long q_sh,
                            long long q_sl, long long o_sb, long long o_sh, long long o_sl, float q_scale) {
-  flash_fwd_block<D, false, true>(map_k, map_v, q, o, lse, H, Lq, Lk, q_sb, q_sh, q_sl, o_sb, o_sh, o_sl, q_scale);
+  flash_fwd_block<D, false, true, false>(map_k, map_v, q, o, lse, H, Lq, Lk, q_sb, q_sh, q_sl, o_sb, o_sh, o_sl,
+                                         q_scale);
 }
 
-template <int D, bool WRITE_LSE, bool NOMAX>
+template <int D>
+__global__ void __launch_bounds__(OnlineCfg<D, false>::THREADS, OnlineCfg<D, false>::MIN_BLOCKS)
+    flash_fwd_online_cm_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                               const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+                               float* __restrict__ lse, int H, int Lq, int Lk, long long q_sb, long long q_sh,
+                               long long q_sd, long long o_sb, long long o_sh, long long o_sd, float q_scale) {
+  flash_fwd_block<D, false, false, true>(map_k, map_v, q, o, lse, H, Lq, Lk, q_sb, q_sh, q_sd, o_sb, o_sh, o_sd,
+                                         q_scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(OnlineCfg<D, true>::THREADS, OnlineCfg<D, true>::MIN_BLOCKS)
+    flash_fwd_nomax_cm_kernel(const __grid_constant__ CUtensorMap map_k, const __grid_constant__ CUtensorMap map_v,
+                              const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+                              float* __restrict__ lse, int H, int Lq, int Lk, long long q_sb, long long q_sh,
+                              long long q_sd, long long o_sb, long long o_sh, long long o_sd, float q_scale) {
+  flash_fwd_block<D, false, true, true>(map_k, map_v, q, o, lse, H, Lq, Lk, q_sb, q_sh, q_sd, o_sb, o_sh, o_sd,
+                                        q_scale);
+}
+
+template <int D, bool WRITE_LSE, bool NOMAX, bool CM>
 cudaError_t launch_online(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Lq,
                           int Lk, const long long* st, float q_scale, cudaStream_t stream) {
   using C = OnlineCfg<D, NOMAX>;
+  static_assert(!(CM && WRITE_LSE), "the channel-major layout has no lse mode");
   const auto kernel = [] {  // only the mode's own kernel is instantiated
-    if constexpr (NOMAX)
+    if constexpr (CM && NOMAX)
+      return flash_fwd_nomax_cm_kernel<D>;
+    else if constexpr (CM)
+      return flash_fwd_online_cm_kernel<D>;
+    else if constexpr (NOMAX)
       return flash_fwd_nomax_kernel<D>;
     else
       return flash_fwd_online_kernel<D, WRITE_LSE>;
@@ -388,8 +531,13 @@ cudaError_t launch_online(const void* q, const void* k, const void* v, void* o, 
   static bool ready[MAX_DEVICES];
   cudaError_t err = prepare(kernel, C::SMEM, ready);
   CUtensorMap mk, mv;
-  if (err == cudaSuccess) err = bhld_map<D>(&mk, k, B, H, Lk, st[3], st[4], st[5], BLOCK_N);
-  if (err == cudaSuccess) err = bhld_map<D>(&mv, v, B, H, Lk, st[6], st[7], st[8], BLOCK_N);
+  if constexpr (CM) {
+    if (err == cudaSuccess) err = bdl_map<D>(&mk, k, B, H, Lk, st[3], st[4], st[5], BLOCK_N, C::DP);
+    if (err == cudaSuccess) err = bdl_map<D>(&mv, v, B, H, Lk, st[6], st[7], st[8], BLOCK_N, D);
+  } else {
+    if (err == cudaSuccess) err = bhld_map<D>(&mk, k, B, H, Lk, st[3], st[4], st[5], BLOCK_N);
+    if (err == cudaSuccess) err = bhld_map<D>(&mv, v, B, H, Lk, st[6], st[7], st[8], BLOCK_N);
+  }
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + C::BLOCK_M - 1) / C::BLOCK_M, B * H);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
@@ -399,13 +547,13 @@ cudaError_t launch_online(const void* q, const void* k, const void* v, void* o, 
 }
 
 // D -> its instantiation; cudaErrorInvalidValue for another D.
-template <bool WRITE_LSE, bool NOMAX = false>
+template <bool WRITE_LSE, bool NOMAX = false, bool CM = false>
 int launch_online_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Lq, int Lk,
                     int D, const long long* st, float q_scale, cudaStream_t s) {
   switch (D) {
-    case 40: return (int)launch_online<40, WRITE_LSE, NOMAX>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
-    case 80: return (int)launch_online<80, WRITE_LSE, NOMAX>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
-    case 160: return (int)launch_online<160, WRITE_LSE, NOMAX>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 40: return (int)launch_online<40, WRITE_LSE, NOMAX, CM>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 80: return (int)launch_online<80, WRITE_LSE, NOMAX, CM>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
+    case 160: return (int)launch_online<160, WRITE_LSE, NOMAX, CM>(q, k, v, o, lse, B, H, Lq, Lk, st, q_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

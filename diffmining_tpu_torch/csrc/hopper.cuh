@@ -166,7 +166,9 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const void* map, uint64_t
 
 // The operand lists below are spelled out: wgmma names every accumulator
 // register of the warpgroup's thread.
-// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B K-major in shared memory.
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A K-major in shared memory, B
+// K-major (TB = 0) or MN-major (TB = 1: the keys of a sequence-contiguous k).
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
@@ -181,7 +183,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       " %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55,"
       " %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n"
+      " %64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -191,7 +193,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory.
@@ -268,8 +270,10 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a, u
   wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
 }
 
-// D[64 x 40] += A[64 x 16] . B[16 x 40], A in registers, B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n40k16_rs_tb(float (&d)[20], const uint32_t (&a)[4], uint64_t desc_b) {
+// D[64 x 40] += A[64 x 16] . B[16 x 40], A in registers, B in shared memory
+// MN-major (TB = 1) or K-major (TB = 0).
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n40k16_rs(float (&d)[20], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -278,16 +282,18 @@ __device__ __forceinline__ void wgmma_m64n40k16_rs_tb(float (&d)[20], const uint
       "{%0, %1, %2, %3, %4, %5, %6, %7,"
       " %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19},"
-      " {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n"
+      " {%20, %21, %22, %23}, %24, p, 1, 1, %26;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TB));
 }
 
-// D[64 x 80] += A[64 x 16] . B[16 x 80], A in registers, B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n80k16_rs_tb(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b) {
+// D[64 x 80] += A[64 x 16] . B[16 x 80], A in registers, B in shared memory
+// MN-major (TB = 1) or K-major (TB = 0).
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -298,18 +304,20 @@ __device__ __forceinline__ void wgmma_m64n80k16_rs_tb(float (&d)[40], const uint
       " %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39},"
-      " {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
+      " {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TB));
 }
 
-// D[64 x 160] += A[64 x 16] . B[16 x 160], A in registers, B MN-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n160k16_rs_tb(float (&d)[80], const uint32_t (&a)[4], uint64_t desc_b) {
+// D[64 x 160] += A[64 x 16] . B[16 x 160], A in registers, B in shared memory
+// MN-major (TB = 1) or K-major (TB = 0).
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n160k16_rs(float (&d)[80], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -325,7 +333,7 @@ __device__ __forceinline__ void wgmma_m64n160k16_rs_tb(float (&d)[80], const uin
       " %56, %57, %58, %59, %60, %61, %62, %63,"
       " %64, %65, %66, %67, %68, %69, %70, %71,"
       " %72, %73, %74, %75, %76, %77, %78, %79},"
-      " {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n"
+      " {%80, %81, %82, %83}, %84, p, 1, 1, %86;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -337,23 +345,21 @@ __device__ __forceinline__ void wgmma_m64n160k16_rs_tb(float (&d)[80], const uin
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
         "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TB));
 }
 
-// O[64 x D] += P[64 x 16] . V[16 x D] for the head dims the kernels take.
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t desc_b);
-template <>
-__device__ __forceinline__ void wgmma_pv<40>(float (&d)[20], const uint32_t (&a)[4], uint64_t desc_b) {
-  wgmma_m64n40k16_rs_tb(d, a, desc_b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<80>(float (&d)[40], const uint32_t (&a)[4], uint64_t desc_b) {
-  wgmma_m64n80k16_rs_tb(d, a, desc_b);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<160>(float (&d)[80], const uint32_t (&a)[4], uint64_t desc_b) {
-  wgmma_m64n160k16_rs_tb(d, a, desc_b);
+// O[64 x D] += P[64 x 16] . V[16 x D] for the head dims the kernels take,
+// V MN-major (TB = 1, a head-dim-contiguous v) or K-major (TB = 0, a
+// sequence-contiguous v).
+template <int D, int TB = 1>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t desc_b) {
+  static_assert(D == 40 || D == 80 || D == 160, "head dims 40, 80 and 160");
+  if constexpr (D == 40)
+    wgmma_m64n40k16_rs<TB>(d, a, desc_b);
+  else if constexpr (D == 80)
+    wgmma_m64n80k16_rs<TB>(d, a, desc_b);
+  else
+    wgmma_m64n160k16_rs<TB>(d, a, desc_b);
 }
 
 // Host side: the tensor-map encoder, the 5-D tile map of a [B, H, L, D]
@@ -384,6 +390,28 @@ cudaError_t bhld_map(CUtensorMap* map, const void* base, int B, int H, int L, lo
   const cuuint64_t dims[5] = {8, (cuuint64_t)L, D / 8, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[4] = {(cuuint64_t)sl * 2, 16, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[5] = {8, (cuuint32_t)rows, D / 8, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The 5-D map (8 elements, D, ceil(L/8) chunks, H, B) of a channel-major
+// [B, H, L, D] view: L contiguous, element strides sb, sh and sd (each a
+// multiple of 8), cut in boxes of (8, drows, rows/8, 1, 1), so a tile lands
+// as [rows/8][drows][8 keys] of 16-byte cells. Rows past D (drows > D: the
+// pad of the k16 steps) and chunks past the last read as zeros; the caller
+// makes the last chunk's elements past L readable (L a multiple of 8, or a
+// padded buffer), and masks them.
+template <int D>
+cudaError_t bdl_map(CUtensorMap* map, const void* base, int B, int H, int L, long long sb, long long sh,
+                    long long sd, int rows, int drows) {
+  const auto encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[5] = {8, D, (cuuint64_t)(L + 7) / 8, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[4] = {(cuuint64_t)sd * 2, 16, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[5] = {8, (cuuint32_t)drows, (cuuint32_t)rows / 8, 1, 1};
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides, box,
                             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,

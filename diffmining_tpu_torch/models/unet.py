@@ -38,21 +38,37 @@ A value broadcasts over the batch (a batch-1 source tap feeds every row)
 and is cast to the activation's dtype; a ``(value, gate)`` tuple replaces
 the activation only where the scalar boolean ``gate`` (a Python bool or a
 0-d tensor) is true. Injection composes with ``ctx_tile`` for batch-1
-values; collection needs ``ctx_tile=1``. The channel-major transformer world
-(``DIFFMINING_TF_CMAJOR``) is not ported.
+values; collection needs ``ctx_tile=1``.
+
+The channel-major transformer world (JAX unet.py:181-229, :409-439), under
+``DIFFMINING_TF_CMAJOR=1``, read per call in ``Transformer2DModel.forward``
+as the JAX package reads it (the fused norm wins: with
+``UNetConfig.fused_norm`` the normal world runs). The transformer blocks
+then hold their activations [B, C, L] with L contiguous (the JAX package
+holds them [C, B, L]): proj_in's NCHW output and proj_out's NCHW input are
+free views of it, every projection contracts the channel axis with the same
+(LoRA-merged) weight (``Attention._proj_cm``), the context [B, Lk, C_ctx]
+is contracted on its last axis, GEGLU splits the channel axis, and the
+self-attention runs through ``ops.attention.sdpa_cbl``, whose kernels read
+q, k and v in that layout. The LayerNorms normalise the channel axis
+through ``F.layer_norm`` on the transposed view (PyTorch has no channel-axis
+LayerNorm, so each copies its input once). Taps are collected in the
+canonical [B, H, L, D] and injected values converted to [B, H*D, L], so
+taps cross worlds; the state-dict keys are the same.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffmining_tpu_torch.ops.attention import sdpa
+from diffmining_tpu_torch.ops.attention import sdpa, sdpa_cbl, split_cm
 from diffmining_tpu_torch.ops.fused_norm import gn_act_proj
 
 REMAT_POLICIES = ("full", "attn", "dots")
@@ -82,6 +98,59 @@ def _tap(h: torch.Tensor, tap: str, injection: Optional[Injection], collect: Opt
     if collect is not None:
         collect[tap] = h
     return h
+
+
+def _canonical_to_cm(a: torch.Tensor) -> torch.Tensor:
+    """[S, H, L, D] -> [S, H*D, L] (S may be 1 for a broadcast injection)."""
+    s, h, l, d = a.shape
+    return a.transpose(2, 3).reshape(s, h * d, l)
+
+
+def _injection_to_cm(injected):
+    """A canonical injected q/k (a value or a (value, gate) tuple) in the
+    channel-major layout."""
+    if isinstance(injected, tuple):
+        value, gate = injected
+        return _canonical_to_cm(value), gate
+    return _canonical_to_cm(injected)
+
+
+def _tap_cm(h: torch.Tensor, tap: str, heads: int, injection: Optional[Injection],
+            collect: Optional[Dict[str, torch.Tensor]]):
+    """``_tap`` for a channel-major [B, H*D, L] q or k: the injected value
+    converted from the canonical layout, the collected one viewed in it."""
+    if injection is not None and tap in injection:
+        h = _apply_injection(h, _injection_to_cm(injection[tap]))
+    if collect is not None:
+        collect[tap] = split_cm(h, heads)
+    return h
+
+
+def _channel_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``ln`` over the channel axis of channel-major [B, C, L] activations:
+    ``F.layer_norm`` on the [B, L, C] view (which copies it once), handed
+    back as a [B, C, L] view."""
+    return F.layer_norm(x.transpose(1, 2), ln.normalized_shape, ln.weight, ln.bias, ln.eps).transpose(1, 2)
+
+
+def _linear_cm(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``F.linear`` for channel-major x [B, C, L] -> [B, F, L] (L
+    contiguous), w [F, C]: one batched GEMM whose weight operand repeats
+    with a zero batch stride (``torch.matmul`` would copy the weight once an
+    image; under autocast both are cast before the weight is expanded, so it
+    is cast once), the bias added in the product's dtype."""
+    dev = x.device.type
+    if torch.is_autocast_enabled(dev):
+        dtype = torch.get_autocast_dtype(dev)
+        w, x = w.to(dtype), x.to(dtype)
+    y = torch.bmm(w.expand(x.shape[0], *w.shape), x)
+    return y if bias is None else y + bias.to(y.dtype)[:, None]
+
+
+def cmajor_world() -> bool:
+    """Whether the transformers run channel-major: DIFFMINING_TF_CMAJOR=1,
+    read per call as the JAX package does (unet.py:409)."""
+    return os.environ.get("DIFFMINING_TF_CMAJOR", "0") == "1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,16 +258,39 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
         self.lora: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
 
-    def _proj(self, name: str, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    def _weight(self, name: str, lin: nn.Linear, device_type: str) -> torch.Tensor:
+        """The projection's weight, with its LoRA factors merged if it has
+        any."""
         factors = self.lora.get(name) if self.lora else None
         if factors is None:
-            return lin(x)
+            return lin.weight
         a, b = factors
-        with torch.autocast(x.device.type, enabled=False):
-            w = lin.weight + (a @ b).t().to(lin.weight.dtype)
-        return F.linear(x, w, lin.bias)
+        with torch.autocast(device_type, enabled=False):
+            return lin.weight + (a @ b).t().to(lin.weight.dtype)
 
-    def forward(self, x, context=None, tap: str = "", injection: Optional[Injection] = None, collect=None):
+    def _proj(self, name: str, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        if not (self.lora and name in self.lora):
+            return lin(x)
+        return F.linear(x, self._weight(name, lin, x.device.type), lin.bias)
+
+    def _proj_cm(self, name: str, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """The projection of channel-major [B, C, L] input -> [B, F, L] with
+        the same weight (JAX DenseT, unet.py:181-208)."""
+        return _linear_cm(x, self._weight(name, lin, x.device.type), lin.bias)
+
+    def forward(self, x, context=None, tap: str = "", injection: Optional[Injection] = None, collect=None,
+                cmajor: bool = False):
+        if cmajor:
+            # x [B, C, L]; the context keeps its [B, Lk, C_ctx] and is
+            # contracted on its last axis
+            ctx = x if context is None else context.transpose(1, 2)
+            q = self._proj_cm("to_q", self.to_q, x)
+            k = self._proj_cm("to_k", self.to_k, ctx)
+            v = self._proj_cm("to_v", self.to_v, ctx)
+            if tap:
+                q = _tap_cm(q, f"{tap}.q", self.heads, injection, collect)
+                k = _tap_cm(k, f"{tap}.k", self.heads, injection, collect)
+            return self._proj_cm("to_out.0", self.to_out[0], sdpa_cbl(q, k, v, self.heads))
         ctx = x if context is None else context
         b, lq, _ = x.shape
         lk = ctx.shape[1]
@@ -224,13 +316,18 @@ class GEGLU(nn.Module):
         return h * F.gelu(gate)  # exact erf GELU, as diffusers
 
 
+
 class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         # index 1 is diffusers' Dropout(0.0): kept so the keys read net.0 / net.2
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
 
-    def forward(self, x):
+    def forward(self, x, cmajor: bool = False):
+        if cmajor:  # [B, C, L]: GEGLU splits the channel axis
+            proj, out = self.net[0].proj, self.net[2]
+            h, gate = _linear_cm(x, proj.weight, proj.bias).chunk(2, dim=1)
+            return _linear_cm(h * F.gelu(gate), out.weight, out.bias)
         return self.net[2](self.net[0](x))
 
 
@@ -245,15 +342,19 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, context, ctx_tile: int = 1, tap: str = "", injection: Optional[Injection] = None,
-                collect=None):
-        x = x + self.attn1(self.norm1(x), tap=f"{tap}.attn1" if tap else "", injection=injection, collect=collect)
+                collect=None, cmajor: bool = False):
+        # channel-major world: x is [B, C, L] and the LayerNorms normalise
+        # the channel axis; the batch axis is 0 in both worlds
+        norm = _channel_norm if cmajor else _call
+        x = x + self.attn1(norm(self.norm1, x), tap=f"{tap}.attn1" if tap else "", injection=injection,
+                           collect=collect, cmajor=cmajor)
         if ctx_tile > 1:
             # sweep prefix dedup: conditions first matter at the cross-
             # attention, so tile the batch here — entry i -> rows
             # [i*ctx_tile, (i+1)*ctx_tile), the engine's conditions-adjacent layout
             x = x.repeat_interleave(ctx_tile, dim=0)
-        x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+        x = x + self.attn2(norm(self.norm2, x), context, cmajor=cmajor)
+        return x + self.ff(norm(self.norm3, x), cmajor=cmajor)
 
 
 class Transformer2DModel(nn.Module):
@@ -272,6 +373,17 @@ class Transformer2DModel(nn.Module):
                 injection: Optional[Injection] = None, collect=None):
         b, c, h, w = x.shape
         res = x
+        if not fused_norm and cmajor_world():
+            # the channel-major world: [B, C, L] is a free view of proj_in's
+            # NCHW output and of proj_out's NCHW input
+            y = self.proj_in(self.norm(x)).reshape(b, c, h * w)
+            for i, blk in enumerate(self.transformer_blocks):
+                y = blk(y, context, ctx_tile=ctx_tile if i == 0 else 1, tap=f"{tap}.{i}" if tap else "",
+                        injection=injection, collect=collect, cmajor=True)
+            if ctx_tile > 1:
+                b = b * ctx_tile
+                res = res.repeat_interleave(ctx_tile, dim=0)
+            return self.proj_out(y.reshape(b, c, h, w)) + res
         if fused_norm:
             # one fused pass (no activation between them in diffusers); it
             # writes [B, H, W, C] directly, the blocks' [B, L, C] input

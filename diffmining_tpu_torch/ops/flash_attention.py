@@ -35,6 +35,22 @@ on the card (the UNet under ``--dtype fp32`` and ``finetune
 read into module attributes at import (``_ONESHOT``, ``_NOMAX``,
 ``_BLOCK_Q``, ``_BLOCK_K``) or at call time (``DIFFMINING_ATTN_TLAYOUT``).
 
+The channel-major layout (the UNet's ``DIFFMINING_TF_CMAJOR=1`` world, the
+counterpart of ``_flash_forward_cbl``, flash_attention.py:466-541): q, k,
+v and o are [B,H,L,D] views whose L stride is 1, such as [B, H*D, L] or
+the JAX package's [H*D, B, L]. ``flash_fwd_nomax_cm`` (K1, :499) and
+``flash_fwd_online_cm`` (K3, :517) launch the same two sources' kernels in
+that layout (and hand float32 to ``flash_fwd_nomax_cm_f32`` and
+``flash_fwd_online_cm_f32``, ``flash_fwd_f32``'s no-max and online modes
+in it); ``forward_route_cbl`` picks between them as ``_flash_forward_cbl``
+does (never K2); ``flash_attention_cbl`` adds the grad path, contiguous
+copies through ``FlashAttention`` as ``_fwd_cbl``/``_bwd_cbl`` do. They
+read the operands in place where the strides allow it (``cm_in_place``);
+otherwise (a length that is no whole number of 16-byte chunks, such as L
+1100 in bf16, or another layout) the wrapper copies the operand into a
+zero-padded [B, H*D, L'] buffer first, as the JAX package pads each
+image's segment (:481-487), and counts the copy in ``.copies``.
+
 ``FlashAttention`` is the counterpart of the JAX custom_vjp: its forward is
 flash_fwd_lse and saves (q, k, v, o, lse); its backward forms the
 pre-scaled q (``prescaled_q``) once and runs flash_bwd_dq, which also
@@ -100,6 +116,9 @@ ARGTYPES = {
     "flash_fwd_online": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
     "flash_fwd_lse": [_P] * 5 + [_I] * 5 + [_P, _F, _P],
     "flash_fwd_f32": [_P] * 5 + [_I] * 6 + [_P, _F, _P],
+    "flash_fwd_nomax_cm": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
+    "flash_fwd_online_cm": [_P] * 4 + [_I] * 5 + [_P, _F, _P],
+    "flash_fwd_f32_cm": [_P] * 4 + [_I] * 6 + [_P, _F, _P],
     "flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
     "flash_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P, _P],
     "flash_bwd_dq_f32": [_P] * 8 + [_I] * 5 + [_P, _F, _P],
@@ -108,7 +127,10 @@ ARGTYPES = {
     "gn_act_proj_f32": [_P] * 7 + [_I] * 5 + [_F] + [_LL] * 3 + [_I] + [_P],
 }
 F32_SOURCES = ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32", "gn_act_proj_f32")
-SOURCES = tuple(ARGTYPES)
+# the channel-major entry points, each in the source of its sequence-major twin
+ENTRY_SOURCE = {"flash_fwd_nomax_cm": "flash_fwd_nomax", "flash_fwd_online_cm": "flash_fwd_online",
+                "flash_fwd_f32_cm": "flash_fwd_f32"}
+SOURCES = tuple(name for name in ARGTYPES if name not in ENTRY_SOURCE)
 
 # The JAX package's forward gates (flash_attention.py:101-133), read from the
 # same environment variables at import; tests set the attributes directly.
@@ -156,6 +178,15 @@ def forward_route(lq: int, lk: int) -> str:
     if _nomax_auto(lq, lk):
         return "K2"
     return "K3"
+
+
+def forward_route_cbl(lq: int, lk: int) -> str:
+    """The TPU kernel ``_flash_forward_cbl`` launches at these lengths
+    (flash_attention.py:474-536): K1 (:499) when the key row is one block
+    under ``block_policy`` and one-shot is on, else K3 (:517). Never K2,
+    and ``DIFFMINING_ATTN_TLAYOUT`` does not enter."""
+    _, block_k = block_policy(lq, lk)
+    return "K1" if lk <= block_k and _oneshot_auto(lq) else "K3"
 
 
 def _prescale(q: torch.Tensor, scale: float) -> float:
@@ -259,6 +290,26 @@ def flash_fwd_online_plain(
     return flash_fwd_lse_plain(q, k, v, scale, block_k)[0]
 
 
+def cm_layout(o: torch.Tensor) -> torch.Tensor:
+    """A [B,H,L,D] tensor laid out as the channel-major kernels write it: a
+    view of a contiguous [B, H*D, L] buffer (a copy unless it already is)."""
+    return o.transpose(2, 3).contiguous().transpose(2, 3)
+
+
+def flash_fwd_nomax_cm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None):
+    """The channel-major K1's plain version: ``flash_attention_nomax_plain``
+    on the [B,H,L,D] views (the arithmetic does not depend on the layout),
+    laid out as the kernel's output (``cm_layout``)."""
+    return cm_layout(flash_attention_nomax_plain(q, k, v, scale))
+
+
+def flash_fwd_online_cm_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None,
+                              block_k: int | None = None) -> torch.Tensor:
+    """The channel-major K3's plain version: ``flash_fwd_online_plain`` on
+    the [B,H,L,D] views, laid out as the kernel's output."""
+    return cm_layout(flash_fwd_online_plain(q, k, v, scale, block_k))
+
+
 def _probs(qs: torch.Tensor, k: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
     """p = exp2(qs·kᵀ − lse·log2e) in fp32: the softmax re-formed from the
     forward's logsumexp, with no max (flash_attention.py:595, :632)."""
@@ -355,14 +406,17 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
 
 
 def _library(name: str):
+    """The loaded library that holds the C entry point ``name`` (built at
+    first use), with the entry point's argument types set."""
+    source = ENTRY_SOURCE.get(name, name)
     with _lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(build([name])[name]))
-            fn = getattr(lib, name)
-            fn.argtypes = ARGTYPES[name]
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
-        return _libs[name]
+        if source not in _libs:
+            _libs[source] = ctypes.CDLL(str(build([source])[source]))
+        lib = _libs[source]
+        fn = getattr(lib, name)
+        fn.argtypes = ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        return lib
 
 
 # ---------------------------------------------------------------------------
@@ -391,10 +445,11 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: torch.Tensor,
-           dtype: torch.dtype = torch.bfloat16) -> None:
+           dtype: torch.dtype = torch.bfloat16, strides: bool = True) -> None:
     """A kernel's [B,H,L,D] operands (``more``: dO and the like, q's shape):
-    all of ``dtype`` on one CUDA device, D one of the kernel's head dims, the
-    head dim contiguous, the other strides and the base 16-byte aligned."""
+    all of ``dtype`` on one CUDA device, D one of the kernel's head dims, and
+    with ``strides`` the head dim contiguous, the other strides and the base
+    16-byte aligned."""
     ts = (q, k, v, *more)
     if not all(t.is_cuda for t in ts):
         raise ValueError(f"{name}: every operand must be a CUDA tensor")
@@ -413,7 +468,7 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more: 
     dims = HEAD_DIMS if dtype == torch.bfloat16 else F32_HEAD_DIMS
     if d not in dims:
         raise ValueError(f"{name}: {dtype} head dim {d} is not one of {dims}")
-    for t in ts:
+    for t in ts if strides else ():
         if not _aligned(t):
             raise ValueError(f"{name}: strides and base must be 16-byte aligned with the head dim contiguous")
 
@@ -627,9 +682,117 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, qs, scale: float | None = None) -> Tup
     return out
 
 
+def cm_in_place(t: torch.Tensor) -> bool:
+    """Whether the channel-major kernels read this [B,H,L,D] view in place:
+    L stride 1, L a whole number of 16-byte chunks, the B, H and D strides
+    and the base 16-byte aligned."""
+    n = 16 // t.element_size()
+    return (t.stride(2) == 1 and t.shape[2] % n == 0 and not any(t.stride(i) % n for i in (0, 1, 3))
+            and t.data_ptr() % 16 == 0)
+
+
+def _cm_buffer(like: torch.Tensor, length: int, zero: bool = False) -> torch.Tensor:
+    """A [B,H,length,D] view of a [B, H*D, L'] buffer, L' the length rounded
+    up to a whole number of 16-byte chunks (the pad zeros with ``zero``)."""
+    b, h, _, d = like.shape
+    n = 16 // like.element_size()
+    padded = -(-length // n) * n
+    make = torch.zeros if zero else torch.empty
+    buf = make((b, h * d, padded), device=like.device, dtype=like.dtype)
+    return buf[:, :, :length].unflatten(1, (h, d)).transpose(2, 3)
+
+
+def _cm_operands(wrapper, *ts: torch.Tensor):
+    """The operands as the channel-major kernels read them: each in place
+    where ``cm_in_place`` allows, else copied into a zero-padded
+    channel-major buffer, counted in ``wrapper.copies``."""
+    out = []
+    for t in ts:
+        if not cm_in_place(t):
+            c = _cm_buffer(t, t.shape[2], zero=True)
+            c.copy_(t)
+            wrapper.copies += 1
+            t = c
+        out.append(t)
+    return out
+
+
+def _cm_strides(*ts: torch.Tensor):
+    """(batch, head, head dim) element strides of each operand."""
+    return (ctypes.c_longlong * (3 * len(ts)))(*[s for t in ts for s in (t.stride(0), t.stride(1), t.stride(3))])
+
+
+def _fwd_cm(wrapper, name: str, q, k, v, scale, mode=None):
+    """Launch a channel-major forward: ``name`` is the C entry point, ``mode``
+    flash_fwd_f32_cm's (None for the bf16 ones)."""
+    dtype = torch.bfloat16 if mode is None else torch.float32
+    _check(name, q, k, v, dtype=dtype, strides=False)
+    q, k, v = _cm_operands(wrapper, q, k, v)
+    b, h, lq, d = q.shape
+    out = _cm_buffer(q, lq)
+    args = (b, h, lq, k.shape[2], d) if mode is None else (b, h, lq, k.shape[2], d, F32_MODES[mode])
+    _launch(name, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args,
+            ctypes.cast(_cm_strides(q, k, v, out), _P), _prescale(q, _scale(q, scale)))
+    wrapper.launches += 1
+    return out
+
+
+def flash_fwd_nomax_cm_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None):
+    """K1 on channel-major float32 operands: ``flash_fwd_f32_cm``'s no-max
+    mode (``csrc/flash_fwd_f32.cu``). Its plain version is
+    ``flash_fwd_nomax_cm_plain`` at float32. ``.launches`` counts launches,
+    ``.copies`` the operands it had to copy."""
+    return _fwd_cm(flash_fwd_nomax_cm_f32, "flash_fwd_f32_cm", q, k, v, scale, "nomax")
+
+
+def flash_fwd_online_cm_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None):
+    """K3 on channel-major float32 operands: ``flash_fwd_f32_cm``'s online
+    mode. Its plain version is ``flash_fwd_online_cm_plain`` at float32 and
+    block_k ``F32_BLOCK_K``. ``.launches`` counts launches, ``.copies`` the
+    operands it had to copy."""
+    return _fwd_cm(flash_fwd_online_cm_f32, "flash_fwd_f32_cm", q, k, v, scale, "online")
+
+
+def flash_fwd_nomax_cm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None):
+    """K1 on channel-major operands (``_flash_forward_cbl``'s one-shot
+    launch, flash_attention.py:499): ``flash_fwd_nomax``'s arithmetic on
+    [B,H,Lq,D] and [B,H,Lk,D] views whose L stride is 1, read in place where
+    ``cm_in_place`` allows; -> [B,H,Lq,D] laid out [B, H*D, Lq]. Forward
+    only: it raises under grad. CPU tensors take
+    ``flash_fwd_nomax_cm_plain``, float32 CUDA tensors
+    ``flash_fwd_nomax_cm_f32``; ``.launches`` counts the bf16 kernel's
+    launches, ``.copies`` the operands it had to copy."""
+    if _requires_grad(q, k, v):
+        raise RuntimeError("flash_fwd_nomax_cm has no backward; under grad use flash_attention_cbl")
+    if q.device.type == "cpu":
+        return flash_fwd_nomax_cm_plain(q, k, v, scale)
+    if variant(q.dtype, q.shape[-1]):
+        return flash_fwd_nomax_cm_f32(q, k, v, scale)
+    return _fwd_cm(flash_fwd_nomax_cm, "flash_fwd_nomax_cm", q, k, v, scale)
+
+
+def flash_fwd_online_cm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None):
+    """K3 on channel-major operands (``_flash_forward_cbl``'s multi-block
+    launch, flash_attention.py:517): ``flash_fwd_online``'s arithmetic in
+    the layout of ``flash_fwd_nomax_cm``. Forward only. CPU tensors take
+    ``flash_fwd_online_cm_plain``, float32 CUDA tensors
+    ``flash_fwd_online_cm_f32``; ``.launches`` counts the bf16 kernel's
+    launches, ``.copies`` the operands it had to copy."""
+    if _requires_grad(q, k, v):
+        raise RuntimeError("flash_fwd_online_cm has no backward; under grad use flash_attention_cbl")
+    if q.device.type == "cpu":
+        return flash_fwd_online_cm_plain(q, k, v, scale)
+    if variant(q.dtype, q.shape[-1]):
+        return flash_fwd_online_cm_f32(q, k, v, scale)
+    return _fwd_cm(flash_fwd_online_cm, "flash_fwd_online_cm", q, k, v, scale)
+
+
 for _fn in (flash_fwd_nomax, flash_fwd_online, flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, flash_fwd_online_f32,
-            flash_fwd_nomax_f32, flash_fwd_lse_f32, flash_bwd_dq_f32, flash_bwd_dkv_f32):
+            flash_fwd_nomax_f32, flash_fwd_lse_f32, flash_bwd_dq_f32, flash_bwd_dkv_f32, flash_fwd_nomax_cm,
+            flash_fwd_online_cm, flash_fwd_nomax_cm_f32, flash_fwd_online_cm_f32):
     _fn.launches = 0
+for _fn in (flash_fwd_nomax_cm, flash_fwd_online_cm, flash_fwd_nomax_cm_f32, flash_fwd_online_cm_f32):
+    _fn.copies = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -660,3 +823,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     """Differentiable flash attention. q [B,H,Lq,D], k/v [B,H,Lk,D] ->
     [B,H,Lq,D]."""
     return FlashAttention.apply(q, k, v, scale)
+
+
+# the channel-major forward of each TPU kernel _flash_forward_cbl launches
+FORWARD_CM = {"K1": flash_fwd_nomax_cm, "K3": flash_fwd_online_cm}
+
+
+def flash_attention_cbl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """Flash attention on channel-major operands (counterpart of
+    ``flash_attention_cbl``, flash_attention.py:449-565): q [B,H,Lq,D], k/v
+    [B,H,Lk,D] views whose L stride is 1 -> [B,H,Lq,D] laid out [B, H*D,
+    Lq]. Without grad the forward ``forward_route_cbl`` names, in the
+    channel-major layout; under grad, as ``_fwd_cbl``/``_bwd_cbl``,
+    head-dim-contiguous copies through ``FlashAttention`` (K4, then K5 and
+    K6), whose gradients autograd hands back in the operands' layout."""
+    if _requires_grad(q, k, v):
+        return cm_layout(flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), scale))
+    return FORWARD_CM[forward_route_cbl(q.shape[2], k.shape[2])](q, k, v, scale)

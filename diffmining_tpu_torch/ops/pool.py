@@ -4,9 +4,10 @@ diffmining_tpu/ops/pool.py).
 
 The map ops take and return tensors on the caller's device (the card, on
 the mining path); suppression and top-k are host numpy, as in JAX, on
-tiny inputs (the candidate boxes of one image). The JAX package's C++ host
-fast path for the suppression (``native/boxops.cpp``) is not ported yet
-(ROADMAP A8); it gives the same greedy result as the numpy loop here.
+tiny inputs (the candidate boxes of one image). The suppression runs in
+C++ (``native/boxops.cpp``, built at first use with g++), as the JAX
+package's fast path does; ``get_non_overlapping_plain`` is the numpy loop,
+its plain version.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from diffmining_tpu_torch.native.boxops import non_overlap_suppress
 
 
 def _as_maps(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
@@ -64,7 +67,14 @@ def pixel_typicality_map(loss_grid: torch.Tensor, h: int, w: int) -> torch.Tenso
 def get_non_overlapping(boxes: np.ndarray, scores: np.ndarray, k: int) -> np.ndarray:
     """Greedy suppression: pick the highest-score box, drop every box that
     intersects it, repeat (reference utils.py:94-102). boxes [M, 4] as
-    (x_start, y_start, x_end, y_end); returns indices into boxes, at most k."""
+    (x_start, y_start, x_end, y_end); returns indices into boxes, at most k.
+    Through the C++ host op, which ranks the scores as float32 as the JAX
+    package's does."""
+    return non_overlap_suppress(boxes, scores, k)
+
+
+def get_non_overlapping_plain(boxes: np.ndarray, scores: np.ndarray, k: int) -> np.ndarray:
+    """``get_non_overlapping``'s plain version, the numpy loop."""
     order = np.argsort(-scores, kind="stable")
     picked = []
     bx = boxes[order]

@@ -7,7 +7,10 @@ of diffmining_tpu/typicality/engine.py).
 A Python loop over sample chunks; within a chunk the UNet batch is
 B·chunk·n_cond with the conditions of one (image, sample) adjacent, and the
 condition-independent UNet prefix runs once per (image, sample) (the
-``ctx_tile`` dedup, equal to tiling up front: tests/test_torch_port_unet.py). The sweep takes its random draws as arguments; ``draw``
+``ctx_tile`` dedup, equal to tiling up front: tests/test_torch_port_unet.py);
+``DIFFMINING_SWEEP_DEDUP=0`` (or ``TypicalityEngine(dedup_prefix=False)``)
+tiles the noisy latents and timesteps up front instead, as the reference
+does (JAX engine.py:103-126). The sweep takes its random draws as arguments; ``draw``
 makes them from a ``torch.Generator`` (the counterpart of
 ``sample_noise_and_t``), and ``SeededDraws`` seeds one generator per image
 from (seed, image uid), so an image's draws do not depend on its group.
@@ -15,6 +18,7 @@ from (seed, image uid), so an image's draws do not depend on its group.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -93,8 +97,12 @@ def sweep_losses(
     noises: torch.Tensor,  # [B, N, C, h, w] fp32
     ts: torch.Tensor,  # [B, N] int
     chunk: int,
+    dedup_prefix: bool = True,
 ) -> torch.Tensor:
-    """Per-pixel losses [B, N, n_cond, C, h, w] in fp16."""
+    """Per-pixel losses [B, N, n_cond, C, h, w] in fp16. ``dedup_prefix``:
+    the UNet takes the B·chunk unique rows and tiles them at its first
+    cross-attention (``ctx_tile``); off, the rows are tiled over the
+    conditions up front and the UNet runs at B·chunk·n_cond throughout."""
     B, C, h, w = latents.shape
     n_cond = ctx.shape[1]
     N = noises.shape[1]
@@ -107,9 +115,14 @@ def sweep_losses(
         noise_c = noises[:, c0:c0 + chunk].float()  # [B, chunk, C, h, w]
         t_c = ts[:, c0:c0 + chunk]
         noisy = add_noise(schedule, latents[:, None].float(), noise_c, t_c)  # fp32
-        # cond/null share the noisy latent and t: feed the B·chunk unique rows,
-        # the UNet tiles them at the first cross-attention (ctx_tile)
-        pred = unet(noisy.reshape(B * chunk, C, h, w).to(dtype), t_c.reshape(-1), ctx_b, ctx_tile=n_cond)
+        if dedup_prefix:
+            # cond/null share the noisy latent and t: feed the B·chunk unique
+            # rows, the UNet tiles them at the first cross-attention (ctx_tile)
+            pred = unet(noisy.reshape(B * chunk, C, h, w).to(dtype), t_c.reshape(-1), ctx_b, ctx_tile=n_cond)
+        else:
+            noisy_b = noisy[:, :, None].expand(B, chunk, n_cond, C, h, w).reshape(B * chunk * n_cond, C, h, w)
+            t_b = t_c[:, :, None].expand(B, chunk, n_cond).reshape(-1)
+            pred = unet(noisy_b.to(dtype), t_b, ctx_b)
         pred = pred.reshape(B, chunk, n_cond, C, h, w)
         # fp32 pred vs noise, elementwise MSE (reference compute.py:101)
         out[:, c0:c0 + chunk] = ((pred.float() - noise_c[:, :, None]) ** 2).half()
@@ -120,16 +133,20 @@ def sweep_losses(
 class TypicalityEngine:
     """The sweep over one latent-shape bucket. The UNet is already in its
     compute dtype (cast once by the SD bundle). With a ``mesh`` each rank
-    sweeps its own rows of a group (``shard``)."""
+    sweeps its own rows of a group (``shard``). ``dedup_prefix`` None reads
+    DIFFMINING_SWEEP_DEDUP (on unless "0"), as the JAX engine does."""
 
     unet: UNet2DCondition
     schedule: Schedule
     n_samples: int = 100
     chunk: int = 10
     mesh: Optional[Mesh] = None
+    dedup_prefix: Optional[bool] = None
     _warned_pad: bool = dataclasses.field(default=False, init=False, repr=False)
 
     def __post_init__(self):
+        if self.dedup_prefix is None:
+            self.dedup_prefix = os.environ.get("DIFFMINING_SWEEP_DEDUP", "1") != "0"
         # the loop needs chunk | n_samples; snap to the largest divisor
         if self.n_samples % self.chunk != 0:
             c = min(self.chunk, self.n_samples)
@@ -164,7 +181,8 @@ class TypicalityEngine:
         if ctx.ndim == 3:
             ctx = ctx[None].expand(latents.shape[0], *ctx.shape)
         dtype = self.unet.conv_in.weight.dtype
-        return sweep_losses(self.unet, self.schedule, latents.to(dtype), ctx, noises, ts, self.chunk)
+        return sweep_losses(self.unet, self.schedule, latents.to(dtype), ctx, noises, ts, self.chunk,
+                            self.dedup_prefix)
 
 
 def losses_to_reference_layout(losses) -> np.ndarray:

@@ -643,3 +643,118 @@ def test_f32_fused_norm_matches_plain_on_card(b, hh, ww, c, act, layout, mean):
         want = pfn.gn_act_proj_plain(x, gamma, beta, w, bias, 32, act=act)
     assert got.dtype == torch.float32 and got.shape == (b, hh, ww, c) and _f32_over(got, want) <= 1.0
     assert torch.equal(got, pfn.gn_act_proj(x, gamma, beta, w, bias, 32, act=act))
+
+
+# ------------------------------------------------ the channel-major layout
+
+
+def _cm_operands(b, h, lq, lk, d, dtype, layout, seed=0):
+    """q, k, v as [B, H, L, D] views whose L stride is 1: of [B, H*D, L]
+    tensors (the UNet's channel-major world) or of the JAX package's [H*D,
+    B, L]."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out = []
+    for n in (lq, lk, lk):
+        if layout == "bcl":
+            x = torch.randn(b, h * d, n, generator=gen, device="cuda").to(dtype)
+            out.append(pattn.split_cm(x, h))
+        else:
+            x = torch.randn(h * d, b, n, generator=gen, device="cuda").to(dtype)
+            out.append(x.view(h, d, b, n).permute(2, 0, 3, 1))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bcl", "cbl"])
+@pytest.mark.parametrize("kind", ["K1", "K3"])
+@pytest.mark.parametrize("b,lq,lk,d", [(2, 4096, 4096, 40), (2, 1024, 1024, 80), (1, 1024, 1024, 160),
+                                       (2, 1000, 1000, 40), (2, 1100, 1100, 160), (1, 200, 304, 80)])
+def test_cm_forwards_match_plain_on_card(layout, kind, b, lq, lk, d):
+    """The channel-major K1 and K3 (bf16) against their plain versions
+    (K1 within the p-flip bound, K3 one bf16 ulp at its own key tile), in place at aligned
+    lengths (no copy) and through a padded copy at L 1100; and bit for bit
+    the sequence-major kernel's output on head-dim-contiguous copies (the
+    same products and softmax, instruction for instruction)."""
+    _needs_gpu()
+    q, k, v = _cm_operands(b, 8, lq, lk, d, torch.bfloat16, layout)
+    fn = pfa.flash_fwd_nomax_cm if kind == "K1" else pfa.flash_fwd_online_cm
+    seq = pfa.flash_fwd_nomax if kind == "K1" else pfa.flash_fwd_online
+    copies, launches = fn.copies, fn.launches
+    got = fn(q, k, v)
+    assert fn.launches == launches + 1 and got.stride(2) == 1
+    assert fn.copies - copies == (0 if lq % 8 == 0 and lk % 8 == 0 else 3)
+    if kind == "K1":  # held to the p-flip bound, as K1 is on the path's shapes
+        assert _over_p_flip_bound(got, pfa.flash_attention_nomax_plain(q, k, v), q, k, v) <= 1.0
+    else:
+        assert _over_tolerance(got, pfa.flash_fwd_online_plain(q, k, v, block_k=pfa.ONLINE_BLOCK_K)) <= 1.0
+    assert torch.equal(got, seq(q.contiguous(), k.contiguous(), v.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bcl", "cbl"])
+@pytest.mark.parametrize("mode", ["online", "nomax"])
+@pytest.mark.parametrize("lq,lk,d", [(1024, 1024, 40), (1100, 1100, 80), (1000, 1000, 160), (200, 300, 64),
+                                     (1001, 1001, 40)])
+def test_cm_f32_forwards_match_plain_on_card(layout, mode, lq, lk, d):
+    """flash_fwd_f32's channel-major modes against their plain versions in
+    float32, TF32 off, within 2^-14 |plain| + 2^-14 rms, and against the
+    sequence-major modes on contiguous copies (the same logits and sums;
+    only the per-lane parts of the denominator add in another order); L
+    1001 goes through a padded copy."""
+    _needs_gpu()
+    q, k, v = _cm_operands(1, 4, lq, lk, d, torch.float32, layout)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if mode == "online":
+            fn, seq = pfa.flash_fwd_online_cm_f32, pfa.flash_fwd_online_f32
+            want = pfa.flash_fwd_online_plain(q, k, v, block_k=pfa.F32_BLOCK_K)
+            got = pfa.flash_fwd_online_cm(q, k, v)
+        else:
+            fn, seq = pfa.flash_fwd_nomax_cm_f32, pfa.flash_fwd_nomax_f32
+            want = pfa.flash_attention_nomax_plain(q, k, v)
+            got = pfa.flash_fwd_nomax_cm(q, k, v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert got.dtype == torch.float32 and got.stride(2) == 1 and fn.launches > 0
+    assert _f32_over(got, want) <= 1.0
+    assert _f32_over(got, seq(q.contiguous(), k.contiguous(), v.contiguous())) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sdpa_cbl_on_card(dtype):
+    """sdpa_cbl at a gated length: without grad one channel-major launch on
+    the operands in place, against the kernel's plain version (bf16 within
+    the p-flip bound); under grad K4, K5 and K6 on copies, the gradients
+    against the plain path's."""
+    _needs_gpu()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    leaves = [torch.randn(2, 8 * 80, 1024, generator=gen, device="cuda").to(dtype).requires_grad_(True)
+              for _ in range(3)]
+    fwd = pfa.flash_fwd_nomax_cm if dtype == torch.bfloat16 else pfa.flash_fwd_nomax_cm_f32
+    before = fwd.launches, fwd.copies
+    with torch.no_grad():
+        got = pattn.split_cm(pattn.sdpa_cbl(*leaves, 8), 8)
+        q, k, v = (pattn.split_cm(t.detach(), 8) for t in leaves)
+        want = pfa.flash_attention_nomax_plain(q, k, v)
+    assert (fwd.launches - before[0], fwd.copies - before[1]) == (1, 0)
+    if dtype == torch.bfloat16:
+        assert _over_p_flip_bound(got, want, q, k, v) <= 1.0
+    else:
+        assert _f32_over(got, want) <= 1.0
+    kernels = [pfa.flash_fwd_lse, pfa.flash_bwd_dq, pfa.flash_bwd_dkv]
+    if dtype == torch.float32:
+        kernels = [pfa.flash_fwd_lse_f32, pfa.flash_bwd_dq_f32, pfa.flash_bwd_dkv_f32]
+    counts = [f.launches for f in kernels]
+    pattn.sdpa_cbl(*leaves, 8).float().square().sum().backward()
+    assert [f.launches - c for f, c in zip(kernels, counts)] == [1, 1, 1]
+    grads = [t.grad.float() for t in leaves]
+    for t in leaves:
+        t.grad = None
+    pattn.sdpa_cbl_plain(*leaves, 8).float().square().sum().backward()
+    for g, t in zip(grads, leaves):
+        w = t.grad.float()
+        assert float((g - w).norm() / w.norm()) < (4e-2 if dtype == torch.bfloat16 else 1e-4)
