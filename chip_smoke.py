@@ -222,15 +222,28 @@ back to the CPU):
      10 K1 cm launches, against the normal world. (f) One pass in each world
      under DIFFMINING_ATTN_BACKEND=pallas in a process of its own: 32
      launches (every attention, cross-attention included) against auto.
+ 24. surface (run after phase 22, on phase 12's export): the port's last
+     surface, each part a process of its own, side by side. (a)
+     examples/run_tiny_pipeline_torch.py on the card: all nine stages of
+     the tiny product line. (b) scripts_gpu/typicality.sh cars on 2 decades
+     x 24 synthetic cars images at 256x384, 256x448 and 256x512 (K3 at L
+     1536-2048 on a default path, no mode flag): the sweep at N 100, the
+     clustering, the figures and the HTML; artifacts bit-equal to the
+     typicality command run directly, 5 K3 launches a UNet pass. (c) The
+     script with MESH_DP=1 (the sweep under torchrun, an NCCL group of one),
+     bit-equal to (b). (d) scripts_gpu/convert_models.py: verify_checkpoint
+     PASS. (e) K3 at the sweep's shapes against its plain version, with
+     times, the bound and sdpa's.
 Then one JSON line each for the slice, the float32 sweep, the training run,
 the float32 training run, the mining runs,
 X-ray, sampling, PnP, train_lora_8bit, parallel, clip, doersch,
-verify_checkpoint, the sweep over dp, mining over dp, the trainer over dp
-and the channel-major world, one of per-kernel numbers, and as the last line {"ok": true, "device":
-{...}}.
+verify_checkpoint, the sweep over dp, mining over dp, the trainer over dp,
+the channel-major world and the surface, one of per-kernel numbers, and as
+the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import glob
@@ -1342,11 +1355,47 @@ def phase_train(smi):
                 preview_s=preview_s, preview_launches=preview_launches, card=smi)
 
 
+def k3_case(g, name, b, h, l, d):
+    """K3 (bf16) at [b, h, l, d] on fused-QKV-like views against its plain
+    version at the kernel's key tile, with event and device times, the
+    plain version's, sdpa's and the bound. These launches are not the main
+    path's."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffmining_tpu_torch.ops import flash_attention as fa
+
+    def k3_plain(q, k, v):
+        return fa.flash_fwd_online_plain(q, k, v, block_k=fa.ONLINE_BLOCK_K)  # the kernel's key tiles
+
+    q, k, v = [torch.randn(b, l, h * d, generator=g, device="cuda").to(torch.bfloat16)
+               .view(b, l, h, d).transpose(1, 2) for _ in range(3)]
+    got = fa.flash_fwd_online(q, k, v)
+    torch.cuda.synchronize()
+    max_err, worst = kernel_error(got, plain_chunked(k3_plain, q, k, v))
+    # every shape is timed before a disagreement raises
+    ms = cuda_time_ms(lambda: fa.flash_fwd_online(q, k, v))
+    plain_ms = cuda_time_ms(lambda: plain_chunked(k3_plain, q, k, v), reps=3, warmup=1)
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    _, device_ms = device_split(lambda: fa.flash_fwd_online(q, k, v), "flash_fwd_online_kernel")
+    lib_device, _ = device_split(lambda: F.scaled_dot_product_attention(q, k, v), "")
+    bound, by, exp2 = training_bound("K3", b, h, l, d)
+    log(f"kernel K3 {name} B{b} H{h}: max|err| {max_err:.3g} = {worst:.3g} x tolerance  ms {ms:.4f}  "
+        f"device {device_ms:.4f}  plain {plain_ms:.3f}  sdpa forward {lib_ms:.4f} (device {lib_device:.4f})  "
+        f"bound {bound:.4f} ({by})  exp2 {exp2:.4f}")
+    if worst > 1.0 or not torch.isfinite(got).all():
+        raise AssertionError(f"K3 {name}: kernel disagrees with the plain version ({worst:.3g} x the tolerance)")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return dict(shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_device, library="sdpa forward",
+                bound_ms=bound, bound_by=by)
+
+
 def phase_inference_kernels(smi):
     """K3 and K7 against their plain versions at the mining path's shapes,
     with times and bounds. These launches are not the main path's."""
     import torch
-    import torch.nn.functional as F
 
     from diffmining_tpu_torch.ops import flash_attention as fa
     from diffmining_tpu_torch.ops.attention import sdpa_plain
@@ -1359,30 +1408,9 @@ def phase_inference_kernels(smi):
         return fa.flash_fwd_online_plain(q, k, v, block_k=fa.ONLINE_BLOCK_K)  # the kernel's key tiles
 
     results = {"K3": {}}
-    for name, (b, h, l, d) in [("L4096 D40", (8, 8, 4096, 40)), ("L1024 D80", (8, 8, 1024, 80)),
-                               ("L4096 D160", (2, 8, 4096, 160)), ("masked tail L1100 D160", (2, 8, 1100, 160))]:
-        q, k, v = [torch.randn(b, l, h * d, generator=g, device=dev).to(torch.bfloat16)
-                   .view(b, l, h, d).transpose(1, 2) for _ in range(3)]
-        got = fa.flash_fwd_online(q, k, v)
-        torch.cuda.synchronize()
-        max_err, worst = kernel_error(got, plain_chunked(k3_plain, q, k, v))
-        if worst > 1.0 or not torch.isfinite(got).all():
-            raise AssertionError(f"K3 {name}: kernel disagrees with the plain version ({worst:.3g} x the tolerance)")
-        ms = cuda_time_ms(lambda: fa.flash_fwd_online(q, k, v))
-        plain_ms = cuda_time_ms(lambda: plain_chunked(k3_plain, q, k, v), reps=3, warmup=1)
-        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        _, device_ms = device_split(lambda: fa.flash_fwd_online(q, k, v), "flash_fwd_online_kernel")
-        lib_device, _ = device_split(lambda: F.scaled_dot_product_attention(q, k, v), "")
-        bound, by, exp2 = training_bound("K3", b, h, l, d)
-        results["K3"][name] = dict(shape=[b, h, l, d], max_abs_err=max_err, err_over_tol=worst, ms=ms,
-                                   device_ms=device_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                   library_device_ms=lib_device, library="sdpa forward",
-                                   bound_ms=bound, bound_by=by)
-        log(f"kernel K3 {name} B{b} H{h}: max|err| {max_err:.3g} = {worst:.3g} x tolerance  ms {ms:.4f}  "
-            f"device {device_ms:.4f}  plain {plain_ms:.3f}  sdpa forward {lib_ms:.4f} (device {lib_device:.4f})  "
-            f"bound {bound:.4f} ({by})  exp2 {exp2:.4f}")
-        del q, k, v, got
-        torch.cuda.empty_cache()
+    for name, shape in [("L4096 D40", (8, 8, 4096, 40)), ("L1024 D80", (8, 8, 1024, 80)),
+                        ("L4096 D160", (2, 8, 4096, 160)), ("masked tail L1100 D160", (2, 8, 1100, 160))]:
+        results["K3"][name] = k3_case(g, name, *shape)
 
     # the underflow edge: every natural logit -95, where the no-max kernel
     # gives zeros; K3 keeps the running max and gives the softmax
@@ -4253,6 +4281,296 @@ def phase_train_dp(smi, pipeline_dir):
                 wall_s=time.perf_counter() - t0, card=smi)
 
 
+# Phase 24's stand-in interpreter: the stand-in `python` (and `torchrun`, as
+# `-m torch.distributed.run`) that phase 24 puts first on PATH runs this
+# file first. argv: as python's (`[-u] -m MODULE ARGS` or `SCRIPT ARGS`).
+# It runs the command as python would, with sys.executable pointing back at
+# the stand-in so that torchrun's workers come through here too, and at exit
+# writes to $SURFACE_COUNTS/{pid}.json the command, the launches each kernel
+# wrapper counted in this process, the process groups it joined, whether
+# torchrun started it and its start and end on the host's clock.
+SURFACE_BOOT = r"""
+import atexit, json, os, runpy, sys, time
+started = time.time()
+import torch.distributed as dist
+argv = sys.argv[1:]
+while argv and argv[0] == "-u":
+    argv = argv[1:]
+backends, init = [], dist.init_process_group
+
+
+def init_process_group(*a, **k):
+    out = init(*a, **k)
+    backends.append(dist.get_backend())
+    return out
+
+
+def dump():
+    fa = sys.modules.get("diffmining_tpu_torch.ops.flash_attention")
+    fn = sys.modules.get("diffmining_tpu_torch.ops.fused_norm")
+    launches = {n: getattr(fa, n).launches for n in ("flash_fwd_nomax", "flash_fwd_online", "flash_fwd_lse",
+                                                     "flash_fwd_nomax_f32", "flash_fwd_online_f32",
+                                                     "flash_fwd_nomax_cm", "flash_fwd_online_cm")} if fa else {}
+    if fn is not None:
+        launches["gn_act_proj"] = fn.gn_act_proj.launches
+    out = os.path.join(os.environ["SURFACE_COUNTS"], f"{os.getpid()}.json")
+    with open(out + ".tmp", "w") as f:
+        json.dump(dict(argv=argv, launches=launches, backends=backends, torchrun="TORCHELASTIC_RUN_ID" in os.environ,
+                       started=started, ended=time.time()), f)
+    os.replace(out + ".tmp", out)  # whole when it appears: phase 24 polls for it
+
+
+dist.init_process_group = init_process_group
+atexit.register(dump)
+sys.executable = os.environ["SURFACE_PYTHON"]
+if argv[0] == "-m":
+    sys.argv = argv[1:]
+    runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+else:
+    sys.argv = argv
+    sys.path.insert(0, os.path.dirname(os.path.abspath(argv[0])))
+    runpy.run_path(argv[0], run_name="__main__")
+"""
+CARS_SHAPES = [(256, 384, 8), (256, 448, 8), (256, 512, 8)]  # (H, W, images a decade)
+CARS_DECADES = {"1950": 1954, "1980": 1986}
+
+
+SWEEP_ARGV = ["-m", "diffmining_tpu_torch.typicality.compute"]
+
+
+def count_files(path):
+    out = []
+    for name in sorted(os.listdir(path)):
+        if name.endswith(".json"):
+            with open(os.path.join(path, name)) as f:
+                out.append(json.load(f))
+    return out
+
+
+def phase_surface(smi, pipeline_dir):
+    """The last surface of the port, each part a process of its own, side by
+    side on the card: (b) and (c) from the start; the direct command, (a)
+    and (d) once the two scripts' sweeps are done, beside their mining
+    stages. (a) examples/run_tiny_pipeline_torch.py: all
+    nine stages of the tiny product line on CUDA tensors in one process
+    (no attention reaches the kernels' gate at 32-128 px). (b) `bash
+    scripts_gpu/typicality.sh cars PIPE DATA 4` on phase 12's SD-v1.5-width
+    export over a synthetic cars set (a folder of PNGs beside DATA.json with
+    a year each): 2 decades x 8 images at each of 256x384, 256x448 and
+    256x512, so the level-0 self-attention runs at L 1536, 1792 and 2048,
+    K3's lengths on a default path; every group is full (batch_images 8),
+    and 24 images of 5 patches a decade give the figure stage (clusters of
+    at least 5 of 32) clusters to draw. The script runs the sweep at its
+    defaults (N 100, bf16), `cluster --cluster`, the figures and the HTML;
+    the pt mode skips itself (no vanilla SD dir). Its artifacts are finite
+    fp16 [100, 2, 4, 32, W/8] and bit-equal to the same typicality command
+    run directly; the sweep launched K3 5 times a UNet pass and no other
+    kernel; the cluster pickles, the figures and index.html are written.
+    (c) The script again with MESH_DP=1: the sweep under torchrun, an NCCL
+    group of one, bit-equal to (b). (d) `scripts_gpu/convert_models.py PIPE
+    OUT`: verify_checkpoint PASS on the card. The scripts' python and
+    torchrun are stand-ins that run SURFACE_BOOT, which reads each
+    process's launch counts. (e) K3 bf16 at the sweep's batch shapes (B16
+    H8 D40 at L 1536, 1792, 2048) against its plain version, with times,
+    the bound and sdpa's time."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    work = os.path.join(ROOT, "build", "chip_smoke_surface")
+    shutil.rmtree(work, ignore_errors=True)
+    bin_dir = os.path.join(work, "bin")
+    os.makedirs(bin_dir)
+    boot = os.path.join(work, "surface_boot.py")
+    with open(boot, "w") as f:
+        f.write(SURFACE_BOOT)
+    for name, extra in (("python", ""), ("torchrun", " -m torch.distributed.run")):
+        with open(os.path.join(bin_dir, name), "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "{boot}"{extra} "$@"\n')
+        os.chmod(os.path.join(bin_dir, name), 0o755)
+    data = os.path.join(work, "data", "cars")
+    os.makedirs(data)
+    rng = np.random.RandomState(SEED + 41)
+    meta, widths = {}, {}
+    for decade, year in CARS_DECADES.items():
+        for h, w, n in CARS_SHAPES:
+            for i in range(n):
+                name = f"car_{decade}_{w}_{i}.png"  # unique: an image's draws key on its file name
+                Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).save(os.path.join(data, name),
+                                                                                    compress_level=1)
+                meta[name], widths[name] = {"year": year + i % 3}, w
+    with open(data + ".json", "w") as f:
+        json.dump(meta, f)
+    groups = sum(n // 8 for _h, _w, n in CARS_SHAPES) * len(CARS_DECADES)
+    N = 100  # the CLI's default, which the script keeps
+
+    def env_for(tag, **extra):
+        counts = os.path.join(work, f"{tag}_counts")
+        os.makedirs(counts)
+        return dict(os.environ, PYTHONPATH=ROOT, PATH=f"{bin_dir}:{os.environ['PATH']}", SURFACE_COUNTS=counts,
+                    SURFACE_PYTHON=os.path.join(bin_dir, "python"), **extra), counts
+
+    procs = {}
+
+    def start(tag, cmd, cwd, env):
+        os.makedirs(cwd, exist_ok=True)
+        log_path = os.path.join(work, f"{tag}.log")
+        with open(log_path, "w") as out:
+            procs[tag] = (subprocess.Popen(cmd, cwd=cwd, env=env, stdout=out, stderr=subprocess.STDOUT),
+                          log_path, time.perf_counter())
+
+    script = os.path.join(ROOT, "scripts_gpu", "typicality.sh")
+    env_b, counts_b = env_for("script")
+    env_c, counts_c = env_for("mesh", MESH_DP="1")
+    env_d, counts_d = env_for("direct")
+    direct_tree = os.path.join(work, "direct", "tree")
+
+    def sweep_done(counts):
+        return any(r["argv"][:2] == SWEEP_ARGV for r in count_files(counts))
+
+    t0 = time.perf_counter()
+    start("script", ["bash", script, "cars", pipeline_dir, data, "4"], os.path.join(work, "b"), env_b)
+    start("mesh", ["bash", script, "cars", pipeline_dir, data, "4"], os.path.join(work, "c"), env_c)
+    wall, failed, printed, later = {}, [], {}, True
+    try:
+        while len(wall) < len(procs):
+            if later and sweep_done(counts_b) and sweep_done(counts_c):
+                # the scripts' sweeps are done: the direct command's sweep, (a) and (d) beside their mining stages
+                later = False
+                start("direct", [os.path.join(bin_dir, "python"), *SWEEP_ARGV, "--typicality_path", direct_tree,
+                                 "-i", data, "-m", pipeline_dir, "--submission_path",
+                                 os.path.join(work, "direct", "subs"), "--make_submission", "--sub_split", "1",
+                                 "--which", "cars", "--t_min", "0.1", "--t_max", "0.7", "--device", "cuda"],
+                      os.path.join(work, "direct"), env_d)
+                start("example", [sys.executable, os.path.join(ROOT, "examples", "run_tiny_pipeline_torch.py"),
+                                  os.path.join(work, "example")], work, dict(os.environ, PYTHONPATH=ROOT))
+                start("convert", [sys.executable, os.path.join(ROOT, "scripts_gpu", "convert_models.py"),
+                                  pipeline_dir, os.path.join(work, "converted")], work, dict(os.environ, PYTHONPATH=ROOT))
+            for tag, (p, log_path, t) in list(procs.items()):
+                if tag not in wall and p.poll() is not None:
+                    wall[tag] = time.perf_counter() - t
+                    if p.returncode != 0:
+                        failed.append(tag)
+            if time.perf_counter() - t0 > 900:
+                raise AssertionError(f"surface: {sorted(set(procs) - set(wall))} still running after 900 s")
+            time.sleep(0.2)
+    finally:
+        for p, _, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for tag, (_, log_path, _) in procs.items():
+        with open(log_path) as f:
+            text = f.read()
+        if tag in failed:
+            raise AssertionError(f"surface {tag}: exited {procs[tag][0].returncode}: {text[-3000:]}")
+        printed[tag] = text
+    together_s = time.perf_counter() - t0
+
+    # (a) the tiny example: every stage printed, its outputs on disk
+    ex_out, ex_root = printed["example"], os.path.join(work, "example")
+    stages = re.findall(r"^\[(\d)\] ", ex_out, re.M)
+    ex_files = ["typicality/1930/img_1930_0.npy", "cache/clusters/1930.pkl", "html/index.html",
+                "figures/ft/0.1-0.7/clusters/1930_ranked.png", "doersch/ftt/1930/top_42_50_6_hog_final.png",
+                "translated/France/projected--France__a1_0.jpg", "pcache/clusters/all.pkl",
+                "clip_cache/diff/figures/France.png", "clip_cache/diff/figures/Japan.png"]
+    missing = [p for p in ex_files if not os.path.isfile(os.path.join(ex_root, p))]
+    if stages != [str(i) for i in range(9)] or missing:
+        raise AssertionError(f"surface (a): stages {stages}, missing {missing}")
+    a = np.load(os.path.join(ex_root, ex_files[0]))
+    if a.shape != (8, 2, 4, 16, 16) or a.dtype != np.float16 or not np.isfinite(a.astype(np.float32)).all():
+        raise AssertionError(f"surface (a): artifact {a.shape} {a.dtype}")
+    log(f"surface (a): examples/run_tiny_pipeline_torch.py on the card, all nine stages in one process, "
+        f"{wall['example']:.1f} s; its files present")
+
+    # (b) the script's tree against the direct command's, and its launches
+    names = sorted(meta)
+
+    def tree_of(root):
+        out = {}
+        for name in names:
+            decade = str(meta[name]["year"] // 10 * 10)
+            out[name] = np.load(os.path.join(root, decade, name.replace(".png", ".npy")))
+        return out
+
+    res_b = os.path.join(work, "b", "results", "cars")
+    typ = os.path.join("typicality", "ft", "0.1-0.7")
+    got_b, got_d = tree_of(os.path.join(res_b, typ)), tree_of(direct_tree)
+    got_c = tree_of(os.path.join(work, "c", "results", "cars", typ))
+    bad = [n for n, x in got_b.items() if x.shape != (N, 2, 4, 32, widths[n] // 8) or x.dtype != np.float16
+           or not np.isfinite(x.astype(np.float32)).all()]
+    differ_d = [n for n in names if not np.array_equal(got_b[n], got_d[n])]
+    differ_c = [n for n in names if not np.array_equal(got_b[n], got_c[n])]
+    outputs = [os.path.join(res_b, "cache", "ft", "0.1-0.7", "clusters", f"{d}.pkl") for d in CARS_DECADES] + [
+        os.path.join(res_b, "figures", "ft", "0.1-0.7", "clusters", f"{d}_ranked.png") for d in CARS_DECADES] + [
+        os.path.join(res_b, "html", "index.html")]
+    absent = [p for p in outputs if not os.path.isfile(p)]
+    ranked = os.path.join(res_b, "cache", "ft", "0.1-0.7", "images", "clusters", "ranked", "dift-161")
+    sizes = {d: sorted(collections.Counter(f.split("-")[0] for f in os.listdir(os.path.join(ranked, d))).values(),
+                       reverse=True) for d in CARS_DECADES if os.path.isdir(os.path.join(ranked, d))}
+    if bad or differ_d or differ_c or absent or "skipping pt mode" not in printed["script"]:
+        raise AssertionError(f"surface (b)/(c): artifacts not [100, 2, 4, 32, W/8] finite fp16: {bad[:4]}; not "
+                             f"bit-equal to the direct command: {differ_d[:4]}; the MESH_DP=1 run not bit-equal: "
+                             f"{differ_c[:4]}; missing {absent}")
+
+    def sweep_of(counts, torchrun):
+        runs = [r for r in count_files(counts) if r["argv"][:2] == SWEEP_ARGV]
+        if len(runs) != 1 or runs[0]["torchrun"] != torchrun:
+            raise AssertionError(f"surface: sweep processes {runs}")
+        return runs[0]
+
+    sweep_b, sweep_d, sweep_c = sweep_of(counts_b, False), sweep_of(counts_d, False), sweep_of(counts_c, True)
+    passes = groups * N
+    for tag, r in (("script", sweep_b), ("direct", sweep_d), ("MESH_DP=1", sweep_c)):
+        others = {k: v for k, v in r["launches"].items() if k != "flash_fwd_online" and v}
+        if r["launches"].get("flash_fwd_online") != 5 * passes or others:
+            raise AssertionError(f"surface {tag}: launches {r['launches']}, expected 5 K3 x {passes} UNet passes")
+    if sweep_c["backends"] != ["nccl"] or sweep_b["backends"] or sweep_d["backends"]:
+        raise AssertionError(f"surface: process groups {sweep_b['backends']}, {sweep_d['backends']}, "
+                             f"{sweep_c['backends']}")
+    script_runs = count_files(counts_b)
+    k3_script = sum(r["launches"].get("flash_fwd_online", 0) for r in script_runs)
+    k3_dift = k3_script - sweep_b["launches"]["flash_fwd_online"]
+    def stage(r):
+        return r["argv"][1] + (" --cluster" if "--cluster" in r["argv"] else "") + (
+            " --figure_path" if "--figure_path" in r["argv"] else "")
+
+    by_module = {stage(r): r["launches"] for r in script_runs}
+    stage_s = {tag: {stage(r): r["ended"] - r["started"] for r in count_files(c)}
+               for tag, c in (("script", counts_b), ("mesh", counts_c), ("direct", counts_d))}
+    rates = re.findall(r"typicality: (\d+)/(\d+) images \(([\d,.]+) imgs/hr\)", printed["script"])
+    log(f"surface (b): scripts_gpu/typicality.sh cars over {len(names)} images ({groups} full groups of 8, N={N}): "
+        f"{wall['script']:.1f} s of script beside (c), then the direct command, (a) and (d); artifacts "
+        f"[100, 2, 4, 32, W/8] fp16 finite, bit-equal to the direct command's ({wall['direct']:.1f} s); K3 "
+        f"launched {sweep_b['launches']['flash_fwd_online']} times in the sweep = 5 x {passes} UNet passes, "
+        f"{k3_dift} more in the cluster stage's DIFT passes; launches by process {by_module}; cluster pickles, "
+        f"figures and index.html written; members a cluster, by decade {sizes}")
+    log(f"surface (b): seconds a process (script, MESH_DP=1, direct; side by side): {stage_s}; the script's "
+        f"sweep's last progress line {rates[-1] if rates else None}")
+    log(f"surface (c): MESH_DP=1, the sweep under torchrun (an NCCL group of one: {sweep_c['backends']}), "
+        f"{wall['mesh']:.1f} s of script; every artifact bit-equal to (b)'s")
+
+    # (d) the conversion
+    conv = printed["convert"]
+    if "verify_checkpoint: PASS" not in conv or re.search(r"\] FAIL", conv):
+        raise AssertionError(f"surface (d): {conv[-2000:]}")
+    log(f"surface (d): scripts_gpu/convert_models.py on phase 12's export: verify_checkpoint PASS on the card, "
+        f"{wall['convert']:.1f} s")
+    shutil.rmtree(os.path.join(work, "converted"), ignore_errors=True)
+
+    # (e) K3 at the sweep's batch shapes
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 42)
+    k3 = {f"cars L{32 * w // 8} D40": k3_case(g, f"cars L{32 * w // 8} D40", 16, 8, 32 * w // 8, 40)
+          for _h, w, _n in CARS_SHAPES}
+    log(f"surface: (a)-(d) and the direct command together {together_s:.1f} s, on {smi}")
+    return dict(images=len(names), groups=groups, N=N, k3_sweep_launches=sweep_b["launches"]["flash_fwd_online"],
+                k3_dift_launches=k3_dift, k3_script_launches=k3_script, launches_by_process=by_module,
+                mesh_k3_launches=sweep_c["launches"]["flash_fwd_online"],
+                direct_k3_launches=sweep_d["launches"]["flash_fwd_online"], bit_equal_direct=len(names),
+                bit_equal_mesh=len(names), wall_s=wall, stage_s=stage_s, together_s=together_s, kernels=k3, card=smi)
+
+
 TRAIN_KERNELS = {
     "K4": ("flash_fwd_lse", "diffmining_tpu_torch/csrc/flash_fwd_lse.cu",
            "diffmining_tpu/ops/flash_attention.py:37 (_flash_kernel, via _flash_forward(return_lse=True) :142)"),
@@ -4966,8 +5284,10 @@ def main() -> int:
         sweep_dp.pop(k)
     done("mining dp")
     train_dp = phase_train_dp(smi, export_dir)
-    shutil.rmtree(export_dir, ignore_errors=True)
     done("train dp")
+    surface = phase_surface(smi, export_dir)
+    shutil.rmtree(export_dir, ignore_errors=True)
+    done("surface")
     shutil.rmtree(pnp_work, ignore_errors=True)
     shutil.rmtree(mining_work["root"], ignore_errors=True)
 
@@ -4997,8 +5317,14 @@ def main() -> int:
         entry["launches_by_path"] = by_train
         entries.append(entry)
     for kind, (name, source, replaces, main_case) in INFERENCE_KERNELS.items():
-        entries.append(kernel_entry(name, source, replaces, mining["runs"]["modes"]["launches"][name],
-                                    infer_kern[kind], main_case))
+        paths = {"mining, modes on": mining["runs"]["modes"]["launches"][name]}
+        cases = infer_kern[kind]
+        if kind == "K3":  # K3 on a default path: the free-aspect cars sweep through typicality.sh (phase 24)
+            paths["typicality.sh cars"] = surface["k3_script_launches"]
+            cases = {**cases, **surface["kernels"]}
+        entry = kernel_entry(name, source, replaces, sum(paths.values()), cases, main_case)
+        entry["launches_by_path"] = paths
+        entries.append(entry)
     # the channel-major kernels (phase 23): launches on the world's passes and CLI run
     cm_paths = {
         "flash_fwd_nomax_cm": {"cmajor 512px pass": cmajor["bf16_pass"]["launches"]["flash_fwd_nomax_cm"],
@@ -5056,6 +5382,7 @@ def main() -> int:
     print(json.dumps({"mining_dp": mining_dp}))
     print(json.dumps({"train_dp": train_dp}))
     print(json.dumps({"cmajor": {k: v for k, v in cmajor.items() if k != "kernels"}}))
+    print(json.dumps({"surface": {k: v for k, v in surface.items() if k != "kernels"}}))
     print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

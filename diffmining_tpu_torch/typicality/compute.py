@@ -38,10 +38,10 @@ import torch
 import torch.nn as nn
 
 from diffmining_tpu_torch.diffusion.schedule import Schedule, make_schedule
-from diffmining_tpu_torch.models.clip import CLIP_VIT_L_TEXT, CLIPTextConfig, CLIPTextModel
+from diffmining_tpu_torch.models.clip import CLIP_VIT_L_TEXT, TINY_CLIP_TEXT, CLIPTextConfig, CLIPTextModel
 from diffmining_tpu_torch.models.tokenizer import CLIPTokenizer, tiny_tokenizer
-from diffmining_tpu_torch.models.unet import SD15_UNET, UNet2DCondition, UNetConfig
-from diffmining_tpu_torch.models.vae import SD15_VAE, AutoencoderKL, VAEConfig, sample_latent
+from diffmining_tpu_torch.models.unet import SD15_UNET, TINY_UNET, UNet2DCondition, UNetConfig
+from diffmining_tpu_torch.models.vae import SD15_VAE, TINY_VAE, AutoencoderKL, VAEConfig, sample_latent
 from diffmining_tpu_torch.parallel.mesh import Mesh, cli_mesh, destroy, host_barrier, is_writer
 from diffmining_tpu_torch.typicality.engine import SeededDraws, TypicalityEngine, losses_to_reference_layout
 from diffmining_tpu_torch.typicality.templates import get_decade, typicality_prompts
@@ -169,6 +169,14 @@ class SD:
         return cls(which, unet, vae, clip, tiny_tokenizer(clip_config.vocab_size), make_schedule(),
                    list(categories), dtype, device)
 
+    @classmethod
+    def init_tiny(cls, which: str, categories: Sequence[str], seed: int = 0, device="cuda") -> "SD":
+        """The tiny random stack in float32 (reference compute.py:172): the
+        whole product line runs on it in seconds. Its weights come from a
+        seeded ``torch.Generator``, not from JAX's threefry."""
+        return cls.init_random(which, categories, TINY_UNET, TINY_VAE, TINY_CLIP_TEXT, seed=seed,
+                               dtype=torch.float32, device=device)
+
     @torch.inference_mode()
     def encode_moments(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B, 3, H, W] in [-1, 1] -> the VAE posterior (mean, logvar)."""
@@ -273,6 +281,9 @@ class D:
         emb = self.sd.country_embeds
         return torch.stack([emb[country], emb[""]], dim=0)
 
+    def compute(self, country: str, path: str) -> None:
+        self.compute_batch([(path, country)])
+
     def _load(self, path: str) -> np.ndarray:
         return load_image(path, self.which, self.bucket_size, native=self.native_res)[0]
 
@@ -366,6 +377,15 @@ class D:
         for b, path in enumerate(paths):
             atomic_save_npy(self.get_path(path), losses_to_reference_layout(host[b]))
         return n_real
+
+
+def get_country(path: str) -> str:
+    """The country of a geo file name, ``[gt--|inverted--|...]{country}__{sid}``
+    (reference compute.py:425)."""
+    country = os.path.split(path)[-1].split("__")[0]
+    if "--" in country:
+        country = country.split("--")[1]
+    return country
 
 
 class Typicality:
